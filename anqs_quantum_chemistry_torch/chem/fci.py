@@ -1,0 +1,87 @@
+"""Sector enumeration and the exact sector ground state from the Pauli form.
+
+``sector_determinants`` is the JAX package's ``chem/fci.py`` enumeration as a
+sorted uint64 array. ``sector_hamiltonian`` builds the sparse Hamiltonian of
+the (N_alpha, N_beta) sector straight from the grouped Pauli terms, in
+float64 -- the oracle that ``chem/molecule.py`` uses to fill in an FCI
+energy a molecule file lacks, and ``chip_smoke.py`` uses as its Rayleigh
+quotient reference.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import scipy.sparse
+import scipy.sparse.linalg
+
+from .jw import PauliHamiltonian, words_to_uint64
+
+_U = np.uint64
+
+
+def sector_determinants(n_so: int, n_alpha: int, n_beta: int) -> np.ndarray:
+    """All determinants with the given alpha/beta electron counts (alpha on
+    even qubits, beta on odd), sorted, as uint64."""
+    alphas = [
+        sum(1 << (2 * o) for o in occ)
+        for occ in itertools.combinations(range(n_so // 2), n_alpha)
+    ]
+    betas = [
+        sum(1 << (2 * o + 1) for o in occ)
+        for occ in itertools.combinations(range(n_so // 2), n_beta)
+    ]
+    a = np.asarray(alphas, dtype=_U)
+    b = np.asarray(betas, dtype=_U)
+    return np.sort((a[:, None] | b[None, :]).reshape(-1))
+
+
+def _parity64(x: np.ndarray) -> np.ndarray:
+    """popcount(x) mod 2 of uint64 values."""
+    for s in (32, 16, 8, 4, 2, 1):
+        x = x ^ (x >> _U(s))
+    return x & _U(1)
+
+
+def sector_matrix_elements(ham: PauliHamiltonian, dets: np.ndarray,
+                           row_chunk: int = 2048) -> np.ndarray:
+    """(N, M) float64 elements <x ^ A_m | H | x> for uint64 ``dets``."""
+    b = words_to_uint64(ham.b_words)
+    w = np.asarray(ham.weights, np.float64)
+    starts = np.asarray(ham.group_starts[:-1], np.int64)
+    out = np.empty((len(dets), ham.n_groups), np.float64)
+    for r in range(0, len(dets), row_chunk):
+        x = dets[r:r + row_chunk]
+        par = _parity64(x[:, None] & b[None, :]).astype(np.float64)
+        out[r:r + row_chunk] = np.add.reduceat(
+            (1.0 - 2.0 * par) * w[None, :], starts, axis=1
+        )
+    return out
+
+
+def sector_hamiltonian(ham: PauliHamiltonian, dets: np.ndarray):
+    """Sparse float64 H over the sorted uint64 ``dets`` (rows and columns
+    in ``dets`` order); partners outside ``dets`` are dropped."""
+    n = len(dets)
+    me = sector_matrix_elements(ham, dets)
+    a = words_to_uint64(ham.a_masks)
+    partner = dets[:, None] ^ a[None, :]
+    idx = np.clip(np.searchsorted(dets, partner), 0, n - 1)
+    found = dets[idx] == partner
+    cols = np.broadcast_to(np.arange(n)[:, None], idx.shape)
+    h = scipy.sparse.csr_matrix(
+        (me[found], (idx[found], cols[found])), shape=(n, n)
+    )
+    return h + ham.constant * scipy.sparse.identity(n, format="csr")
+
+
+def sector_ground_energy(ham: PauliHamiltonian, n_alpha: int,
+                         n_beta: int) -> float:
+    """Lowest eigenvalue of H in the (n_alpha, n_beta) sector."""
+    dets = sector_determinants(ham.qubit_num, n_alpha, n_beta)
+    h = sector_hamiltonian(ham, dets)
+    if h.shape[0] <= 256:
+        return float(np.linalg.eigvalsh(h.toarray())[0])
+    w = scipy.sparse.linalg.eigsh(h, k=1, which="SA", tol=1e-12)[0]
+    return float(w[0])

@@ -1,0 +1,120 @@
+"""Prepared molecules, read from a molecule file (no SCF, no integrals).
+
+A molecule file is the npz cache that the JAX package's
+``chem/molecule.py`` writes (``Molecule._save_cache``); ``Molecule.from_npz``
+reads the fields the training path needs, as ``Molecule._from_cache`` does.
+The N2/STO-3G file that the main path trains on ships inside this package
+(``data/n2_sto3g.npz``), so a checkout that carries no ``mols/`` directory
+runs it. To regenerate it from a JAX-side cache:
+
+    python -m anqs_quantum_chemistry_torch.chem.molecule SRC.npz DST.npz
+
+which copies ``PACKAGED_KEYS`` and, where the source holds no FCI energy,
+computes it by exact diagonalisation of the sector Hamiltonian
+(``chem/fci.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+
+from .fci import sector_ground_energy
+from .jw import PauliHamiltonian
+
+N2_STO3G = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "n2_sto3g.npz",
+)
+
+PACKAGED_KEYS = (
+    "ham_constant", "ham_a_masks", "ham_b_words", "ham_weights",
+    "ham_group_starts", "n_alpha", "n_beta", "n_electrons", "qubit_num",
+    "multiplicity", "hf_det", "e_nuc", "hf_energy", "fci_energy",
+    "z2_generators",
+)
+
+
+@dataclasses.dataclass
+class Molecule:
+    name: str
+    qubit_num: int
+    n_alpha: int
+    n_beta: int
+    n_electrons: int
+    multiplicity: int
+    hf_det: int
+    e_nuc: float
+    hf_energy: float
+    fci_energy: Optional[float]
+    z2_generators: np.ndarray
+    qubit_ham: PauliHamiltonian
+
+    @property
+    def n_orbitals(self) -> int:
+        return self.qubit_num // 2
+
+    @property
+    def fci_ndet(self) -> int:
+        """Determinant count of the (N_alpha, N_beta) sector."""
+        return math.comb(self.n_orbitals, self.n_alpha) * math.comb(
+            self.n_orbitals, self.n_beta
+        )
+
+    @classmethod
+    def from_npz(cls, path: str, name: Optional[str] = None) -> "Molecule":
+        with np.load(path) as data:
+            fci = float(np.asarray(data["fci_energy"]).reshape(-1)[0])
+            qubit_num = int(data["qubit_num"])
+            return cls(
+                name=name or os.path.basename(os.path.dirname(path)),
+                qubit_num=qubit_num,
+                n_alpha=int(data["n_alpha"]),
+                n_beta=int(data["n_beta"]),
+                n_electrons=int(data["n_electrons"]),
+                multiplicity=int(data["multiplicity"]),
+                hf_det=int(data["hf_det"][0]),
+                e_nuc=float(data["e_nuc"]),
+                hf_energy=float(data["hf_energy"]),
+                fci_energy=None if np.isnan(fci) else fci,
+                z2_generators=data["z2_generators"],
+                qubit_ham=PauliHamiltonian(
+                    qubit_num=qubit_num,
+                    constant=float(data["ham_constant"]),
+                    a_masks=data["ham_a_masks"],
+                    b_words=data["ham_b_words"],
+                    weights=data["ham_weights"],
+                    group_starts=data["ham_group_starts"],
+                ),
+            )
+
+
+def load_n2() -> Molecule:
+    """N2/STO-3G at its equilibrium geometry: 20 qubits, 2958 Pauli terms in
+    536 groups, a 14400-determinant (7, 7) sector."""
+    return Molecule.from_npz(N2_STO3G, name="N2")
+
+
+def write_packaged(src: str, dst: str) -> float:
+    """Copy ``PACKAGED_KEYS`` of molecule file ``src`` into ``dst``; returns
+    the FCI energy written (computed when ``src`` has none)."""
+    with np.load(src) as data:
+        arrays = {k: data[k] for k in PACKAGED_KEYS}
+    mol_fci = float(np.asarray(arrays["fci_energy"]).reshape(-1)[0])
+    if np.isnan(mol_fci):
+        mol = Molecule.from_npz(src)
+        mol_fci = sector_ground_energy(mol.qubit_ham, mol.n_alpha, mol.n_beta)
+        arrays["fci_energy"] = np.array([mol_fci])
+    np.savez_compressed(dst, **arrays)
+    return mol_fci
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 3:
+        sys.exit(__doc__)
+    print(write_packaged(sys.argv[1], sys.argv[2]))

@@ -1,0 +1,28 @@
+"""Parameters of the JAX package -> parameters of the port.
+
+The JAX ansatz keeps its weights in a nested dict pytree
+(``{"main": {"w0", "b0", ...}, "aux": {...}}``); the port's ``ANQS`` module
+holds the same arrays under dotted names (``"main.w0"``) in the same
+``(fan_in, fan_out)`` layout. The tests use this to run both packages from one
+set of weights.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree: Mapping,
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested mapping of numpy(-convertible) arrays -> flat ``state_dict``."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(params_from_jax(value, prefix=f"{name}."))
+        else:
+            out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out

@@ -1,0 +1,51 @@
+"""Multi-word key ordering: lexicographic compare and binary search.
+
+Packed determinants are ``(B, W)`` words (little-endian: word ``W-1`` is most
+significant); the canonical order is the unsigned integer order of the full
+bit string. The slice of the JAX package's ``ops/keys.py`` that the sector
+path uses (``PauliEngine.local_energy_sector`` without a position map).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def lex_less(a, b):
+    """Elementwise canonical a < b over the trailing word axis."""
+    less = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    decided = torch.zeros_like(less)
+    for j in range(a.shape[-1] - 1, -1, -1):
+        word_ne = a[..., j] != b[..., j]
+        less = torch.where(~decided & word_ne, a[..., j] < b[..., j], less)
+        decided = decided | word_ne
+    return less
+
+
+def lex_eq(a, b):
+    """Elementwise equality over the trailing word axis."""
+    return torch.all(a == b, dim=-1)
+
+
+def searchsorted_words(sorted_words, queries):
+    """Lower-bound binary search of ``(Q, W)`` queries in sorted ``(B, W)``.
+
+    Returns ``(idx, found)``: ``idx`` is the insertion position and
+    ``found`` marks exact matches. Branchless ``ceil(log2(B+1))`` rounds,
+    like the JAX package's version.
+    """
+    b = sorted_words.shape[0]
+    q_shape = queries.shape[:-1]
+    lo = torch.zeros(q_shape, dtype=torch.int64, device=queries.device)
+    hi = torch.full_like(lo, b)
+    for _ in range(max(1, math.ceil(math.log2(b + 1)))):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = lex_less(sorted_words[mid.clamp(0, b - 1)], queries)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    at = sorted_words[lo.clamp(0, b - 1)]
+    found = (lo < b) & lex_eq(at, queries)
+    return lo, found

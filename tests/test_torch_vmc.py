@@ -1,0 +1,155 @@
+"""The VMC trainer of the PyTorch port against the JAX package on LiH
+(width 32, qubit_per_qudit 6, the whole 225-determinant sector sampled,
+MinSR top-50, clip 1.0), from the same weights and sampler uniforms."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from anqs_quantum_chemistry_tpu.experiments import vmc as jvmc
+from anqs_quantum_chemistry_tpu.models.anqs import AnqsConfig as JaxAnqsConfig
+from anqs_quantum_chemistry_tpu.optim.sr import SRConfig as JaxSRConfig
+from anqs_quantum_chemistry_torch.convert import params_from_jax
+from anqs_quantum_chemistry_torch.experiments import vmc as vmc_module
+from anqs_quantum_chemistry_torch.experiments.vmc import (
+    VMC,
+    FiniteGuardAdam,
+    VMCConfig,
+    it_targets,
+)
+from anqs_quantum_chemistry_torch.models.anqs import AnqsConfig
+from anqs_quantum_chemistry_torch.optim.sr import SRConfig
+from anqs_quantum_chemistry_torch.sampling.sampler import uniform_shapes
+from torch_port_common import jax_uniforms, molecules, to_np
+
+CFG = dict(sample_num=256, sampling_mode="gumbel", qubit_per_qudit=6,
+           lr=1e-3, grad_clip_norm=1.0, seed=3)
+# The JAX engine's (N, 2) amplitude table: the port's only layout.
+JAX_ENGINE = dict(engine_overrides={"table_pairs_per_row": 1})
+
+
+def build(temperature=1.0, **jax_overrides):
+    jmol, mol = molecules("LiH")
+    cfg = dict(CFG, grad_weight_temperature=temperature)
+    jv = jvmc.VMC(
+        jmol,
+        jvmc.VMCConfig(sr=JaxSRConfig(max_indices_num=50),
+                       **{**cfg, **JAX_ENGINE, **jax_overrides}),
+        JaxAnqsConfig(hidden_widths=(32,)),
+    )
+    v = VMC(mol, VMCConfig(sr=SRConfig(max_indices_num=50), **cfg),
+            AnqsConfig(hidden_widths=(32,)), device="cpu")
+    params, opt_state, key = jv.init_state()
+    state = v.init_state()
+    v.anqs.load_state_dict(params_from_jax(to_np(params)))
+    return jv, v, (params, opt_state, key), state
+
+
+def step_uniforms(v, key):
+    """The uniforms of the JAX step at ``key`` (it splits off the sampler
+    key first) and the key it hands to the next step."""
+    key, sample_key = jax.random.split(key)
+    return jax_uniforms(sample_key, uniform_shapes(v.anqs, CFG["sample_num"])
+                        ), key
+
+
+@pytest.mark.parametrize("temperature", [1.0, 2.0])
+def test_one_step_grads_and_metrics(temperature):
+    # SGD at lr 1 makes the JAX update minus the gradient itself.
+    jv, v, (p0, o0, key), state = build(temperature, opt_type="sgd",
+                                        lr=1.0)
+    p1, _, _, jm = jv._step(p0, o0, key)
+    want = params_from_jax(to_np(jax.tree.map(lambda a, b: a - b, p0, p1)))
+    uniforms, _ = step_uniforms(v, key)
+    metrics, grads = v._grads_and_metrics(state, uniforms)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.detach().numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    assert int(metrics["unique_num"]) == int(jm["unique_num"]) == 225
+    assert int(metrics["found_pairs"]) == int(jm["found_pairs"])
+    for name in ("energy", "energy_var", "hf_proj_energy"):
+        assert abs(float(metrics[name]) - float(jm[name])) < 1e-6, name
+    for name in ("grad_norm", "ipr", "max_log_abs", "min_log_abs"):
+        assert float(metrics[name]) == pytest.approx(float(jm[name]),
+                                                     rel=1e-5), name
+
+
+def test_three_step_energy_trajectory():
+    jv, v, (params, opt_state, key), state = build()
+    want, got = [], []
+    for _ in range(3):
+        uniforms, next_key = step_uniforms(v, key)
+        params, opt_state, key, jm = jv._step(params, opt_state, key)
+        assert np.array_equal(np.asarray(key), np.asarray(next_key))
+        want.append(float(jm["energy"]))
+        row = v.step(state, uniforms)
+        got.append(row["energy"])
+        assert row["unique_num"] == 225
+        assert row["hf_log_abs"] == pytest.approx(float(jm["hf_log_abs"]),
+                                                  abs=1e-5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert want[2] < want[0]  # the energy descends
+
+
+def test_step_with_own_generator_is_seeded():
+    _, v, _, _ = build()
+    rows = []
+    for _ in range(2):
+        state = v.init_state()
+        rows.append(v.run(state, 2))
+    assert rows[0] == rows[1]
+    assert all(np.isfinite(r["energy"]) for r in rows[0])
+
+
+def test_finite_guard_matches_apply_if_finite():
+    """Skip-non-finite Adam against optax.apply_if_finite(adam, 2): a NaN
+    step is skipped, and the third NaN in a row is applied."""
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal(5).astype(np.float32)
+    steps = [rng.standard_normal(5).astype(np.float32) for _ in range(3)]
+    nan = np.full(5, np.nan, np.float32)
+    seq = [steps[0], nan, steps[1], steps[2], nan, nan, nan]
+
+    opt = optax.apply_if_finite(optax.adam(1e-2), max_consecutive_errors=2)
+    p, s = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+    param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    guard = FiniteGuardAdam([param], 1e-2, max_consecutive_errors=2)
+    for i, g in enumerate(seq):
+        u, s = opt.update(jnp.asarray(g), s, p)
+        p = optax.apply_updates(p, u)
+        guard.step([torch.from_numpy(g)])
+        np.testing.assert_allclose(param.detach().numpy(), np.asarray(p),
+                                   rtol=1e-6, atol=1e-7, err_msg=str(i))
+    assert guard.total_notfinite == int(s.total_notfinite) == 4
+
+
+def test_it_targets_match_jax():
+    rng = np.random.default_rng(2)
+    n = 64
+    la = (-3 + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    ph = rng.uniform(-3, 3, n).astype(np.float32)
+    e_re = (-7.8 + rng.standard_normal(n)).astype(np.float32)
+    e_im = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    want = jvmc.it_targets(*map(jnp.asarray, (la, ph, e_re, e_im, valid)),
+                           0.05)
+    got = it_targets(*map(torch.from_numpy, (la, ph, e_re, e_im, valid)),
+                     0.05)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_unported_paths_raise(monkeypatch):
+    _, mol = molecules("LiH")
+    with pytest.raises(NotImplementedError):
+        VMC(mol, VMCConfig(**{**CFG, "sampling_mode": "exact"}),
+            AnqsConfig(hidden_widths=(8,)), device="cpu")
+    # LiH's sector holds 225 determinants.
+    monkeypatch.setattr(vmc_module, "SECTOR_MAX_DETS", 224)
+    with pytest.raises(NotImplementedError):
+        VMC(mol, VMCConfig(**CFG),
+            AnqsConfig(hidden_widths=(8,)), device="cpu")

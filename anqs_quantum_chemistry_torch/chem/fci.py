@@ -20,6 +20,11 @@ from .jw import PauliHamiltonian, words_to_uint64
 
 _U = np.uint64
 
+# The largest (N_alpha, N_beta) sector this module builds and diagonalises:
+# 2^16 determinants, the JAX ``VMCConfig.sector_membership_max_dets``
+# default, which the VMC trainer's sector membership shares.
+SECTOR_MAX_DETS = 1 << 16
+
 
 def sector_determinants(n_so: int, n_alpha: int, n_beta: int) -> np.ndarray:
     """All determinants with the given alpha/beta electron counts (alpha on

@@ -3,15 +3,27 @@
 A molecule file is the npz cache that the JAX package's
 ``chem/molecule.py`` writes (``Molecule._save_cache``); ``Molecule.from_npz``
 reads the fields the training path needs, as ``Molecule._from_cache`` does.
-The N2/STO-3G file that the main path trains on ships inside this package
-(``data/n2_sto3g.npz``), so a checkout that carries no ``mols/`` directory
-runs it. To regenerate it from a JAX-side cache:
+The molecules the port trains on ship inside this package, so a checkout
+that carries no ``mols/`` directory runs them: N2/STO-3G, the main path
+(``data/n2_sto3g.npz``), and Li2O/STO-3G, the dynamic-membership path
+(``data/li2o_sto3g.npz``). To regenerate one from a JAX-side cache:
 
     python -m anqs_quantum_chemistry_torch.chem.molecule SRC.npz DST.npz
 
-which copies ``PACKAGED_KEYS`` and, where the source holds no FCI energy,
-computes it by exact diagonalisation of the sector Hamiltonian
-(``chem/fci.py``).
+which copies ``PACKAGED_KEYS`` and, where the source holds no FCI energy
+and the sector has at most ``fci.SECTOR_MAX_DETS`` determinants, computes
+it by exact diagonalisation of the sector Hamiltonian (``chem/fci.py``);
+a larger sector keeps NaN. The JAX-side caches are built in-tree (no
+download), N2 in ``mols/`` by the JAX package's tests and Li2O with
+
+    python -c "from anqs_quantum_chemistry_tpu.chem.molecule import \
+        Molecule, MolConfig; Molecule.create(MolConfig(name='Li2O'), \
+        mols_dir='mols', run_fci=False, run_cisd=False)"
+
+(SCF and Jordan-Wigner, under a minute on one CPU core), then
+
+    python -m anqs_quantum_chemistry_torch.chem.molecule \
+        mols/Li2O/<hash>.npz anqs_quantum_chemistry_torch/data/li2o_sto3g.npz
 """
 
 from __future__ import annotations
@@ -24,13 +36,14 @@ from typing import Optional
 
 import numpy as np
 
-from .fci import sector_ground_energy
+from .fci import SECTOR_MAX_DETS, sector_ground_energy
 from .jw import PauliHamiltonian
 
-N2_STO3G = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "data", "n2_sto3g.npz",
+DATA_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data"
 )
+N2_STO3G = os.path.join(DATA_DIR, "n2_sto3g.npz")
+LI2O_STO3G = os.path.join(DATA_DIR, "li2o_sto3g.npz")
 
 PACKAGED_KEYS = (
     "ham_constant", "ham_a_masks", "ham_b_words", "ham_weights",
@@ -100,16 +113,26 @@ def load_n2() -> Molecule:
     return Molecule.from_npz(N2_STO3G, name="N2")
 
 
+def load_li2o() -> Molecule:
+    """Li2O/STO-3G, the reference's toy-model molecule: 30 qubits, 16169
+    Pauli terms in 3072 groups, a 41,409,225-determinant (7, 7) sector (no
+    FCI energy: too large to diagonalise here)."""
+    return Molecule.from_npz(LI2O_STO3G, name="Li2O")
+
+
 def write_packaged(src: str, dst: str) -> float:
     """Copy ``PACKAGED_KEYS`` of molecule file ``src`` into ``dst``; returns
-    the FCI energy written (computed when ``src`` has none)."""
+    the FCI energy written (computed when ``src`` has none and its sector
+    has at most ``SECTOR_MAX_DETS`` determinants, else NaN)."""
     with np.load(src) as data:
         arrays = {k: data[k] for k in PACKAGED_KEYS}
     mol_fci = float(np.asarray(arrays["fci_energy"]).reshape(-1)[0])
     if np.isnan(mol_fci):
         mol = Molecule.from_npz(src)
-        mol_fci = sector_ground_energy(mol.qubit_ham, mol.n_alpha, mol.n_beta)
-        arrays["fci_energy"] = np.array([mol_fci])
+        if mol.fci_ndet <= SECTOR_MAX_DETS:
+            mol_fci = sector_ground_energy(mol.qubit_ham, mol.n_alpha,
+                                           mol.n_beta)
+            arrays["fci_energy"] = np.array([mol_fci])
     np.savez_compressed(dst, **arrays)
     return mol_fci
 

@@ -37,7 +37,6 @@ namespace {
 constexpr int ROWS = 8;
 constexpr int THREADS = 256;
 constexpr int MAX_WORDS = 4;  // up to 128 qubits
-constexpr int MAX_BLOCKS = 132 * 8;
 constexpr size_t MAX_SMEM = 227 * 1024;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t h) {
@@ -129,8 +128,18 @@ int launch(const void* words, const void* b_words, const void* splits,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  // One wave: as many blocks as the card holds at once (resident blocks
+  // per SM, which shared memory and registers limit, times the SM count).
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_me_kernel<W>, THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (n_rows + ROWS - 1) / ROWS;
-  const int blocks = tiles < MAX_BLOCKS ? tiles : MAX_BLOCKS;
+  const int blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
   fused_me_kernel<W><<<blocks, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(words),

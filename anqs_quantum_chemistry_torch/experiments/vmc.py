@@ -1,10 +1,14 @@
 """VMC energy optimization: the training step and its driver loop.
 
-The main-path slice of the JAX package's ``experiments/vmc.py``: Gumbel
-top-k sampling of unique determinants -> amplitudes -> sample-aware local
-energies with sector membership -> Born-weighted float64 estimators ->
-REINFORCE surrogate loss -> gradient -> MinSR -> global-norm clip -> Adam
-that skips non-finite updates. The surrogate loss is
+A slice of the JAX package's ``experiments/vmc.py``: Gumbel top-k sampling
+of unique determinants -> amplitudes -> sample-aware local energies ->
+Born-weighted float64 estimators -> REINFORCE surrogate loss -> gradient ->
+MinSR -> global-norm clip -> Adam that skips non-finite updates. Membership
+of the local energies' partners goes through the precomputed sector
+connectivity where the (N_alpha, N_beta) sector is small enough (the N2
+main path, ``main_path_vmc``), and otherwise through the engine's dynamic
+membership over the canonically sorted sample set (the Li2O toy model,
+``li2o_vmc``: hash membership at 30 qubits). The surrogate loss is
 
     loss = 2 sum_x f(x) [ log|psi(x)| Re(dE) + phase(x) Im(dE) ],
 
@@ -18,32 +22,38 @@ Entry points: ``VMC(mol, VMCConfig(...), AnqsConfig(...))``,
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..chem.fci import sector_determinants
+from ..chem.fci import SECTOR_MAX_DETS, sector_determinants
 from ..chem.molecule import Molecule
 from ..models.anqs import ANQS, AnqsConfig
 from ..observables.pauli import PauliEngine
 from ..ops import bits as bitops
+from ..ops import keys
 from ..optim.sr import SRConfig, clip_grad_norm, sr_transform
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
 from ..utils.config import Config
 from .preparation import create_masker
 
-# Sector membership, the one ported membership, is built up to these sizes
-# (the JAX ``VMCConfig`` defaults): sector determinants, and determinants x
-# groups of the partner tables.
-SECTOR_MAX_DETS = 1 << 16
+# Sector membership is built up to these sizes (the JAX ``VMCConfig``
+# defaults): sector determinants (``SECTOR_MAX_DETS``, shared with
+# ``chem/fci.py``), and determinants x groups of the partner tables.
 SECTOR_MAX_ENTRIES = 48_000_000
+# A step that reports keys dropped by hash-bucket overflow doubles the
+# bucket count and rebuilds the engine, at most this many times; then the
+# trainer raises (the JAX ``VMCConfig.max_overflow_escalations`` default).
+MAX_OVERFLOW_ESCALATIONS = 6
 
 
 @dataclasses.dataclass
 class VMCConfig(Config):
-    """The fields of the JAX ``VMCConfig`` that the ported path reads."""
+    """The fields of the JAX ``VMCConfig`` that the ported path reads, and
+    the engine's membership (JAX ``engine_overrides["membership"]``)."""
 
     sample_num: int = 2000
     sampling_mode: str = "gumbel"
@@ -56,6 +66,12 @@ class VMCConfig(Config):
     # Born); 1.0 = plain Born weights.
     grad_weight_temperature: float = 1.0
     seed: int = 0
+    # The engine's dynamic membership ('auto' | 'table' | 'hash'). With
+    # 'auto' the step uses the precomputed partner connectivity of the
+    # (N_alpha, N_beta) sector where it fits the limits above; otherwise
+    # (and with any named membership) it sorts the sample set and the
+    # engine resolves partners from the set itself.
+    membership: str = "auto"
 
 
 class FiniteGuardAdam:
@@ -119,22 +135,18 @@ class VMC:
             self.grouping, anqs_config or AnqsConfig(),
             torch.Generator().manual_seed(self.config.seed),
         ).to(self.device)
-        self.engine = PauliEngine(self.ham, device=self.device)
+        self._overflow_escalations = 0
+        self.engine = PauliEngine(self.ham, device=self.device,
+                                  membership=self.config.membership)
         self.sampling_config = SamplingConfig(
             sample_num=self.config.sample_num, mode="gumbel"
         )
         hf_bits = torch.tensor([[(mol.hf_det >> i) & 1 for i in range(n)]])
         self.hf_words = bitops.pack(hf_bits).to(self.device)
 
-        ndet = int(mol.fci_ndet)
-        if (n > PauliEngine.MAX_TABLE_QUBITS
-                or ndet > SECTOR_MAX_DETS
-                or ndet * self.ham.n_groups > SECTOR_MAX_ENTRIES):
-            raise NotImplementedError(
-                "only sector membership is ported: the (N_alpha, N_beta) "
-                f"sector ({ndet} determinants, {n} qubits) exceeds its "
-                "size limits"
-            )
+        self.sector_words = None
+        if not self._want_sector_membership(mol):
+            return
         dets, words_packed, _, n_real = self._enumerate_sector(mol, n)
         idx, pf = self._sector_partner_tables(dets, n_real)
         self.sector_words = words_packed
@@ -145,6 +157,16 @@ class VMC:
         pos = np.full(1 << n, -1, dtype=np.int64)
         pos[dets.astype(np.int64)] = np.arange(n_real, dtype=np.int64)
         self.sector_pos = torch.from_numpy(pos).to(self.device)
+
+    def _want_sector_membership(self, mol) -> bool:
+        """JAX ``vmc.py:425-443`` in its 'auto' mode. The engine's
+        membership is 'table' here: sector tables exist only up to
+        ``MAX_TABLE_QUBITS`` qubits, where the engine's 'auto' resolves."""
+        if self.config.membership != "auto":
+            return False  # a named dynamic membership is used as named
+        ndet = int(mol.fci_ndet)
+        return (ndet <= SECTOR_MAX_DETS
+                and ndet * self.ham.n_groups <= SECTOR_MAX_ENTRIES)
 
     def _enumerate_sector(self, mol, n):
         """Sorted sector (uint64 dets), packed words padded with all-ones
@@ -196,15 +218,23 @@ class VMC:
             words, weights, valid, stats = sample(
                 self.anqs, self.sampling_config, state.generator, uniforms
             )
-            # Gumbel samples are unique and the position map needs no sort:
-            # invalid rows become all-ones sentinels that never match.
+            # Invalid rows become all-ones sentinels that never match.
             words = torch.where(valid[:, None], words, bitops.MASK32)
+            if self.sector_words is None:
+                # Dynamic membership: canonical order (JAX
+                # ``vmc.py:955-966``; Gumbel samples are unique, so no
+                # dedup). The sector path's position map needs no sort.
+                words, _, weights, valid = keys.sort_words(words, weights,
+                                                           valid)
             la, ph = self.anqs.log_psi(words)
-            e = self.engine.local_energy_sector(
-                words, la, ph, valid, self.sector_words,
-                self.sector_partner_idx, self.sector_partner_found,
-                sector_pos=self.sector_pos,
-            )
+            if self.sector_words is None:
+                e = self.engine.local_energy_proxy(words, la, ph, valid)
+            else:
+                e = self.engine.local_energy_sector(
+                    words, la, ph, valid, self.sector_words,
+                    self.sector_partner_idx, self.sector_partner_found,
+                    sector_pos=self.sector_pos,
+                )
         return words, weights, valid, stats, la, ph, e
 
     def _grads_and_metrics(self, state: TrainState, uniforms=None):
@@ -283,6 +313,7 @@ class VMC:
             "min_log_abs": torch.min(torch.where(valid, la, torch.inf)),
             "found_ratio": e.found_pairs
             / torch.clamp(n_valid * self.engine.n_groups, min=1),
+            "table_overflow": torch.as_tensor(e.table_overflow),
         }
         return metrics, grads
 
@@ -300,8 +331,36 @@ class VMC:
         return dict(zip(names, values))
 
     def run(self, state: TrainState, n_steps: int) -> List[dict]:
-        """``n_steps`` training steps; returns one metrics row per step."""
-        return [self.step(state) for _ in range(n_steps)]
+        """``n_steps`` training steps, each followed by the overflow check;
+        returns one metrics row per step."""
+        rows = []
+        for _ in range(n_steps):
+            rows.append(self.step(state))
+            self._handle_overflow(rows[-1])
+        return rows
+
+    def _handle_overflow(self, row: dict):
+        """Act on a step's hash-bucket overflow (JAX ``vmc.py:820-871``,
+        policy 'escalate', threshold 0): double the bucket count and rebuild
+        the engine, and raise once ``MAX_OVERFLOW_ESCALATIONS`` did not
+        suffice, since dropped keys bias E_loc low."""
+        dropped = int(row.get("table_overflow", 0))
+        if dropped == 0:
+            return
+        msg = f"membership overflow: table_overflow={dropped}"
+        if self._overflow_escalations >= MAX_OVERFLOW_ESCALATIONS:
+            raise RuntimeError(
+                msg + " (escalation cap reached); E_loc would be silently "
+                "biased low"
+            )
+        self._overflow_escalations += 1
+        extra_bits = self.engine.hash_extra_bits + 1
+        logging.warning("%s -> escalation #%d: rebuilding engine with "
+                        "hash_extra_bits=%d", msg,
+                        self._overflow_escalations, extra_bits)
+        self.engine = PauliEngine(self.ham, device=self.device,
+                                  membership=self.engine.membership,
+                                  hash_extra_bits=extra_bits)
 
 
 def it_targets(la, ph, e_re, e_im, valid, tau: float):
@@ -342,6 +401,29 @@ def main_path_vmc(device="cuda", hidden_width: int = 512) -> VMC:
             sample_num=14464, sampling_mode="gumbel", qubit_per_qudit=10,
             lr=1e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
             seed=0,
+        ),
+        AnqsConfig(hidden_widths=(hidden_width,),
+                   aux_hidden_widths=(hidden_width,)),
+        device=device,
+    )
+
+
+def li2o_vmc(device="cuda", hidden_width: int = 512) -> VMC:
+    """The reference's documented toy workload (its Colab notebook, JAX
+    ``examples/li2o_toy_model.py``): Li2O/STO-3G, 30 qubits, MADE
+    ``hidden_width``, qubit_per_qudit 6, Gumbel top-k over 8192 unique
+    determinants, hash membership (the example's docstring names it; the
+    41.4M-determinant sector is far beyond sector membership), MinSR
+    top-50, clip 1.0, Adam 3e-3 (the example's schedule holds 3e-3 for its
+    first 1200 steps), seed 0."""
+    from ..chem.molecule import load_li2o
+
+    return VMC(
+        load_li2o(),
+        VMCConfig(
+            sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
+            lr=3e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
+            membership="hash", seed=0,
         ),
         AnqsConfig(hidden_widths=(hidden_width,),
                    aux_hidden_widths=(hidden_width,)),

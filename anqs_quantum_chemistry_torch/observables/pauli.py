@@ -1,17 +1,23 @@
-"""Sample-aware local energies for grouped Pauli Hamiltonians, sector path.
+"""Sample-aware local energies for grouped Pauli Hamiltonians.
 
-The main-path slice of the JAX package's ``observables/pauli.py``
-``PauliEngine``: matrix elements of every group for every sampled source
+A slice of the JAX package's ``observables/pauli.py`` ``PauliEngine``:
+matrix elements of every group for every sampled source
 (``ops/matrix_elements.py``: the CUDA kernel on the card, its plain version
-on the CPU), and local energies over the sampled set with membership
-resolved through the precomputed connectivity of the (N_alpha, N_beta)
-sector (``local_energy_sector``; its amplitude table is the (N + 1, 2)
-layout of the JAX engine's ``table_pairs_per_row=1``):
+on the CPU), and local energies over the sampled set,
 
     E_loc(x) = C + sum_m <x|H|x ^ A_m> psi(x ^ A_m) / psi(x),
 
-summed over partners x ^ A_m in the sampled set. Amplitudes are real pairs
-``(log|psi|, phase)``. Real Hamiltonians only (every molecular JW case).
+summed over partners x ^ A_m in the sampled set. Membership of the
+partners is resolved either through the precomputed connectivity of the
+(N_alpha, N_beta) sector (``local_energy_sector``; its amplitude table is
+the (N + 1, 2) layout of the JAX engine's ``table_pairs_per_row=1``) or
+dynamically, from the sampled set alone (``local_energy_proxy``): a
+(2^n, 2) direct-address table up to ``MAX_TABLE_QUBITS`` qubits
+(``membership='table'``), or a bucket-hash table of 32 entries per bucket
+for any qubit count up to 64 (``membership='hash'``; the lookup is
+``ops/hash_lookup.py``, the CUDA kernel on the card). Amplitudes are real
+pairs ``(log|psi|, phase)``. Real Hamiltonians only (every molecular JW
+case).
 """
 
 from __future__ import annotations
@@ -22,10 +28,15 @@ import numpy as np
 import torch
 
 from ..chem.jw import PauliHamiltonian
+from ..ops import bits as bitops
+from ..ops import hash_lookup as hashops
 from ..ops import keys
 from ..ops.matrix_elements import build_tables, fused_matrix_elements
 
 NEG = -1e30
+MEMBERSHIPS = ("auto", "table", "hash")
+# Memberships of the JAX engine that the port does not have yet.
+UNPORTED_MEMBERSHIPS = ("search", "prefilter", "hash_dist")
 
 
 class LocalEnergies(NamedTuple):
@@ -37,16 +48,53 @@ class LocalEnergies(NamedTuple):
     # Born-weighted estimators use these: mean = sum(a t) / sum(a^2).
     t_re: torch.Tensor
     t_im: torch.Tensor
+    # Keys dropped by hash-bucket overflow (0 for table and sector
+    # membership; expected 0 for hash at its dimensioned load, and acted on
+    # by the VMC trainer's overflow policy when it is not).
+    table_overflow: torch.Tensor | int = 0
 
 
 class PauliEngine:
     """Device-resident Hamiltonian structure + local-energy evaluation."""
 
-    # Direct-address sample -> sector-index maps are built up to this qubit
-    # count (2^22 int64 entries = 32 MB).
+    # Direct-address tables (sample -> sector index, and the dynamic
+    # (2^n, 2) amplitude table) are built up to this qubit count.
     MAX_TABLE_QUBITS = 22
 
-    def __init__(self, ham: PauliHamiltonian, device="cuda"):
+    def __init__(self, ham: PauliHamiltonian, device="cuda",
+                 membership: str = "auto", hash_extra_bits: int = 0):
+        """``membership``: 'auto' | 'table' | 'hash', the dynamic
+        membership of ``local_energy_proxy``; 'auto' resolves as the JAX
+        engine's does, to 'table' up to ``MAX_TABLE_QUBITS`` qubits.
+        ``hash_extra_bits``: extra log2 bucket-count bits of the hash table
+        (0 = ~25% average load; the trainer's overflow policy raises it)."""
+        n_words = bitops.n_words(ham.qubit_num)
+        if membership in UNPORTED_MEMBERSHIPS:
+            raise NotImplementedError(
+                f"membership={membership!r} is not ported (ROADMAP item 10)"
+            )
+        if membership not in MEMBERSHIPS:
+            raise ValueError(f"membership={membership!r}: expected one of "
+                             f"{MEMBERSHIPS}")
+        if membership == "auto":
+            if ham.qubit_num > self.MAX_TABLE_QUBITS:
+                # The JAX engine picks 'prefilter' (W <= 4) or 'search'.
+                raise NotImplementedError(
+                    f"membership='auto' at {ham.qubit_num} qubits resolves "
+                    "to 'prefilter'/'search' in the JAX engine, which are "
+                    "not ported (ROADMAP item 10); pass membership='hash'"
+                )
+            membership = "table"
+        if membership == "table" and ham.qubit_num > self.MAX_TABLE_QUBITS:
+            raise ValueError(f"membership='table' needs <= "
+                             f"{self.MAX_TABLE_QUBITS} qubits")
+        if membership == "hash" and n_words > 2:
+            raise NotImplementedError(
+                "hash membership above 64 qubits (16-entry bucket rows) is "
+                "not ported (ROADMAP item 10)"
+            )
+        self.membership = membership
+        self.hash_extra_bits = hash_extra_bits
         self.qubit_num = ham.qubit_num
         self.constant = float(ham.constant)
         self.n_groups = ham.n_groups
@@ -99,10 +147,135 @@ class PauliEngine:
         return self._combine_via_t(me, la_p, ph_p, found, log_abs, phase,
                                    valid)
 
+    # ------------------------------------------------------------------
+    # Dynamic membership
+    # ------------------------------------------------------------------
+    _mix2 = staticmethod(hashops.mix2)
+
+    @staticmethod
+    def _padded_cols(cols):
+        """Pad a 1-word column tuple to the 2-word layout (hi = 0)."""
+        if len(cols) == 1:
+            return (cols[0], torch.zeros_like(cols[0]))
+        return tuple(cols)
+
+    @classmethod
+    def _bucket_hash(cls, cols):
+        """Bucket hash over W 32-bit key words: the 2-word mix, folded left
+        over any extra words (equal to ``_mix2(lo, hi)`` for W <= 2, the
+        hash that the lookup kernel computes)."""
+        cols = cls._padded_cols(cols)
+        acc = cls._mix2(cols[0], cols[1])
+        for c in cols[2:]:
+            acc = cls._mix2(acc, c)
+        return acc
+
+    def local_energy_proxy(self, sorted_words, log_abs, phase,
+                           valid) -> LocalEnergies:
+        """Sample-aware local energies over the unique sampled set, with
+        membership resolved from the set itself (JAX ``pauli.py:443-494``).
+
+        ``sorted_words`` rows of invalid entries must hold words that can
+        never match (the VMC step writes all-ones sentinels)."""
+        if self.membership == "table":
+            return self._proxy_via_table2(sorted_words, log_abs, phase, valid)
+        return self._proxy_via_hash(sorted_words, log_abs, phase, valid)
+
+    def _proxy_via_table2(self, words, log_abs, phase, valid):
+        """Direct-address membership with a (2^n, 2) table: one (q, 2) row
+        gather per query (JAX ``pauli.py:678-710``). Out-of-range keys
+        (sentinels) are written to a spare last row, which no query
+        reads."""
+        size = 1 << self.qubit_num
+        keys_flat = words[:, 0]
+        safe = valid & (keys_flat < size)
+        kf = torch.where(safe, keys_flat, size)
+        tab = torch.full((size + 1, 2), NEG, dtype=torch.float32,
+                         device=words.device)
+        tab[kf, 0] = torch.where(safe, log_abs, NEG)
+        tab[kf, 1] = phase
+        q = words[:, 0][:, None] ^ self.a_words[:, 0][None, :]  # (B, M)
+        in_range = q < size
+        rows = tab[torch.where(in_range, q, 0)]  # (B, M, 2)
+        la_p = torch.where(in_range, rows[..., 0], NEG)
+        found = (la_p > 0.5 * NEG) & valid[:, None]
+        me = self.matrix_elements(words)
+        return self._combine_via_t(me, la_p, rows[..., 1], found, log_abs,
+                                   phase, valid)
+
+    def _proxy_via_hash(self, words, log_abs, phase, valid):
+        """Membership via bucketed hash rows, any qubit count up to 64 (JAX
+        ``pauli.py:728-776``, the ``lookup_kernel='pallas'`` branch): build
+        the bucket table from the sampled set, then look every partner
+        x ^ A_m up in it (``ops/hash_lookup.py``)."""
+        tab, _, overflow = self._hash_build(words, log_abs, phase, valid)
+        la_p, ph_p, found = hashops.hash_lookup(tab,
+                                                *self._hash_queries(words))
+        shape = (words.shape[0], self.n_groups)
+        found = found.reshape(shape) & valid[:, None]
+        me = self.matrix_elements(words)
+        out = self._combine_via_t(me, la_p.reshape(shape),
+                                  ph_p.reshape(shape), found, log_abs,
+                                  phase, valid)
+        return out._replace(table_overflow=overflow)
+
+    def _hash_queries(self, words):
+        """The (B * M,) key words of every partner x ^ A_m as int32 bits,
+        row-major over (B, M): (q_lo, q_hi), with q_hi None for one-word
+        keys (their high word is 0, so nothing needs to be stored)."""
+        w32 = hashops.as_int32(words)
+        a32 = hashops.as_int32(self.a_words)
+        cols = [(w32[:, None, i] ^ a32[None, :, i]).reshape(-1)
+                for i in range(words.shape[1])]
+        return cols[0], (cols[1] if len(cols) > 1 else None)
+
+    def _hash_build(self, words, log_abs, phase, valid):
+        """Scatter (key, log|psi|, phase) entries of the valid rows into
+        planar bucket rows (JAX ``pauli.py:799-870``, W <= 2: 32 entries a
+        bucket). Returns (table (nb, 128) float32, nb, overflow count).
+
+        Lanes [0, 32) key_lo, [32, 64) key_hi (the keys' 32 bits, written
+        through int32 so that no key is handled as a float), [64, 96)
+        log|psi| (NEG = empty), [96, 128) phase. Entries are ranked within
+        their bucket by a stable sort over bucket ids; buckets are sized to
+        ~25% average load, so a bucket of more than 32 entries is a Poisson
+        tail, counted in the overflow. Invalid and overflowing rows go to a
+        spare last row, cut off at the end."""
+        b, w = words.shape
+        dev = words.device
+        epb = hashops.ENTRIES
+        nb = 1 << (max(8, (4 * b // epb - 1).bit_length())
+                   + self.hash_extra_bits)
+        cols = self._padded_cols(tuple(words[:, i] for i in range(w)))
+        bucket = torch.where(valid, self._bucket_hash(cols) & (nb - 1), nb)
+        iota = torch.arange(b, device=dev)
+        sorted_b, sorted_i = torch.sort(bucket, stable=True)
+        run_start = torch.ones(b, dtype=torch.bool, device=dev)
+        run_start[1:] = sorted_b[1:] != sorted_b[:-1]
+        start_idx = torch.cummax(torch.where(run_start, iota, 0), 0).values
+        rank = torch.empty_like(iota)
+        rank[sorted_i] = iota - start_idx
+        overflow = valid & (rank >= epb)
+        ok = valid & ~overflow
+        row = torch.where(ok, bucket, nb)
+        lane = torch.where(ok, rank, 0)
+        neg_bits = torch.tensor(NEG, dtype=torch.float32).view(torch.int32)
+        tab = torch.full((nb + 1, hashops.ROW), int(neg_bits),
+                         dtype=torch.int32, device=dev)
+        for i, c in enumerate(cols):
+            tab[row, lane + i * epb] = hashops.as_int32(c)
+        tab[row, lane + 2 * epb] = torch.where(
+            valid, log_abs, NEG).view(torch.int32)
+        tab[row, lane + 3 * epb] = phase.to(torch.float32).view(torch.int32)
+        overflow_count = torch.sum(overflow).to(torch.int32)
+        return tab[:nb].view(torch.float32), nb, overflow_count
+
     def _combine_via_t(self, me, la_p, ph_p, found, log_abs, phase, valid):
         """Amplitude-form partner sums computed once; the ratio-form local
         energy is e = t / a_x with a row-level exponent clip on 1/a_x (JAX
-        ``pauli.py:1104``)."""
+        ``pauli.py:1104``). Every membership path uses it; the JAX dynamic
+        paths' ``_combine`` (a per-pair clip of the amplitude ratio) agrees
+        with it wherever no ratio leaves e^(+-60)."""
         dph = ph_p - phase[:, None]
         amp_p = torch.where(found, torch.exp(la_p) * me, 0.0)
         s_re = torch.sum(amp_p * torch.cos(dph), dim=1)

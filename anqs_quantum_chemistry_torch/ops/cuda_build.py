@@ -88,6 +88,18 @@ def build(names: Iterable[str], timeout: float = 600.0) -> Dict[str, str]:
     return logs
 
 
+def check_operand(name, t, dtype, ndim, device):
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``ndim``-d tensor
+    of ``dtype`` on ``device``: what a kernel launcher takes."""
+    if t.dtype != dtype or t.dim() != ndim or t.device != device:
+        raise ValueError(
+            f"{name}: expected {ndim}-d {dtype} on {device}, got "
+            f"{t.dim()}-d {t.dtype} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _loaded:

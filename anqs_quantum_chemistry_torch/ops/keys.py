@@ -1,9 +1,11 @@
-"""Multi-word key ordering: lexicographic compare and binary search.
+"""Multi-word key ordering: lexicographic sort and compare, binary search,
+dedup.
 
 Packed determinants are ``(B, W)`` words (little-endian: word ``W-1`` is most
 significant); the canonical order is the unsigned integer order of the full
-bit string. The slice of the JAX package's ``ops/keys.py`` that the sector
-path uses (``PauliEngine.local_energy_sector`` without a position map).
+bit string. The JAX package's ``ops/keys.py``: the sector path searches the
+sorted sector (``PauliEngine.local_energy_sector`` without a position map),
+the dynamic-membership path sorts the sampled set (``VMC._support_and_eloc``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,34 @@ def lex_less(a, b):
 def lex_eq(a, b):
     """Elementwise equality over the trailing word axis."""
     return torch.all(a == b, dim=-1)
+
+
+def sort_words(words, *extra):
+    """Canonically sort rows of ``(B, W)`` words, carrying extras along.
+
+    Returns ``(sorted_words, perm)`` plus the sorted extras, appended. The
+    order is stable: one stable sort per word, least significant first (the
+    JAX version's ``lax.sort`` over W keys, most significant first).
+    """
+    perm = torch.arange(words.shape[0], device=words.device)
+    for j in range(words.shape[1]):
+        order = torch.sort(words[perm, j], stable=True).indices
+        perm = perm[order]
+    return (words[perm], perm) + tuple(e[perm] for e in extra)
+
+
+def unique_mask(sorted_words, valid=None):
+    """First-occurrence mask over canonically sorted rows.
+
+    ``valid`` rows (if given) must be sorted to the front; invalid rows are
+    never marked unique.
+    """
+    first = torch.ones(sorted_words.shape[0], dtype=torch.bool,
+                       device=sorted_words.device)
+    first[1:] = ~lex_eq(sorted_words[1:], sorted_words[:-1])
+    if valid is not None:
+        first = first & valid
+    return first
 
 
 def searchsorted_words(sorted_words, queries):

@@ -110,16 +110,6 @@ def _library():
     return lib
 
 
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype or t.dim() != ndim or t.device != device:
-        raise ValueError(
-            f"{name}: expected {ndim}-d {dtype} on {device}, got "
-            f"{t.dim()}-d {t.dtype} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fused_matrix_elements(words: torch.Tensor,
                           tables: MatrixElementTables) -> torch.Tensor:
     """(B, W) int64 packed sources -> (B, M) float32 matrix elements."""
@@ -128,10 +118,11 @@ def fused_matrix_elements(words: torch.Tensor,
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     dev = words.device
-    _check("words", words, torch.int64, 2, dev)
-    _check("b_words", tables.b_words, torch.int64, 2, dev)
-    _check("splits", tables.splits, torch.bfloat16, 2, dev)
-    _check("group_starts", tables.group_starts, torch.int32, 1, dev)
+    check = cuda_build.check_operand
+    check("words", words, torch.int64, 2, dev)
+    check("b_words", tables.b_words, torch.int64, 2, dev)
+    check("splits", tables.splits, torch.bfloat16, 2, dev)
+    check("group_starts", tables.group_starts, torch.int32, 1, dev)
     n_rows, n_words = words.shape
     n_terms = tables.b_words.shape[0]
     if tables.b_words.shape[1] != n_words or tables.splits.shape != (

@@ -4,14 +4,25 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and ``nvcc``.
-It builds every CUDA kernel of the port from the sources in this checkout,
-holds each against its plain PyTorch version on the card at the main path's
-shapes and times both, then trains the main-path workload -- N2/STO-3G,
-MADE (512 hidden, 10 qubits per qudit), Gumbel top-k sampling of the whole
-14400-determinant sector (14464 rows), sector membership, MinSR top-50, clip
-1.0, Adam 1e-3 -- for 5 steps from random weights (seed 0) through
-``VMC(...)``, ``init_state()`` and ``step()``, and checks the energies
-against the exact sector Hamiltonian.
+It builds every CUDA kernel of the port from the sources in this checkout
+(one ``nvcc`` each, all started together), holds each against its plain
+PyTorch version on the card at the shapes of the paths that run it and
+times both, then drives the port's two training paths through ``VMC(...)``,
+``init_state()`` and ``step()``/``run()``, each for 5 steps from random
+weights (seed 0), with every kernel's launch count set to 0 just before the
+path and read just after:
+
+- N2 main path (``main_path_vmc``): N2/STO-3G, MADE (512 hidden, 10 qubits
+  per qudit), Gumbel top-k sampling of the whole 14400-determinant sector
+  (14464 rows), sector membership, MinSR top-50, clip 1.0, Adam 1e-3. Its
+  energies are checked against the exact sector Hamiltonian and against the
+  trajectory of the first run on the card; before it, dynamic membership
+  ('hash' and 'table') must find the sector path's pairs on its batch.
+- Li2O toy model (``li2o_vmc``): Li2O/STO-3G, 30 qubits, MADE 512, 6 qubits
+  per qudit, 8192 Gumbel samples, hash membership (the ``hash_lookup``
+  kernel), MinSR top-50, clip 1.0, Adam 3e-3. Step 0's pair count and
+  energy are checked against the host: ``np.isin`` of the partners, and the
+  float64 Rayleigh quotient of H restricted to step 0's own sample set.
 
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
@@ -31,6 +42,11 @@ TIME_LIMIT_S = 300.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
 ME_TOL = 1e-6  # kernel vs plain version: same rounding contract
+HASH_TOL = 0.0  # a gather and a select: kernel and plain agree bit for bit
+# The N2 main path's energies from its first runs on the card (NVIDIA H100
+# 80GB HBM3, 700 W, torch 2.11.0+cu128): same weights, sampler and
+# arithmetic, so a run reproduces them to float32 rounding.
+N2_ENERGIES = (-78.008568, -78.132286, -78.260254, -78.394211, -78.530220)
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -64,6 +80,18 @@ def cuda_ms(fn, reps, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def me_bound(words, tables):
+    """(bytes moved, bytes ms, operations ms) of kernel #1 on ``words``:
+    each input read once, the (B, M) float32 output written once, and one
+    add per (row, term) pair with its sign."""
+    n_rows, n_terms = words.shape[0], tables.b_words.shape[0]
+    n_bytes = (words.numel() * 8 + tables.b_words.numel() * 8
+               + tables.splits.numel() * 2 + tables.group_starts.numel() * 4
+               + n_rows * tables.n_groups * 4)
+    return (n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3,
+            2.0 * n_rows * n_terms / FP32_FLOP_PER_S * 1e3)
 
 
 def kernel_phase(torch, mol, words):
@@ -113,12 +141,8 @@ def kernel_phase(torch, mol, words):
     plain_ms = cuda_ms(lambda: matrix_elements_plain(words, tables), reps=5)
     library_ms = cuda_ms(library, reps=10)
 
-    n_rows, n_terms, n_groups = words.shape[0], ham.n_terms, ham.n_groups
-    n_bytes = (words.numel() * 8 + tables.b_words.numel() * 8
-               + tables.splits.numel() * 2 + tables.group_starts.numel() * 4
-               + n_rows * n_groups * 4)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * n_rows * n_terms / FP32_FLOP_PER_S * 1e3
+    n_rows, n_terms = words.shape[0], ham.n_terms
+    n_bytes, bytes_ms, ops_ms = me_bound(words, tables)
     log(f"kernel timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
         f"two-matmul library form {library_ms:.4f} ms (max|lib - kernel| = "
         f"{lib_err:.3e}); bound {max(bytes_ms, ops_ms) * 1e3:.2f} us "
@@ -141,20 +165,70 @@ def kernel_phase(torch, mol, words):
     }
 
 
-def trainer_phase(torch, mol, device="cuda", width=512):
-    """5 steps of the main path; returns the kernel launches they made."""
-    import numpy as np
-
-    from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
-    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+def reset_launches():
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
     from anqs_quantum_chemistry_torch.ops.matrix_elements import (
         fused_matrix_elements,
     )
 
-    t0 = time.perf_counter()
-    vmc = main_path_vmc(device=device, hidden_width=width)
+    fused_matrix_elements.launches = 0
+    hash_lookup.launches = 0
+
+
+def read_launches():
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        fused_matrix_elements,
+    )
+
+    return {"fused_matrix_elements": fused_matrix_elements.launches,
+            "hash_lookup": hash_lookup.launches}
+
+
+def membership_crosscheck_phase(torch, mol, vmc):
+    """Dynamic membership ('hash', 'table') against the sector path on the
+    N2 main path's full-sector batch: the same pairs found, the same
+    overflow-free numerators t to 1e-6 relative (float32 sums of the same
+    terms)."""
+    from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+
+    words = vmc.sector_words
+    valid = torch.arange(words.shape[0], device="cuda") < mol.fci_ndet
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(words)
+        ref = vmc.engine.local_energy_sector(
+            words, la, ph, valid, vmc.sector_words, vmc.sector_partner_idx,
+            vmc.sector_partner_found, sector_pos=vmc.sector_pos,
+        )
+        scale = float(torch.max(torch.abs(ref.t_re)))
+        for membership in ("hash", "table"):
+            eng = PauliEngine(mol.qubit_ham, device="cuda",
+                              membership=membership)
+            e = eng.local_energy_proxy(words, la, ph, valid)
+            err = max(float(torch.max(torch.abs(e.t_re - ref.t_re))),
+                      float(torch.max(torch.abs(e.t_im - ref.t_im))))
+            log(f"N2 {membership} membership: found_pairs "
+                f"{int(e.found_pairs)} (sector path "
+                f"{int(ref.found_pairs)}), table_overflow "
+                f"{int(e.table_overflow)}, max|t - t_sector| = {err:.3e} "
+                f"(max|t| {scale:.3e})")
+            check(int(e.found_pairs) == int(ref.found_pairs),
+                  f"{membership} membership finds other pairs than the "
+                  "sector path")
+            check(int(e.table_overflow) == 0,
+                  f"{membership} membership overflowed on N2")
+            check(err <= 1e-6 * scale,
+                  f"{membership} membership: t disagrees with the sector "
+                  "path")
+
+
+def trainer_phase(torch, mol, vmc):
+    """5 steps of the main path; returns the kernel launches they made."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
+
     state = vmc.init_state()
-    log(f"trainer set-up: {time.perf_counter() - t0:.2f} s")
 
     # Reference for the first step's energy: the Rayleigh quotient of the
     # initial weights over the whole sector, with the float64 sector
@@ -168,7 +242,7 @@ def trainer_phase(torch, mol, device="cuda", width=512):
     h = sector_hamiltonian(mol.qubit_ham, dets)
     e_ref = float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
 
-    fused_matrix_elements.launches = 0
+    reset_launches()
     rows = []
     for i in range(STEPS):
         t = time.perf_counter()
@@ -178,8 +252,8 @@ def trainer_phase(torch, mol, device="cuda", width=512):
         log(f"step {i}: energy {row['energy']:.6f} unique_num "
             f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
             f"grad_norm {row['grad_norm']:.4f} step_s {dt:.4f} "
-            f"me_launches {fused_matrix_elements.launches}")
-    launches = fused_matrix_elements.launches
+            f"launches {read_launches()}")
+    launches = read_launches()
 
     e_fci = mol.fci_energy
     log(f"E_FCI {e_fci:.6f}; step-0 Rayleigh quotient reference "
@@ -195,8 +269,206 @@ def trainer_phase(torch, mol, device="cuda", width=512):
     # relative at |E| ~ 100 Ha.
     check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
           "step-0 energy disagrees with the Rayleigh quotient")
-    check(launches == STEPS,
-          f"matrix-element kernel launched {launches} times in {STEPS} steps")
+    drift = max(abs(r["energy"] - e) for r, e in zip(rows, N2_ENERGIES))
+    log(f"max |energy - first card run| = {drift:.2e} Ha")
+    check(drift <= 1e-5, "N2 energies moved from the first card run's")
+    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": 0},
+          f"N2 path launched {launches} in {STEPS} steps")
+    return launches
+
+
+def li2o_sample(torch, vmc, seed):
+    """A canonically sorted 8192-row Li2O sample set and its amplitudes,
+    drawn with its own generator (the trainer's stays untouched)."""
+    from anqs_quantum_chemistry_torch.ops import keys
+    from anqs_quantum_chemistry_torch.ops.bits import MASK32
+    from anqs_quantum_chemistry_torch.sampling.sampler import sample
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        words, _, valid, _ = sample(vmc.anqs, vmc.sampling_config, gen)
+        words = torch.where(valid[:, None], words, MASK32)
+        words, _, valid = keys.sort_words(words, valid)
+        la, ph = vmc.anqs.log_psi(words)
+    return words, valid, la, ph
+
+
+def hash_lookup_phase(torch, vmc):
+    """Kernel #2 against its plain version, bit for bit, on two query sets:
+    Li2O's full set (8192 sampled rows x 3072 groups) and a two-word set
+    with real high words; timed on the first. Also holds kernel #1 against
+    its plain version at Li2O's shapes."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        hash_lookup,
+        hash_lookup_plain,
+    )
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        fused_matrix_elements,
+        matrix_elements_plain,
+    )
+
+    eng = vmc.engine
+    words, valid, la, ph = li2o_sample(torch, vmc, seed=1)
+    check(int(valid.sum()) == vmc.config.sample_num, "Li2O sample short")
+    tab, nb, overflow = eng._hash_build(words, la, ph, valid)
+    q_lo, q_hi = eng._hash_queries(words)  # one-word keys: q_hi is None
+
+    def compare(label, tab, q_lo, q_hi):
+        got = hash_lookup(tab, q_lo, q_hi)
+        want = hash_lookup_plain(tab, q_lo, q_hi)
+        torch.cuda.synchronize()
+        bits_equal = all(
+            bool(torch.equal(g.view(torch.int32), w.view(torch.int32)))
+            for g, w in zip(got[:2], want[:2])
+        ) and bool(torch.equal(got[2], want[2]))
+        err = max(float(torch.max(torch.abs(g - w))) for g, w in
+                  zip(got[:2], want[:2]))
+        log(f"kernel hash_lookup ({label}): Q={q_lo.numel()} "
+            f"nb={tab.shape[0]} found {int(got[2].sum())} "
+            f"max|kernel - plain| = {err:.3e}, bit-identical {bits_equal}")
+        check(bits_equal and err <= HASH_TOL,
+              f"hash_lookup kernel disagrees with its plain version "
+              f"({label})")
+        return err
+
+    log(f"Li2O hash table: nb={nb} ({tab.numel() * 4 / 1024:.0f} KB), "
+        f"table_overflow {int(overflow)}")
+    check(int(overflow) == 0, "Li2O hash table overflowed")
+    err = compare("Li2O, W=1", tab, q_lo, q_hi)
+
+    # Two-word keys with real high words: hits, misses that share key_lo
+    # with an entry (only key_hi tells them apart), random misses, and keys
+    # whose bits read as a float NaN or as the empty-slot NEG.
+    rng = np.random.default_rng(7)
+    n = 8192
+    keys2 = rng.integers(0, 1 << 32, (n, 2), dtype=np.int64)
+    keys2[:4] = [[0x7FC00001, 0xFFC00000], [0xF149F2CA, 0xF149F2CA],
+                 [0xF149F2CA, 0], [0xFFFFFFFF, 0xFFFFFFFF]]
+    words2 = torch.from_numpy(keys2).cuda()
+    valid2 = torch.ones(n, dtype=torch.bool, device="cuda")
+    valid2[-64:] = False
+    la2 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    ph2 = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32)).cuda()
+    tab2, _, overflow2 = eng._hash_build(words2, la2, ph2, valid2)
+    check(int(overflow2) == 0, "two-word hash table overflowed")
+    pick = rng.integers(0, n, 1 << 20)
+    q2 = keys2[pick].copy()
+    kind = rng.integers(0, 3, len(pick))
+    q2[kind == 1, 1] ^= rng.integers(1, 1 << 32, int((kind == 1).sum()))
+    q2[kind == 2] = rng.integers(0, 1 << 32, (int((kind == 2).sum()), 2))
+    q2 = torch.from_numpy(q2.astype(np.uint32).view(np.int32)).cuda()
+    err = max(err, compare("random keys, W=2", tab2,
+                           q2[:, 0].contiguous(), q2[:, 1].contiguous()))
+
+    ms = cuda_ms(lambda: hash_lookup(tab, q_lo, q_hi), reps=20)
+    plain_ms = cuda_ms(lambda: hash_lookup_plain(tab, q_lo, q_hi), reps=2,
+                       warmup=1)
+    n_q = q_lo.numel()
+    # Each input read once -- 4 B a key word (q_lo, and q_hi only where
+    # there are two-word keys) and the table -- and the (la, ph, found)
+    # outputs written once.
+    key_words = 1 if q_hi is None else 2
+    n_bytes = n_q * 4 * key_words + tab.numel() * 4 + n_q * (4 + 4 + 1)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    # Per query: the hash (9 integer operations) and 3 compares of each of
+    # 32 entries, counted at the float32 rate (the data sheet gives no
+    # integer rate outside the tensor cores).
+    ops_ms = n_q * (9 + 3 * 32) / FP32_FLOP_PER_S * 1e3
+    log(f"hash_lookup timing: {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({n_bytes / 1e6:.1f} MB "
+        f"moved with {key_words} 32-bit key word(s) a query; bucket rows "
+        f"read from L2 if whole: {n_q * 512 / 1e9:.2f} GB)")
+    log("hash_lookup library_ms: null (no single PyTorch call computes a "
+        "bucket-hash lookup)")
+
+    # Kernel #1 at Li2O's shapes.
+    me = fused_matrix_elements(words, eng.me_tables)
+    me_plain = matrix_elements_plain(words, eng.me_tables)
+    torch.cuda.synchronize()
+    me_err = float(torch.max(torch.abs(me - me_plain)))
+    me_ms = cuda_ms(lambda: fused_matrix_elements(words, eng.me_tables),
+                    reps=10)
+    me_bytes, me_bytes_ms, me_ops_ms = me_bound(words, eng.me_tables)
+    log(f"kernel fused_matrix_elements at Li2O: B={words.shape[0]} "
+        f"T={eng.n_terms} M={eng.n_groups} max|kernel - plain| = "
+        f"{me_err:.3e} Ha (tol {ME_TOL:g}); {me_ms:.4f} ms, bound "
+        f"{max(me_bytes_ms, me_ops_ms) * 1e3:.2f} us "
+        f"({me_bytes / 1e6:.1f} MB moved)")
+    check(me_err <= ME_TOL, "kernel #1 disagrees with plain at Li2O")
+    return {
+        "name": "hash_lookup",
+        "route": "cuda",
+        "source": "anqs_quantum_chemistry_torch/csrc/hash_lookup.cu",
+        "replaces": "anqs_quantum_chemistry_tpu/ops/pallas_kernels.py:32",
+        "launches": None,
+        "max_abs_err": err,
+        "tol": HASH_TOL,
+        "ok": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def li2o_trainer_phase(torch, vmc):
+    """5 steps of the Li2O toy model; returns the kernel launches."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_uint64
+
+    state = vmc.init_state()
+    # Step 0's own sample set, replayed: the generator's state is restored,
+    # so step 0 draws the same uniforms.
+    gen_state = state.generator.get_state()
+    words, _, valid, _, la, ph, _ = vmc._support_and_eloc(state)
+    state.generator.set_state(gen_state)
+    keep = valid.cpu().numpy()
+    dets = words[:, 0].cpu().numpy().astype(np.uint64)[keep]
+    psi = np.exp(la.double().cpu().numpy()[keep]
+                 + 1j * ph.double().cpu().numpy()[keep])
+
+    reset_launches()
+    rows = []
+    for i in range(STEPS):
+        t = time.perf_counter()
+        row = vmc.run(state, 1)[0]
+        dt = time.perf_counter() - t
+        rows.append(row)
+        log(f"Li2O step {i}: energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
+            f"table_overflow {int(row['table_overflow'])} grad_norm "
+            f"{row['grad_norm']:.4f} step_s {dt:.4f} launches "
+            f"{read_launches()}")
+    launches = read_launches()
+
+    t = time.perf_counter()
+    ham = vmc.ham
+    a = words_to_uint64(ham.a_masks)
+    host_pairs = int(np.isin(dets[:, None] ^ a[None, :], dets).sum())
+    h = sector_hamiltonian(ham, dets)
+    e_ref = float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
+    log(f"Li2O step 0 on the host ({time.perf_counter() - t:.1f} s): "
+        f"found_pairs {host_pairs}, Rayleigh quotient over its "
+        f"{len(dets)} determinants {e_ref:.6f} (|step 0 - ref| = "
+        f"{abs(rows[0]['energy'] - e_ref):.2e} Ha); HF "
+        f"{vmc.mol.hf_energy:.6f}")
+    for i, row in enumerate(rows):
+        check(int(row["unique_num"]) == vmc.config.sample_num,
+              f"Li2O step {i}: unique_num {row['unique_num']}")
+        check(int(row["table_overflow"]) == 0,
+              f"Li2O step {i}: table_overflow {row['table_overflow']}")
+        check(np.isfinite(row["energy"]), f"Li2O step {i}: energy")
+    check(int(rows[0]["found_pairs"]) == host_pairs,
+          "Li2O step-0 found_pairs disagrees with the host count")
+    check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
+          "Li2O step-0 energy disagrees with the Rayleigh quotient")
+    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": STEPS},
+          f"Li2O path launched {launches} in {STEPS} steps")
     return launches
 
 
@@ -224,7 +496,7 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t = time.perf_counter()
-    build_logs = cuda_build.build(["fused_me"])
+    build_logs = cuda_build.build(["fused_me", "hash_lookup"])
     log(f"build: {time.perf_counter() - t:.2f} s")
     for name, text in build_logs.items():
         instance = name
@@ -235,7 +507,7 @@ def main():
             if found:
                 words_arg = re.search(r"ILi(\d+)E", found.group(1))
                 instance = (f"{name}<W={words_arg.group(1)}>" if words_arg
-                            else found.group(1))
+                            else name)
             elif "registers" in line or "spill" in line:
                 log(f"  {instance}: {line.strip()}")
 
@@ -243,17 +515,43 @@ def main():
     import numpy as np
 
     from anqs_quantum_chemistry_torch.chem.fci import sector_determinants
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        li2o_vmc,
+        main_path_vmc,
+    )
 
     dets = sector_determinants(mol.qubit_num, mol.n_alpha, mol.n_beta)
     words = np.concatenate([dets, np.full(64, 0xFFFFFFFF, np.uint64)])
     words = torch.from_numpy(words.astype(np.int64)[:, None]).cuda()
-    entry = kernel_phase(torch, mol, words)
-    entry["launches"] = trainer_phase(torch, mol)
+    me_entry = kernel_phase(torch, mol, words)
+
+    t0 = time.perf_counter()
+    n2 = main_path_vmc(device="cuda")
+    log(f"N2 trainer set-up: {time.perf_counter() - t0:.2f} s")
+    membership_crosscheck_phase(torch, mol, n2)
+    n2_launches = trainer_phase(torch, mol, n2)
+    del n2
+
+    t0 = time.perf_counter()
+    li2o = li2o_vmc(device="cuda")
+    log(f"Li2O trainer set-up: {time.perf_counter() - t0:.2f} s")
+    hash_entry = hash_lookup_phase(torch, li2o)
+    li2o_launches = li2o_trainer_phase(torch, li2o)
+
+    # Each kernel's launches on the path it was ported for; both paths'
+    # counts stand beside them.
+    me_entry["launches"] = n2_launches["fused_matrix_elements"]
+    hash_entry["launches"] = li2o_launches["hash_lookup"]
+    for entry in (me_entry, hash_entry):
+        entry["launches_by_path"] = {
+            "n2": n2_launches[entry["name"]],
+            "li2o": li2o_launches[entry["name"]],
+        }
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")
     check(elapsed < TIME_LIMIT_S, f"took {elapsed:.0f} s")
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [me_entry, hash_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count(),

@@ -15,6 +15,11 @@ from anqs_quantum_chemistry_torch.chem.fci import (
     sector_matrix_elements,
 )
 from anqs_quantum_chemistry_torch.chem.molecule import load_n2
+from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+    hash_lookup,
+    hash_lookup_plain,
+)
 from anqs_quantum_chemistry_torch.ops.matrix_elements import (
     build_tables,
     fused_matrix_elements,
@@ -67,3 +72,62 @@ def test_kernel_rejects_bad_inputs(cuda):
             torch.zeros((4, 1), dtype=torch.int64, device=cuda),
             build_tables(load_n2().qubit_ham, "cpu"),
         )
+
+
+def _hash_case(device, w, n=4096, n_queries=1 << 18, seed=3):
+    """A bucket table of ``n`` random ``w``-word keys (a few invalid, one
+    whose bits read as a float NaN) and queries: hits, misses that share
+    key_lo with an entry, and random misses."""
+    rng = np.random.default_rng(seed + w)
+    keys = rng.integers(0, 1 << 32, (n, w), dtype=np.int64)
+    keys[0, 0] = 0x7FC00001
+    valid = np.ones(n, bool)
+    valid[-16:] = False
+    la = rng.standard_normal(n).astype(np.float32)
+    ph = rng.uniform(-3, 3, n).astype(np.float32)
+    engine = PauliEngine(load_n2().qubit_ham, device=device,
+                         membership="hash")
+    tab, _, overflow = engine._hash_build(
+        *(torch.from_numpy(a).to(device) for a in (keys, la, ph, valid))
+    )
+    assert int(overflow) == 0
+    q = keys[rng.integers(0, n, n_queries)]
+    kind = rng.integers(0, 3, n_queries)
+    q[kind == 1, w - 1] ^= 1 << 7  # key_lo of an entry when w == 2
+    q[kind == 2] = rng.integers(0, 1 << 32, (int((kind == 2).sum()), w))
+    # Queries: the keys' 32-bit words as int32 bits, no high words at w = 1.
+    q = torch.from_numpy(q.astype(np.uint32).view(np.int32)).to(device)
+    q_hi = q[:, 1].contiguous() if w == 2 else None
+    return tab, q[:, 0].contiguous(), q_hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2])
+def test_hash_lookup_matches_plain_on_card(cuda, w):
+    """The kernel against its plain version, bit for bit (a gather and a
+    select: no arithmetic on the values)."""
+    tab, q_lo, q_hi = _hash_case(cuda, w)
+    launches = hash_lookup.launches
+    got = hash_lookup(tab, q_lo, q_hi)
+    assert hash_lookup.launches == launches + 1
+    want = hash_lookup_plain(tab, q_lo, q_hi)
+    torch.cuda.synchronize()
+    for g, p in zip(got[:2], want[:2]):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+    assert torch.equal(got[2], want[2])
+    assert 0 < int(got[2].sum()) < q_lo.numel()
+
+
+@pytest.mark.cuda
+def test_hash_lookup_rejects_bad_inputs(cuda):
+    tab, q_lo, q_hi = _hash_case(cuda, 2, n_queries=64)
+    with pytest.raises(ValueError):  # int64 queries
+        hash_lookup(tab, q_lo.to(torch.int64), q_hi.to(torch.int64))
+    with pytest.raises(ValueError):  # an int64 high word
+        hash_lookup(tab, q_lo, q_hi.to(torch.int64))
+    with pytest.raises(ValueError):  # queries on the CPU
+        hash_lookup(tab, q_lo.cpu(), q_hi.cpu())
+    with pytest.raises(ValueError):  # non-contiguous queries
+        hash_lookup(tab, q_lo[::2], q_hi[::2])
+    with pytest.raises(ValueError):  # float64 table
+        hash_lookup(tab.double(), q_lo, q_hi)

@@ -1,6 +1,6 @@
 """Host layer of the PyTorch port against the JAX package, exact equality:
 Hamiltonian fields, masker and grouping tables, the sector tables of the
-VMC driver, and the N2 molecule file shipped inside the port."""
+VMC trainer, and the N2 and Li2O molecule files shipped inside the port."""
 
 import numpy as np
 import pytest
@@ -16,11 +16,15 @@ from anqs_quantum_chemistry_tpu.symmetries import QubitGrouping as JaxGrouping
 from anqs_quantum_chemistry_torch.chem.fci import (
     sector_determinants,
     sector_ground_energy,
+    sector_matrix_elements,
 )
 from anqs_quantum_chemistry_torch.chem.molecule import (
+    LI2O_STO3G,
     N2_STO3G,
     PACKAGED_KEYS,
+    load_li2o,
     load_n2,
+    write_packaged,
 )
 from anqs_quantum_chemistry_torch.experiments.preparation import create_masker
 from anqs_quantum_chemistry_torch.experiments.vmc import VMC, VMCConfig
@@ -130,3 +134,31 @@ def test_sector_ground_energy_matches_fci():
     jmol, mol = molecules("LiH")
     e = sector_ground_energy(mol.qubit_ham, mol.n_alpha, mol.n_beta)
     assert abs(e - jmol.fci_energy) < 1e-8
+
+
+def test_packaged_li2o():
+    """The port's Li2O file: the toy model's sizes, and a Pauli form whose
+    HF diagonal element reproduces the JAX package's SCF energy (both
+    written into the file by the JAX molecule build)."""
+    mol = load_li2o()
+    h = mol.qubit_ham
+    assert (mol.qubit_num, mol.n_alpha, mol.n_beta) == (30, 7, 7)
+    assert (h.n_terms, h.n_groups) == (16169, 3072)
+    assert mol.fci_ndet == 41_409_225 and mol.fci_energy is None
+    hf = np.array([mol.hf_det], np.uint64)
+    diag = int(np.flatnonzero(~h.a_masks.any(axis=1))[0])  # A = 0
+    e_hf = h.constant + sector_matrix_elements(h, hf)[0, diag]
+    assert abs(e_hf - mol.hf_energy) < 1e-8
+    assert abs(mol.hf_energy - -88.581529) < 1e-6
+
+
+def test_write_packaged_keeps_nan_above_sector_limit(tmp_path):
+    """A sector too large to diagonalise (Li2O: 41.4M determinants) keeps
+    fci_energy = NaN instead of starting an eigensolver that would not
+    finish; the arrays are copied as they are."""
+    dst = str(tmp_path / "li2o.npz")
+    assert np.isnan(write_packaged(LI2O_STO3G, dst))
+    with np.load(LI2O_STO3G) as src, np.load(dst) as out:
+        assert sorted(out.files) == sorted(PACKAGED_KEYS)
+        for key in PACKAGED_KEYS:
+            np.testing.assert_array_equal(out[key], src[key], err_msg=key)

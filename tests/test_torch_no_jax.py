@@ -1,0 +1,37 @@
+"""The PyTorch port imports no JAX: every module of
+``anqs_quantum_chemistry_torch``, ``chip_smoke.py`` and
+``tools/profile_torch_step.py`` import in a process where ``jax`` and the
+JAX package cannot be imported (the machine with the card has no JAX)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, importlib.util, pkgutil, sys
+for name in ("jax", "jaxlib", "anqs_quantum_chemistry_tpu"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import anqs_quantum_chemistry_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+spec = importlib.util.spec_from_file_location(
+    "profile_torch_step", "tools/profile_torch_step.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in ("jax", "jaxlib")]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module was walked

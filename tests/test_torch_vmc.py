@@ -1,6 +1,9 @@
-"""The VMC trainer of the PyTorch port against the JAX package on LiH
-(width 32, qubit_per_qudit 6, the whole 225-determinant sector sampled,
-MinSR top-50, clip 1.0), from the same weights and sampler uniforms."""
+"""The VMC trainer of the PyTorch port against the JAX package, from the
+same weights and sampler uniforms: on LiH (width 32, qubit_per_qudit 6, the
+whole 225-determinant sector sampled, sector membership, MinSR top-50, clip
+1.0), and on H2O/STO-3G through the dynamic-membership branch (the sample
+set sorted, partners found by hash or table membership); and the overflow
+policy of the dynamic branch."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ from anqs_quantum_chemistry_torch.experiments.vmc import (
     it_targets,
 )
 from anqs_quantum_chemistry_torch.models.anqs import AnqsConfig
+from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.optim.sr import SRConfig
 from anqs_quantum_chemistry_torch.sampling.sampler import uniform_shapes
 from torch_port_common import jax_uniforms, molecules, to_np
@@ -31,8 +35,8 @@ CFG = dict(sample_num=256, sampling_mode="gumbel", qubit_per_qudit=6,
 JAX_ENGINE = dict(engine_overrides={"table_pairs_per_row": 1})
 
 
-def build(temperature=1.0, **jax_overrides):
-    jmol, mol = molecules("LiH")
+def build(temperature=1.0, name="LiH", port_cfg=None, **jax_overrides):
+    jmol, mol = molecules(name)
     cfg = dict(CFG, grad_weight_temperature=temperature)
     jv = jvmc.VMC(
         jmol,
@@ -40,7 +44,8 @@ def build(temperature=1.0, **jax_overrides):
                        **{**cfg, **JAX_ENGINE, **jax_overrides}),
         JaxAnqsConfig(hidden_widths=(32,)),
     )
-    v = VMC(mol, VMCConfig(sr=SRConfig(max_indices_num=50), **cfg),
+    v = VMC(mol, VMCConfig(sr=SRConfig(max_indices_num=50),
+                           **{**cfg, **(port_cfg or {})}),
             AnqsConfig(hidden_widths=(32,)), device="cpu")
     params, opt_state, key = jv.init_state()
     state = v.init_state()
@@ -56,11 +61,11 @@ def step_uniforms(v, key):
                         ), key
 
 
-@pytest.mark.parametrize("temperature", [1.0, 2.0])
-def test_one_step_grads_and_metrics(temperature):
-    # SGD at lr 1 makes the JAX update minus the gradient itself.
-    jv, v, (p0, o0, key), state = build(temperature, opt_type="sgd",
-                                        lr=1.0)
+def _check_one_step(jv, v, p0, o0, key, state, unique_num, hf_rel=0.0):
+    """One step of each package from the same weights and uniforms: the
+    same gradients (SGD at lr 1 makes the JAX update minus the gradient
+    itself) and metrics. ``hf_rel``: relative slack of the HF row's float32
+    E_loc beyond 1e-6 Ha."""
     p1, _, _, jm = jv._step(p0, o0, key)
     want = params_from_jax(to_np(jax.tree.map(lambda a, b: a - b, p0, p1)))
     uniforms, _ = step_uniforms(v, key)
@@ -68,13 +73,106 @@ def test_one_step_grads_and_metrics(temperature):
     for name, g in grads.items():
         np.testing.assert_allclose(g.detach().numpy(), want[name].numpy(),
                                    rtol=1e-4, atol=1e-6, err_msg=name)
-    assert int(metrics["unique_num"]) == int(jm["unique_num"]) == 225
+    assert int(metrics["unique_num"]) == int(jm["unique_num"]) == unique_num
     assert int(metrics["found_pairs"]) == int(jm["found_pairs"])
+    assert int(metrics["table_overflow"]) == int(jm["table_overflow"]) == 0
     for name in ("energy", "energy_var", "hf_proj_energy"):
-        assert abs(float(metrics[name]) - float(jm[name])) < 1e-6, name
+        tol = 1e-6 + (hf_rel * abs(float(jm[name]))
+                      if name == "hf_proj_energy" else 0.0)
+        assert abs(float(metrics[name]) - float(jm[name])) < tol, name
     for name in ("grad_norm", "ipr", "max_log_abs", "min_log_abs"):
         assert float(metrics[name]) == pytest.approx(float(jm[name]),
                                                      rel=1e-5), name
+
+
+@pytest.mark.parametrize("temperature", [1.0, 2.0])
+def test_one_step_grads_and_metrics(temperature):
+    jv, v, (p0, o0, key), state = build(temperature, opt_type="sgd",
+                                        lr=1.0)
+    _check_one_step(jv, v, p0, o0, key, state, unique_num=225)
+
+
+@pytest.mark.parametrize("membership", ["hash", "table"])
+def test_dynamic_step_grads_and_metrics(membership):
+    """H2O (441-determinant sector, 256 samples) with sector membership
+    off: the JAX step and the port's, from the same weights and uniforms,
+    through the sort and the engine's dynamic membership."""
+    jv, v, (p0, o0, key), state = build(
+        name="H2O", opt_type="sgd", lr=1.0, sector_membership="off",
+        engine_overrides={"membership": membership,
+                          "table_pairs_per_row": 1},
+        port_cfg={"membership": membership},
+    )
+    assert v.sector_words is None and v.engine.membership == membership
+    # The HF row's E_loc is one float32 sum at |E| ~ 75 Ha: 2 ulps.
+    _check_one_step(jv, v, p0, o0, key, state, unique_num=256,
+                    hf_rel=2.4e-7)
+
+
+def _hash_pair(**jax_kw):
+    """(JAX VMC, port VMC) on H2O with hash membership."""
+    jv, v, _, _ = build(
+        name="H2O", **jax_kw, engine_overrides={"membership": "hash"},
+        port_cfg={"membership": "hash"},
+    )
+    return jv, v
+
+
+def test_overflow_escalates_then_raises_at_cap(monkeypatch):
+    """A reported overflow doubles the bucket count (``hash_extra_bits``
+    0 -> 1) and rebuilds the engine; at the escalation cap both packages
+    raise (the port's cap a module constant, the JAX package's a config
+    field, both set to one escalation here)."""
+    monkeypatch.setattr(vmc_module, "MAX_OVERFLOW_ESCALATIONS", 1)
+    jv, v = _hash_pair(max_overflow_escalations=1)
+    row = {"table_overflow": 3.0, "pf_dropped_rows": 0.0}
+    for drv in (jv, v):
+        assert drv.engine.hash_extra_bits == 0
+        drv._handle_overflow(dict(row))
+        assert drv.engine.hash_extra_bits == 1
+        assert drv.engine.membership == "hash"
+        with pytest.raises(RuntimeError, match="overflow"):
+            drv._handle_overflow(dict(row))
+    # No overflow: nothing changes.
+    v._handle_overflow({"table_overflow": 0.0})
+    assert v.engine.hash_extra_bits == 1
+
+
+def test_run_acts_on_overflow(monkeypatch):
+    """``run`` hands every step's ``table_overflow`` to the policy: with a
+    bucket build that reports 5 dropped keys, the first step escalates and
+    the second raises at a cap of one escalation."""
+    monkeypatch.setattr(vmc_module, "MAX_OVERFLOW_ESCALATIONS", 1)
+    _, v = _hash_pair()
+    build_table = PauliEngine._hash_build
+
+    def overflowing(self, *args):
+        tab, nb, _ = build_table(self, *args)
+        return tab, nb, torch.tensor(5, dtype=torch.int32)
+
+    monkeypatch.setattr(PauliEngine, "_hash_build", overflowing)
+    state = v.init_state()
+    rows = v.run(state, 1)
+    assert rows[0]["table_overflow"] == 5
+    assert v.engine.hash_extra_bits == 1
+    with pytest.raises(RuntimeError, match="overflow"):
+        v.run(state, 1)
+
+
+def test_sector_limit_falls_back_to_dynamic(monkeypatch):
+    """Above the sector-membership limit the trainer takes the dynamic
+    branch ('table' at LiH's 12 qubits) and trains the same step."""
+    _, mol = molecules("LiH")
+    kw = dict(CFG, sr=SRConfig(max_indices_num=50))
+    rows = []
+    for limit in (vmc_module.SECTOR_MAX_DETS, 224):  # LiH: 225 dets
+        monkeypatch.setattr(vmc_module, "SECTOR_MAX_DETS", limit)
+        v = VMC(mol, VMCConfig(**kw), AnqsConfig(hidden_widths=(8,)),
+                device="cpu")
+        assert (v.sector_words is None) == (limit == 224)
+        rows.append(v.run(v.init_state(), 1)[0])
+    assert rows[0]["found_pairs"] == rows[1]["found_pairs"]
+    assert rows[0]["energy"] == pytest.approx(rows[1]["energy"], abs=1e-6)
 
 
 def test_three_step_energy_trajectory():
@@ -143,13 +241,14 @@ def test_it_targets_match_jax():
                                    atol=1e-6)
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_unported_paths_raise():
     _, mol = molecules("LiH")
+    anqs = AnqsConfig(hidden_widths=(8,))
     with pytest.raises(NotImplementedError):
-        VMC(mol, VMCConfig(**{**CFG, "sampling_mode": "exact"}),
-            AnqsConfig(hidden_widths=(8,)), device="cpu")
-    # LiH's sector holds 225 determinants.
-    monkeypatch.setattr(vmc_module, "SECTOR_MAX_DETS", 224)
-    with pytest.raises(NotImplementedError):
-        VMC(mol, VMCConfig(**CFG),
-            AnqsConfig(hidden_widths=(8,)), device="cpu")
+        VMC(mol, VMCConfig(**{**CFG, "sampling_mode": "exact"}), anqs,
+            device="cpu")
+    with pytest.raises(NotImplementedError):  # a JAX membership not ported
+        VMC(mol, VMCConfig(**CFG, membership="prefilter"), anqs,
+            device="cpu")
+    with pytest.raises(ValueError):  # no membership of either package
+        VMC(mol, VMCConfig(**CFG, membership="sector"), anqs, device="cpu")

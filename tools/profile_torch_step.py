@@ -1,9 +1,12 @@
 """Where the time of one training step of the PyTorch port goes, on one card.
 
-Usage: python tools/profile_torch_step.py [reps]
+Usage: python tools/profile_torch_step.py [reps] [n2|li2o]
 
-Builds the main-path workload (``experiments.vmc.main_path_vmc``: N2, MADE
-512, 14464 Gumbel samples, MinSR top-50), warms it up with 3 steps, then
+Builds a training workload -- ``n2`` (default): the main path,
+``experiments.vmc.main_path_vmc`` (N2, MADE 512, 14464 Gumbel samples,
+sector membership, MinSR top-50); ``li2o``: the toy model,
+``experiments.vmc.li2o_vmc`` (Li2O, MADE 512, 8192 Gumbel samples, hash
+membership, MinSR top-50) -- warms it up with 3 steps, then
 times ``reps`` whole steps on the host clock, and each stage of the step
 on its own with CUDA events, ``reps`` times each (mean ms), the way the
 JAX package's ``VMC.profile_stages`` splits a step. It then traces
@@ -40,14 +43,19 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        li2o_vmc,
+        main_path_vmc,
+    )
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
     from anqs_quantum_chemistry_torch.optim.sr import sr_transform
     from anqs_quantum_chemistry_torch.sampling.sampler import sample
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: needs a CUDA device")
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 10
-    vmc = main_path_vmc("cuda")
+    workload = sys.argv[2] if len(sys.argv) > 2 else "n2"
+    vmc = {"n2": main_path_vmc, "li2o": li2o_vmc}[workload]("cuda")
     state = vmc.init_state()
     for _ in range(3):
         vmc.step(state)
@@ -70,11 +78,21 @@ def main():
         stages["log_psi_ms"] = cuda_ms(lambda: anqs.log_psi(words), reps)
         stages["matrix_elements_ms"] = cuda_ms(
             lambda: eng.matrix_elements(words), reps)
-        stages["local_energy_sector_ms"] = cuda_ms(
-            lambda: eng.local_energy_sector(
-                words, la, ph, valid, vmc.sector_words,
-                vmc.sector_partner_idx, vmc.sector_partner_found,
-                sector_pos=vmc.sector_pos), reps)
+        if vmc.sector_words is not None:
+            stages["local_energy_sector_ms"] = cuda_ms(
+                lambda: eng.local_energy_sector(
+                    words, la, ph, valid, vmc.sector_words,
+                    vmc.sector_partner_idx, vmc.sector_partner_found,
+                    sector_pos=vmc.sector_pos), reps)
+        else:
+            stages["local_energy_proxy_ms"] = cuda_ms(
+                lambda: eng.local_energy_proxy(words, la, ph, valid), reps)
+            stages["hash_build_ms"] = cuda_ms(
+                lambda: eng._hash_build(words, la, ph, valid), reps)
+            tab = eng._hash_build(words, la, ph, valid)[0]
+            queries = eng._hash_queries(words)
+            stages["hash_lookup_ms"] = cuda_ms(
+                lambda: hash_lookup(tab, *queries), reps)
     stages["loss_fwd_bwd_ms"] = cuda_ms(loss_backward, reps)
     stages["minsr_ms"] = cuda_ms(
         lambda: sr_transform(anqs, params, grads, words, weights, cfg.sr),
@@ -109,7 +127,8 @@ def main():
         print(f"  {ev.self_device_time_total / 1e3 / reps:9.4f} ms  "
               f"x{ev.count // reps:<4d} {ev.key[:90]}")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "reps": reps,
+        "device": torch.cuda.get_device_name(0), "workload": workload,
+        "reps": reps,
         "step_ms": step_ms, "step_wall_ms_profiled": wall_ms,
         "device_busy_ms": device_ms,
         "busy_share_profiled": device_ms / wall_ms,

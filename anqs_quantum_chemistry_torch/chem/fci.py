@@ -42,6 +42,20 @@ def sector_determinants(n_so: int, n_alpha: int, n_beta: int) -> np.ndarray:
     return np.sort((a[:, None] | b[None, :]).reshape(-1))
 
 
+def random_sector_dets(n_orbitals: int, n_alpha: int, n_beta: int,
+                       count: int, rng: np.random.Generator) -> np.ndarray:
+    """``count`` random determinants of the (N_alpha, N_beta) sector as
+    uint64 (alpha on even qubits, beta on odd; up to 32 orbitals): each
+    row's occupied orbitals of each spin are drawn by ``rng`` without
+    replacement."""
+    dets = np.zeros(count, _U)
+    for spin, n_occ in ((0, n_alpha), (1, n_beta)):
+        occ = np.argsort(rng.random((count, n_orbitals)), axis=1)[:, :n_occ]
+        dets |= np.bitwise_or.reduce(
+            _U(1) << (_U(2) * occ.astype(_U) + _U(spin)), axis=1)
+    return dets
+
+
 def _parity64(x: np.ndarray) -> np.ndarray:
     """popcount(x) mod 2 of uint64 values."""
     for s in (32, 16, 8, 4, 2, 1):

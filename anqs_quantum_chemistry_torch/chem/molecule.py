@@ -5,8 +5,10 @@ A molecule file is the npz cache that the JAX package's
 reads the fields the training path needs, as ``Molecule._from_cache`` does.
 The molecules the port trains on ship inside this package, so a checkout
 that carries no ``mols/`` directory runs them: N2/STO-3G, the main path
-(``data/n2_sto3g.npz``), and Li2O/STO-3G, the dynamic-membership path
-(``data/li2o_sto3g.npz``). To regenerate one from a JAX-side cache:
+(``data/n2_sto3g.npz``), Li2O/STO-3G, the dynamic-membership path
+(``data/li2o_sto3g.npz``), and the Hamiltonian of C2H4/6-31G, the largest
+the matrix-element kernel is held to (``data/c2h4_631g.npz``). To
+regenerate one from a JAX-side cache:
 
     python -m anqs_quantum_chemistry_torch.chem.molecule SRC.npz DST.npz
 
@@ -24,6 +26,13 @@ download), N2 in ``mols/`` by the JAX package's tests and Li2O with
 
     python -m anqs_quantum_chemistry_torch.chem.molecule \
         mols/Li2O/<hash>.npz anqs_quantum_chemistry_torch/data/li2o_sto3g.npz
+
+C2H4's file ships in the repository's ``mols/`` (the flagship of the JAX
+package's README):
+
+    python -m anqs_quantum_chemistry_torch.chem.molecule \
+        mols/C2H4/f20120f6863e7b16.npz \
+        anqs_quantum_chemistry_torch/data/c2h4_631g.npz
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ DATA_DIR = os.path.join(
 )
 N2_STO3G = os.path.join(DATA_DIR, "n2_sto3g.npz")
 LI2O_STO3G = os.path.join(DATA_DIR, "li2o_sto3g.npz")
+C2H4_631G = os.path.join(DATA_DIR, "c2h4_631g.npz")
 
 PACKAGED_KEYS = (
     "ham_constant", "ham_a_masks", "ham_b_words", "ham_weights",
@@ -118,6 +128,12 @@ def load_li2o() -> Molecule:
     Pauli terms in 3072 groups, a 41,409,225-determinant (7, 7) sector (no
     FCI energy: too large to diagonalise here)."""
     return Molecule.from_npz(LI2O_STO3G, name="Li2O")
+
+
+def load_c2h4() -> Molecule:
+    """C2H4/6-31G: 52 qubits (two words a determinant), 104278 Pauli terms
+    in 20776 groups, a ~2.4e12-determinant (8, 8) sector (no FCI energy)."""
+    return Molecule.from_npz(C2H4_631G, name="C2H4")
 
 
 def write_packaged(src: str, dst: str) -> float:

@@ -145,6 +145,7 @@ class VMC:
         self.hf_words = bitops.pack(hf_bits).to(self.device)
 
         self.sector_words = None
+        self.sector_pos = None
         if not self._want_sector_membership(mol):
             return
         dets, words_packed, _, n_real = self._enumerate_sector(mol, n)
@@ -152,17 +153,19 @@ class VMC:
         self.sector_words = words_packed
         self.sector_partner_idx = idx
         self.sector_partner_found = pf
-        # Direct-address sample -> sector-index map: one gather per sample
-        # and no canonical sort of the sample set.
-        pos = np.full(1 << n, -1, dtype=np.int64)
-        pos[dets.astype(np.int64)] = np.arange(n_real, dtype=np.int64)
-        self.sector_pos = torch.from_numpy(pos).to(self.device)
+        if n <= PauliEngine.MAX_TABLE_QUBITS:
+            # Direct-address sample -> sector-index map: one gather per
+            # sample and no canonical sort of the sample set (JAX
+            # ``vmc.py:359``). Above the limit the sorted sample set is
+            # searched in the sector, all W words compared.
+            pos = np.full(1 << n, -1, dtype=np.int64)
+            pos[dets.astype(np.int64)] = np.arange(n_real, dtype=np.int64)
+            self.sector_pos = torch.from_numpy(pos).to(self.device)
 
     def _want_sector_membership(self, mol) -> bool:
-        """JAX ``vmc.py:425-443`` in its 'auto' mode. The engine's
-        membership is 'table' here: sector tables exist only up to
-        ``MAX_TABLE_QUBITS`` qubits, where the engine's 'auto' resolves."""
-        if self.config.membership != "auto":
+        """JAX ``vmc.py:425-443`` in its 'auto' mode, whatever the engine's
+        dynamic membership resolved to."""
+        if self.config.membership != "auto" or self.ham.qubit_num > 64:
             return False  # a named dynamic membership is used as named
         ndet = int(mol.fci_ndet)
         return (ndet <= SECTOR_MAX_DETS
@@ -220,10 +223,10 @@ class VMC:
             )
             # Invalid rows become all-ones sentinels that never match.
             words = torch.where(valid[:, None], words, bitops.MASK32)
-            if self.sector_words is None:
-                # Dynamic membership: canonical order (JAX
-                # ``vmc.py:955-966``; Gumbel samples are unique, so no
-                # dedup). The sector path's position map needs no sort.
+            if self.sector_pos is None:
+                # Canonical order (JAX ``vmc.py:955-966``; Gumbel samples
+                # are unique, so no dedup). Only the sector path's position
+                # map needs no sort.
                 words, _, weights, valid = keys.sort_words(words, weights,
                                                            valid)
             la, ph = self.anqs.log_psi(words)

@@ -65,33 +65,32 @@ class PauliEngine:
                  membership: str = "auto", hash_extra_bits: int = 0):
         """``membership``: 'auto' | 'table' | 'hash', the dynamic
         membership of ``local_energy_proxy``; 'auto' resolves as the JAX
-        engine's does, to 'table' up to ``MAX_TABLE_QUBITS`` qubits.
+        engine's does: to 'table' up to ``MAX_TABLE_QUBITS`` qubits, and
+        above that to 'prefilter' (W <= 4) or 'search', which are not
+        ported, so ``local_energy_proxy`` raises on such an engine (its
+        matrix elements and sector local energies work).
         ``hash_extra_bits``: extra log2 bucket-count bits of the hash table
         (0 = ~25% average load; the trainer's overflow policy raises it)."""
         n_words = bitops.n_words(ham.qubit_num)
         if membership in UNPORTED_MEMBERSHIPS:
             raise NotImplementedError(
-                f"membership={membership!r} is not ported (ROADMAP item 10)"
+                f"membership={membership!r} is not ported (ROADMAP item 6)"
             )
         if membership not in MEMBERSHIPS:
             raise ValueError(f"membership={membership!r}: expected one of "
                              f"{MEMBERSHIPS}")
         if membership == "auto":
-            if ham.qubit_num > self.MAX_TABLE_QUBITS:
-                # The JAX engine picks 'prefilter' (W <= 4) or 'search'.
-                raise NotImplementedError(
-                    f"membership='auto' at {ham.qubit_num} qubits resolves "
-                    "to 'prefilter'/'search' in the JAX engine, which are "
-                    "not ported (ROADMAP item 10); pass membership='hash'"
-                )
-            membership = "table"
+            if ham.qubit_num <= self.MAX_TABLE_QUBITS:
+                membership = "table"
+            else:
+                membership = "prefilter" if n_words <= 4 else "search"
         if membership == "table" and ham.qubit_num > self.MAX_TABLE_QUBITS:
             raise ValueError(f"membership='table' needs <= "
                              f"{self.MAX_TABLE_QUBITS} qubits")
         if membership == "hash" and n_words > 2:
             raise NotImplementedError(
                 "hash membership above 64 qubits (16-entry bucket rows) is "
-                "not ported (ROADMAP item 10)"
+                "not ported (ROADMAP item 6)"
             )
         self.membership = membership
         self.hash_extra_bits = hash_extra_bits
@@ -177,6 +176,12 @@ class PauliEngine:
 
         ``sorted_words`` rows of invalid entries must hold words that can
         never match (the VMC step writes all-ones sentinels)."""
+        if self.membership in UNPORTED_MEMBERSHIPS:
+            raise NotImplementedError(
+                f"membership='auto' at {self.qubit_num} qubits resolves to "
+                f"{self.membership!r} in the JAX engine, which is not ported "
+                "(ROADMAP item 6); pass membership='hash'"
+            )
         if self.membership == "table":
             return self._proxy_via_table2(sorted_words, log_abs, phase, valid)
         return self._proxy_via_hash(sorted_words, log_abs, phase, valid)

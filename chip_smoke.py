@@ -24,6 +24,13 @@ path and read just after:
   energy are checked against the host: ``np.isin`` of the partners, and the
   float64 Rayleigh quotient of H restricted to step 0's own sample set.
 
+Last, the matrix-element kernel runs at the full tables of C2H4/6-31G (52
+qubits, two words a determinant, 104278 terms in 20776 groups) on 8192
+random determinants of its (8, 8) sector, bit for bit against its plain
+version and within one float32 ulp of the float64 host reference on the
+first 64 rows; it is timed beside the plain version and, where the (T, M)
+float32 one-hot fits in the card's free memory, the dense two-matmul form.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -41,16 +48,22 @@ T_START = time.monotonic()
 TIME_LIMIT_S = 300.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
-ME_TOL = 1e-6  # kernel vs plain version: same rounding contract
+# Kernel #1 vs its plain version: the same rounding contract, and float64
+# sums of +-bf16 values are exact in any order, so they agree bit for bit.
+ME_TOL = 0.0
+C2H4_ROWS = 8192  # examples/c2h4_support_ci.py's sample_num
 HASH_TOL = 0.0  # a gather and a select: kernel and plain agree bit for bit
 # The N2 main path's energies from its first runs on the card (NVIDIA H100
 # 80GB HBM3, 700 W, torch 2.11.0+cu128): same weights, sampler and
 # arithmetic, so a run reproduces them to float32 rounding.
 N2_ENERGIES = (-78.008568, -78.132286, -78.260254, -78.394211, -78.530220)
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
-# tensor cores.
+# tensor cores. The float64 add rate outside the tensor cores (64 lanes an
+# SM) is set in main() from the card's SM count and maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_LANES_PER_SM = 64
+FP64_ADDS_PER_S = None
 
 
 class SmokeFailure(Exception):
@@ -84,85 +97,185 @@ def cuda_ms(fn, reps, warmup=3):
 
 def me_bound(words, tables):
     """(bytes moved, bytes ms, operations ms) of kernel #1 on ``words``:
-    each input read once, the (B, M) float32 output written once, and one
-    add per (row, term) pair with its sign."""
-    n_rows, n_terms = words.shape[0], tables.b_words.shape[0]
-    n_bytes = (words.numel() * 8 + tables.b_words.numel() * 8
-               + tables.splits.numel() * 2 + tables.group_starts.numel() * 4
+    each operand of the function read once -- W 32-bit words a row, W
+    sign-mask words and three bf16 splits a term (4W + 6 B), the group
+    offsets and the tiles' group and term offsets -- and the (B, M) float32
+    output written once; three float64 adds per (row, term) pair, one a
+    split (the rounding contract), at the SMs' float64 rate."""
+    n_rows, n_words = words.shape
+    n_terms = tables.splits.shape[1]
+    n_bytes = (n_rows * n_words * 4 + n_terms * (4 * n_words + 6)
+               + tables.group_starts.numel() * 4
+               + tables.kernel.tile_starts.numel() * 4
                + n_rows * tables.n_groups * 4)
     return (n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3,
-            2.0 * n_rows * n_terms / FP32_FLOP_PER_S * 1e3)
+            3.0 * n_rows * n_terms / FP64_ADDS_PER_S * 1e3)
 
 
-def kernel_phase(torch, mol, words):
-    from anqs_quantum_chemistry_torch.chem.fci import sector_matrix_elements
+def dense_library(torch, words, tables):
+    """The yardstick (never called by the port): the dense two-matmul
+    float32 form, sign @ (T, M) one-hot of the weights. Returns (callable,
+    None), or (None, why) where its operands do not fit in free memory."""
     from anqs_quantum_chemistry_torch.ops import bits
-    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
-        build_tables,
-        fused_matrix_elements,
-        matrix_elements_plain,
-        plain_operands,
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import _sign_bits
+
+    n_rows, n_terms = words.shape[0], tables.splits.shape[1]
+    n_groups = tables.n_groups
+    need = 4 * (n_terms * n_groups + 3 * n_rows * n_terms + n_rows * n_groups)
+    free, _ = torch.cuda.mem_get_info()
+    if need > 0.7 * free:
+        return None, (f"not timed: (T, M) dense is "
+                      f"{n_terms * n_groups * 4 / 1e9:.1f} GB, all operands "
+                      f"{need / 1e9:.1f} GB of {free / 1e9:.1f} GB free")
+    group_id = torch.repeat_interleave(
+        torch.arange(n_groups, device="cuda"),
+        torch.diff(tables.group_starts.to(torch.int64)),
     )
-
-    ham = mol.qubit_ham
-    tables = build_tables(ham, "cuda")
-    me = fused_matrix_elements(words, tables)
-    plain = matrix_elements_plain(words, tables)
-    torch.cuda.synchronize()
-    check(me.shape == (words.shape[0], ham.n_groups), f"shape {me.shape}")
-    check(bool(torch.isfinite(me).all()), "non-finite matrix elements")
-    err = float((me - plain).abs().max())
-    log(f"kernel fused_matrix_elements: B={words.shape[0]} "
-        f"T={ham.n_terms} M={ham.n_groups} max|kernel - plain| = {err:.3e}"
-        f" Ha (tol {ME_TOL:g})")
-    check(err <= ME_TOL, f"kernel disagrees with plain version: {err}")
-
-    # Float64 host reference on the first rows (one float32 rounding).
-    rows = 512
-    dets = words[:rows, 0].cpu().numpy().astype("uint64")
-    ref = torch.from_numpy(sector_matrix_elements(ham, dets))
-    got = me[:rows].cpu().double()
-    ref_err = float(((got - ref).abs() - 2.4e-7 * ref.abs()).max())
-    log(f"kernel vs float64 host reference ({rows} rows): max excess over "
-        f"one float32 ulp = {ref_err:.3e} Ha")
-    check(ref_err <= 1e-6, "kernel disagrees with the float64 reference")
-
-    # Yardstick (never called by the port): the dense two-matmul form.
-    x = bits.unpack(words, ham.qubit_num, dtype=torch.float32)
-    b_bits, group_splits = plain_operands(tables)
-    dense = group_splits.to(torch.float32).sum(0)
+    dense = torch.zeros((n_terms, n_groups), dtype=torch.float32,
+                        device="cuda")
+    dense[torch.arange(n_terms, device="cuda"), group_id] = (
+        tables.splits.to(torch.float32).sum(0))
+    x = bits.unpack(words, tables.qubit_num, dtype=torch.float32)
+    b_bits = _sign_bits(tables.b_words, tables.qubit_num)
 
     def library():
         p = x @ b_bits
         return (1.0 - 2.0 * torch.remainder(p, 2.0)) @ dense
 
-    lib_err = float((library() - me).abs().max())
-    ms = cuda_ms(lambda: fused_matrix_elements(words, tables), reps=50)
-    plain_ms = cuda_ms(lambda: matrix_elements_plain(words, tables), reps=5)
-    library_ms = cuda_ms(library, reps=10)
+    return library, None
 
-    n_rows, n_terms = words.shape[0], ham.n_terms
+
+def me_figures(torch, label, words, tables, reps, plain_reps):
+    """Kernel #1 against its plain version on ``words``, bit for bit, and
+    its time beside the plain version's, the dense library form's and its
+    bound. Returns the figures; fails on any disagreement."""
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        fused_matrix_elements,
+        matrix_elements_plain,
+    )
+
+    me = fused_matrix_elements(words, tables)
+    plain = matrix_elements_plain(words, tables)
+    torch.cuda.synchronize()
+    shape = (words.shape[0], tables.n_groups)
+    check(me.shape == shape, f"{label}: shape {tuple(me.shape)}")
+    check(bool(torch.isfinite(me).all()), f"{label}: non-finite elements")
+    err = float((me - plain).abs().max())
+    same = bool(torch.equal(me, plain))
+    n_rows, n_terms = words.shape[0], tables.splits.shape[1]
+    log(f"kernel fused_matrix_elements at {label}: B={n_rows} T={n_terms} "
+        f"M={tables.n_groups} W={words.shape[1]} max|kernel - plain| = "
+        f"{err:.3e} Ha (tol {ME_TOL:g}), bit-identical {same}")
+    check(same and err <= ME_TOL,
+          f"kernel #1 disagrees with its plain version at {label}: {err}")
+    del plain
+
+    ms = cuda_ms(lambda: fused_matrix_elements(words, tables), reps=reps)
+    plain_ms = cuda_ms(lambda: matrix_elements_plain(words, tables),
+                       reps=plain_reps, warmup=1)
+    library, why = dense_library(torch, words, tables)
+    if library is None:
+        library_ms, lib_note = None, why
+    else:
+        lib_err = float((library() - me).abs().max())
+        library_ms = cuda_ms(library, reps=plain_reps, warmup=1)
+        lib_note = (f"dense two-matmul library form {library_ms:.4f} ms "
+                    f"(max|lib - kernel| = {lib_err:.3e})")
+    del library
+    torch.cuda.empty_cache()
     n_bytes, bytes_ms, ops_ms = me_bound(words, tables)
-    log(f"kernel timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
-        f"two-matmul library form {library_ms:.4f} ms (max|lib - kernel| = "
-        f"{lib_err:.3e}); bound {max(bytes_ms, ops_ms) * 1e3:.2f} us "
-        f"({n_bytes / 1e6:.1f} MB moved, {2 * n_rows * n_terms / 1e6:.0f} "
-        "MFLOP)")
+    bound_ms = max(bytes_ms, ops_ms)
+    log(f"kernel timing at {label}: {ms:.4f} ms ({ms / bound_ms:.1f}x its "
+        f"bound), plain {plain_ms:.4f} ms, {lib_note}; bound "
+        f"{bound_ms * 1e3:.2f} us = max(bytes {bytes_ms * 1e3:.2f} us: "
+        f"{n_bytes / 1e6:.1f} MB moved, float64 adds {ops_ms * 1e3:.2f} "
+        f"us: {3 * n_rows * n_terms / 1e6:.0f}M)")
+    return {
+        "B": n_rows, "T": n_terms, "M": tables.n_groups,
+        "W": words.shape[1], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def kernel_phase(torch, mol, words):
+    from anqs_quantum_chemistry_torch.chem.fci import sector_matrix_elements
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        build_tables,
+        fused_matrix_elements,
+    )
+
+    ham = mol.qubit_ham
+    tables = build_tables(ham, "cuda")
+    figures = me_figures(torch, "N2", words, tables, reps=50, plain_reps=5)
+
+    # Float64 host reference on the first rows (one float32 rounding).
+    rows = 512
+    me = fused_matrix_elements(words[:rows], tables)
+    dets = words[:rows, 0].cpu().numpy().astype("uint64")
+    ref = torch.from_numpy(sector_matrix_elements(ham, dets))
+    got = me.cpu().double()
+    ref_err = float(((got - ref).abs() - 2.4e-7 * ref.abs()).max())
+    log(f"kernel vs float64 host reference ({rows} rows): max excess over "
+        f"one float32 ulp = {ref_err:.3e} Ha")
+    check(ref_err <= 1e-6, "kernel disagrees with the float64 reference")
     return {
         "name": "fused_matrix_elements",
         "route": "cuda",
         "source": "anqs_quantum_chemistry_torch/csrc/fused_me.cu",
         "replaces": "anqs_quantum_chemistry_tpu/ops/pallas_kernels.py:100",
         "launches": None,
-        "max_abs_err": err,
+        "max_abs_err": figures["max_abs_err"],
         "tol": ME_TOL,
         "ok": True,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "ms": figures["ms"],
+        "plain_ms": figures["plain_ms"],
+        "bound_ms": figures["bound_ms"],
+        "bound_by": figures["bound_by"],
+        "library_ms": figures["library_ms"],
+        "by_molecule": {"n2": figures},
     }
+
+
+def c2h4_phase(torch, me_entry):
+    """Kernel #1 at the full C2H4/6-31G tables on ``C2H4_ROWS`` random
+    determinants of its (8, 8) sector (numpy, seed 0)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import (
+        random_sector_dets,
+        sector_matrix_elements,
+    )
+    from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        build_tables,
+        fused_matrix_elements,
+    )
+
+    t = time.perf_counter()
+    mol = load_c2h4()
+    ham = mol.qubit_ham
+    dets = random_sector_dets(mol.n_orbitals, mol.n_alpha, mol.n_beta,
+                              C2H4_ROWS, np.random.default_rng(0))
+    words = np.stack([dets & np.uint64(0xFFFFFFFF), dets >> np.uint64(32)],
+                     axis=1).astype(np.int64)
+    words = torch.from_numpy(words).cuda()
+    tables = build_tables(ham, "cuda")
+    log(f"C2H4 set-up: {time.perf_counter() - t:.2f} s")
+    figures = me_figures(torch, "C2H4", words, tables, reps=10,
+                         plain_reps=1)
+    rows = 64
+    me = fused_matrix_elements(words[:rows], tables).cpu().double()
+    ref = torch.from_numpy(sector_matrix_elements(ham, dets[:rows]))
+    ref_err = float(((me - ref).abs() - 2.4e-7 * ref.abs()).max())
+    log(f"C2H4 kernel vs float64 host reference ({rows} rows): max excess "
+        f"over one float32 ulp = {ref_err:.3e} Ha")
+    check(ref_err <= 1e-6, "C2H4: kernel disagrees with the float64 "
+          "reference")
+    me_entry["by_molecule"]["c2h4"] = figures
+    me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
+                                  figures["max_abs_err"])
 
 
 def reset_launches():
@@ -297,16 +410,13 @@ def hash_lookup_phase(torch, vmc):
     """Kernel #2 against its plain version, bit for bit, on two query sets:
     Li2O's full set (8192 sampled rows x 3072 groups) and a two-word set
     with real high words; timed on the first. Also holds kernel #1 against
-    its plain version at Li2O's shapes."""
+    its plain version at Li2O's shapes and times it; returns both
+    kernels' figures."""
     import numpy as np
 
     from anqs_quantum_chemistry_torch.ops.hash_lookup import (
         hash_lookup,
         hash_lookup_plain,
-    )
-    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
-        fused_matrix_elements,
-        matrix_elements_plain,
     )
 
     eng = vmc.engine
@@ -384,19 +494,8 @@ def hash_lookup_phase(torch, vmc):
         "bucket-hash lookup)")
 
     # Kernel #1 at Li2O's shapes.
-    me = fused_matrix_elements(words, eng.me_tables)
-    me_plain = matrix_elements_plain(words, eng.me_tables)
-    torch.cuda.synchronize()
-    me_err = float(torch.max(torch.abs(me - me_plain)))
-    me_ms = cuda_ms(lambda: fused_matrix_elements(words, eng.me_tables),
-                    reps=10)
-    me_bytes, me_bytes_ms, me_ops_ms = me_bound(words, eng.me_tables)
-    log(f"kernel fused_matrix_elements at Li2O: B={words.shape[0]} "
-        f"T={eng.n_terms} M={eng.n_groups} max|kernel - plain| = "
-        f"{me_err:.3e} Ha (tol {ME_TOL:g}); {me_ms:.4f} ms, bound "
-        f"{max(me_bytes_ms, me_ops_ms) * 1e3:.2f} us "
-        f"({me_bytes / 1e6:.1f} MB moved)")
-    check(me_err <= ME_TOL, "kernel #1 disagrees with plain at Li2O")
+    li2o_figures = me_figures(torch, "Li2O", words, eng.me_tables, reps=20,
+                              plain_reps=2)
     return {
         "name": "hash_lookup",
         "route": "cuda",
@@ -411,7 +510,7 @@ def hash_lookup_phase(torch, vmc):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-    }
+    }, li2o_figures
 
 
 def li2o_trainer_phase(torch, vmc):
@@ -495,6 +594,19 @@ def main():
     log(f"device: {kind} (count {torch.cuda.device_count()}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    global FP64_ADDS_PER_S
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(clock.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    FP64_ADDS_PER_S = sms * FP64_LANES_PER_SM * mhz * 1e6
+    log(f"float64 add rate for bounds: {sms} SMs x {FP64_LANES_PER_SM} "
+        f"lanes x {mhz:.0f} MHz (nvidia-smi clocks.max.sm) = "
+        f"{FP64_ADDS_PER_S:.4g}/s")
+
     t = time.perf_counter()
     build_logs = cuda_build.build(["fused_me", "hash_lookup"])
     log(f"build: {time.perf_counter() - t:.2f} s")
@@ -535,8 +647,12 @@ def main():
     t0 = time.perf_counter()
     li2o = li2o_vmc(device="cuda")
     log(f"Li2O trainer set-up: {time.perf_counter() - t0:.2f} s")
-    hash_entry = hash_lookup_phase(torch, li2o)
+    hash_entry, li2o_figures = hash_lookup_phase(torch, li2o)
+    me_entry["by_molecule"]["li2o"] = li2o_figures
     li2o_launches = li2o_trainer_phase(torch, li2o)
+    del li2o
+
+    c2h4_phase(torch, me_entry)
 
     # Each kernel's launches on the path it was ported for; both paths'
     # counts stand beside them.

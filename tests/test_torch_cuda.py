@@ -11,10 +11,12 @@ import pytest
 import torch
 
 from anqs_quantum_chemistry_torch.chem.fci import (
+    random_sector_dets,
     sector_determinants,
     sector_matrix_elements,
 )
-from anqs_quantum_chemistry_torch.chem.molecule import load_n2
+from anqs_quantum_chemistry_torch.chem.jw import PauliHamiltonian
+from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4, load_n2
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
     hash_lookup,
@@ -39,8 +41,8 @@ def cuda():
 def test_kernel_matches_plain_on_card(cuda, rows):
     """The kernel against its plain version on N2 sector determinants plus
     all-ones sentinel rows (the main path's batch at rows=14464): the same
-    rounding contract, so equal to 1e-6 Ha; and within one float32 ulp of
-    the float64 host reference."""
+    rounding contract and exact float64 sums, so equal bit for bit; and
+    within one float32 ulp of the float64 host reference."""
     mol = load_n2()
     dets = sector_determinants(mol.qubit_num, mol.n_alpha, mol.n_beta)
     words = np.concatenate([dets, np.full(64, 0xFFFFFFFF, np.uint64)])
@@ -52,10 +54,69 @@ def test_kernel_matches_plain_on_card(cuda, rows):
     assert fused_matrix_elements.launches == launches + 1
     plain = matrix_elements_plain(x, tables)
     torch.cuda.synchronize()
-    assert float((me - plain).abs().max()) <= 1e-6
+    assert torch.equal(me, plain)
     ref = sector_matrix_elements(mol.qubit_ham, words[:512])
     got = me[:512].double().cpu().numpy()
     assert np.all(np.abs(got - ref) <= 1e-6 + 2.4e-7 * np.abs(ref))
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_c2h4(cuda):
+    """Two words a determinant and 104278 terms (20776 groups, the largest
+    of 1378 terms): bit for bit against the plain version on 1000 random
+    determinants of C2H4's (8, 8) sector."""
+    mol = load_c2h4()
+    dets = random_sector_dets(mol.n_orbitals, mol.n_alpha, mol.n_beta, 1000,
+                              np.random.default_rng(5))
+    words = np.stack([dets & np.uint64(0xFFFFFFFF), dets >> np.uint64(32)],
+                     axis=1).astype(np.int64)
+    tables = build_tables(mol.qubit_ham, cuda)
+    x = torch.from_numpy(words).to(cuda)
+    me = fused_matrix_elements(x, tables)
+    plain = matrix_elements_plain(x, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(me, plain)
+    ref = sector_matrix_elements(mol.qubit_ham, dets[:64])
+    got = me[:64].double().cpu().numpy()
+    assert np.all(np.abs(got - ref) <= 1e-6 + 2.4e-7 * np.abs(ref))
+
+
+def _synthetic_ham(qubits, rng):
+    """A grouped Hamiltonian of ~24k terms: one 1000-term group among
+    groups of 1-8 terms, random sign masks, weights of 1e-4..1 Ha."""
+    sizes = rng.integers(1, 9, 5000)
+    sizes[1234] = 1000
+    n_terms = int(sizes.sum())
+    n_words = -(-qubits // 32)
+    b = rng.integers(0, 1 << 32, (n_terms, n_words), dtype=np.int64)
+    if qubits % 32:
+        b[:, -1] &= (1 << (qubits % 32)) - 1
+    weights = (rng.choice([-1.0, 1.0], n_terms)
+               * 10.0 ** rng.uniform(-4, 0, n_terms))
+    return PauliHamiltonian(
+        qubit_num=qubits, constant=0.0,
+        a_masks=np.zeros((len(sizes), n_words), np.uint32),
+        b_words=b.astype(np.uint32), weights=weights,
+        group_starts=np.concatenate([[0], np.cumsum(sizes)]),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qubits", [40, 100])
+def test_kernel_matches_plain_on_card_large_t(cuda, qubits):
+    """Above 20k terms (the old kernel's shared-memory limit), with a
+    1000-term group, at two and four words a determinant: bit for bit."""
+    rng = np.random.default_rng(qubits)
+    ham = _synthetic_ham(qubits, rng)
+    assert ham.n_terms > 20_000
+    tables = build_tables(ham, cuda)
+    words = rng.integers(0, 1 << 32, (777, ham.b_words.shape[1]),
+                         dtype=np.int64)
+    x = torch.from_numpy(words).to(cuda)
+    me = fused_matrix_elements(x, tables)
+    plain = matrix_elements_plain(x, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(me, plain)
 
 
 @pytest.mark.cuda

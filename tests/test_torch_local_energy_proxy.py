@@ -111,8 +111,13 @@ def test_li2o_proxy_matches_jax():
 
 def test_unported_memberships_raise():
     mol = load_li2o()  # 30 qubits: the JAX engine's 'auto' -> 'prefilter'
-    with pytest.raises(NotImplementedError):
-        PauliEngine(mol.qubit_ham, device="cpu")
+    eng = PauliEngine(mol.qubit_ham, device="cpu")
+    assert eng.membership == "prefilter"
+    words = torch.full((2, 1), mol.hf_det, dtype=torch.int64)
+    zeros = torch.zeros(2)
+    with pytest.raises(NotImplementedError, match="prefilter"):
+        eng.local_energy_proxy(words, zeros, zeros,
+                               torch.ones(2, dtype=torch.bool))
     with pytest.raises(ValueError):
         PauliEngine(mol.qubit_ham, device="cpu", membership="table")
     with pytest.raises(NotImplementedError):

@@ -8,12 +8,17 @@ it, at atol 1e-6 Ha. The CUDA kernel itself runs only on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from anqs_quantum_chemistry_tpu.chem.jw import (
+    PauliHamiltonian as JaxPauliHamiltonian,
+)
 from anqs_quantum_chemistry_tpu.experiments.vmc import VMC as JaxVMC
 from anqs_quantum_chemistry_tpu.experiments.vmc import VMCConfig as JaxVMCConfig
 from anqs_quantum_chemistry_tpu.models.anqs import AnqsConfig as JaxAnqsConfig
@@ -24,12 +29,20 @@ from anqs_quantum_chemistry_tpu.ops import bits as jbits
 from anqs_quantum_chemistry_tpu.ops.pallas_kernels import (
     fused_matrix_elements as pallas_fused_matrix_elements,
 )
-from anqs_quantum_chemistry_torch.chem.fci import sector_determinants
+from anqs_quantum_chemistry_torch.chem.fci import (
+    random_sector_dets,
+    sector_determinants,
+    sector_matrix_elements,
+)
+from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4
 from anqs_quantum_chemistry_torch.experiments.vmc import VMC, VMCConfig
 from anqs_quantum_chemistry_torch.models.anqs import AnqsConfig
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+from anqs_quantum_chemistry_torch.ops import bits as tbits
+from anqs_quantum_chemistry_torch.ops import matrix_elements as mx
 from anqs_quantum_chemistry_torch.ops.matrix_elements import (
     fused_matrix_elements,
+    matrix_elements_plain,
     plain_operands,
 )
 from torch_port_common import molecules
@@ -85,6 +98,166 @@ def test_plain_matches_jax_split_and_pallas(rng, name, kind):
     assert me.shape == (len(words), mol.qubit_ham.n_groups)
     np.testing.assert_allclose(me.numpy(), me_split, rtol=0, atol=1e-6)
     np.testing.assert_allclose(me.numpy(), me_pallas, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name,kind", [("H2O", "random"), ("N2", "sector")])
+@pytest.mark.parametrize("term_chunk", [1, 7, 100])
+def test_chunked_plain_equals_dense(rng, monkeypatch, name, kind,
+                                    term_chunk):
+    """The group-chunked plain version against the unchunked dense form
+    (one (3, T, M) one-hot, the plain version before chunking), bit for
+    bit: float64 sums of +-bf16 values are exact, whatever the chunks."""
+    _, mol = molecules(name)
+    tables = PauliEngine(mol.qubit_ham, device="cpu").me_tables
+    words = torch.from_numpy(_sources(rng, mol, kind))
+    b_bits, group_splits = plain_operands(tables)
+    x = tbits.unpack(words, mol.qubit_num, dtype=torch.float32)
+    sign = (1.0 - 2.0 * torch.remainder(x @ b_bits, 2.0)).double()
+    parts = [(sign @ g.double()).float() for g in group_splits]
+    dense = (parts[0] + parts[1]) + parts[2]
+    monkeypatch.setattr(mx, "PLAIN_TERM_CHUNK", term_chunk)
+    got = matrix_elements_plain(words, tables)
+    assert torch.equal(got, dense)
+
+
+def _walk_segments(starts, kern):
+    """Follow the kernel's control flow over every tile's warp segments
+    (``csrc/fused_me.cu``): count how often each term is summed and each
+    group's stage column is written, and which groups go through each cut
+    slot. Returns (term counts, stage writes, {(tile, slot): groups})."""
+    tiles = kern.tile_starts.numpy().astype(np.int64)
+    segments = kern.segments.numpy().astype(np.int64)
+    terms = np.zeros(starts[-1], np.int64)
+    writes = np.zeros(len(starts) - 1, np.int64)
+    slots = {}
+    for i, (m0, _) in enumerate(tiles[:-1]):
+        n_cols = tiles[i + 1, 0] - m0
+        g = starts[m0:m0 + n_cols + 1]
+        for warp, (s0, s1, first, w) in enumerate(segments[i]):
+            head, tail = w & 0xFFFF, w >> 16
+            if s0 >= s1:
+                continue
+            m = first
+            while True:
+                g_lo, g_hi = g[m], g[m + 1]
+                terms[max(g_lo, s0):min(g_hi, s1)] += 1
+                if g_lo >= s0 and g_hi <= s1:
+                    writes[m0 + m] += 1
+                else:
+                    slot = head if m == first else tail
+                    slots.setdefault((i, slot), set()).add(m0 + m)
+                if g_hi >= s1 or m + 1 >= n_cols:
+                    break
+                m += 1
+            if g[first] < s0 and head == warp:  # the owner rounds its slot
+                writes[m0 + first] += 1
+                assert slots[(i, warp)] == {m0 + first}
+    return terms, writes, slots
+
+
+def _one_long_group_ham(rng):
+    """N2's tables with one group stretched to 1000 terms (its terms
+    repeated), so that a single group spans many warp segments."""
+    h = molecules("N2")[1].qubit_ham
+    starts = np.asarray(h.group_starts, np.int64)
+    sizes = np.diff(starts)
+    m = int(rng.integers(len(sizes)))
+    take = np.concatenate([
+        np.arange(starts[m]),
+        starts[m] + np.arange(1000) % sizes[m],
+        np.arange(starts[m + 1], starts[-1]),
+    ])
+    sizes[m] = 1000
+    return dataclasses.replace(
+        h,
+        b_words=np.asarray(h.b_words)[take],
+        weights=np.asarray(h.weights)[take],
+        group_starts=np.concatenate([[0], np.cumsum(sizes)]),
+    )
+
+
+@pytest.mark.parametrize("name", ["N2", "C2H4", "long group"])
+def test_kernel_tables(rng, name):
+    """The kernel's operands: every term's record holds its three splits
+    as float64 and its sign-mask words; tiles are runs of consecutive
+    groups within the kernel's limits; each tile's warp segments cover its
+    terms once, every group's column is written once, and each group cut
+    between segments goes through one slot, which its owner rounds."""
+    if name == "long group":
+        h = _one_long_group_ham(rng)
+    else:
+        h = (load_c2h4() if name == "C2H4" else molecules(name)[1]).qubit_ham
+    starts = np.asarray(h.group_starts, np.int64)
+    splits = mx.bf16_splits(torch.from_numpy(
+        np.asarray(h.weights).astype(np.float32)))
+    kern = mx.kernel_operands(h, splits, starts, "cpu")
+    assert mx.build_tables(h, "cpu").kernel is None  # the CPU never reads it
+    rec = kern.records.numpy().view(np.uint64)
+    n_words = h.b_words.shape[1]
+    assert rec.shape == (h.n_terms, 4)
+    np.testing.assert_array_equal(
+        rec[:, :3].view(np.float64), splits.double().T.numpy()
+    )
+    b = np.asarray(h.b_words).astype(np.uint64)
+    for j in range(n_words):
+        np.testing.assert_array_equal(
+            (rec[:, 3] >> np.uint64(32 * j)) & np.uint64(0xFFFFFFFF), b[:, j]
+        )
+    tiles, tile_terms = kern.tile_starts.numpy().astype(np.int64).T
+    np.testing.assert_array_equal(tile_terms, starts[tiles])
+    assert tiles[0] == 0 and tiles[-1] == h.n_groups
+    groups = np.diff(tiles)
+    terms = starts[tiles[1:]] - starts[tiles[:-1]]
+    assert np.all(groups >= 1) and np.all(groups <= mx.TILE_GROUPS)
+    assert np.all((terms <= mx.TILE_TERMS) | (groups == 1))
+    assert kern.segments.shape == (len(tiles) - 1, mx.SEG_WARPS, 4)
+    summed, writes, slots = _walk_segments(starts, kern)
+    assert np.all(summed == 1) and np.all(writes == 1)
+    assert all(len(cut) == 1 for cut in slots.values())
+    if name != "C2H4":
+        assert slots  # some group is cut between segments
+
+
+def test_c2h4_plain_matches_jax():
+    """C2H4/6-31G (52 qubits: two words a determinant; 104278 terms in
+    20776 groups) at 16 random determinants of its (8, 8) sector: the
+    plain version against the JAX engine's matrix elements in the form its
+    'auto' picks ('grouped', which reorders the groups by size class), the
+    columns matched by each group's flip mask, and against the float64
+    host reference. The JAX engine gets the Hamiltonian from the port's
+    packaged arrays."""
+    mol = load_c2h4()
+    h = mol.qubit_ham
+    jham = JaxPauliHamiltonian(
+        qubit_num=h.qubit_num, constant=h.constant, a_masks=h.a_masks,
+        b_words=h.b_words, weights=h.weights, group_starts=h.group_starts,
+    )
+    jeng = JaxPauliEngine(jham)
+    assert jeng.weights_matmul == "grouped"
+    dets = random_sector_dets(mol.n_orbitals, mol.n_alpha, mol.n_beta, 16,
+                              np.random.default_rng(11))
+    words = np.stack([dets & np.uint64(0xFFFFFFFF), dets >> np.uint64(32)],
+                     axis=1).astype(np.int64)
+    want = np.asarray(jeng.matrix_elements(jnp.asarray(words, jnp.uint32)))
+    eng = PauliEngine(h, device="cpu")
+    got = eng.matrix_elements(torch.from_numpy(words)).numpy()
+    assert got.shape == want.shape == (16, h.n_groups)
+    column = {tuple(a): m for m, a in enumerate(np.asarray(h.a_masks))}
+    order = [column[tuple(a)] for a in np.asarray(jeng.a_words)]
+    got = got[:, order]
+    # 'grouped' sums a group's products in float32: over the 1378-term
+    # diagonal group (flip mask 0) its partial sums reach tens of Ha and it
+    # strays up to 3.8e-6 Ha from the float64 sum, so that group is held
+    # at 1e-5 Ha and every other at 1e-6. The port's float64 sums stay
+    # within one float32 ulp of the float64 host reference everywhere.
+    diagonal = np.all(np.asarray(jeng.a_words) == 0, axis=1)
+    assert diagonal.sum() == 1
+    np.testing.assert_allclose(got[:, ~diagonal], want[:, ~diagonal],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[:, diagonal], want[:, diagonal], rtol=0,
+                               atol=1e-5)
+    ref = sector_matrix_elements(h, dets)[:, order]
+    assert np.all(np.abs(got - ref) <= 1e-6 + 2.4e-7 * np.abs(ref))
 
 
 def test_wrapper_refuses_other_devices():

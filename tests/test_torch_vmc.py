@@ -14,6 +14,9 @@ import torch
 
 from anqs_quantum_chemistry_tpu.experiments import vmc as jvmc
 from anqs_quantum_chemistry_tpu.models.anqs import AnqsConfig as JaxAnqsConfig
+from anqs_quantum_chemistry_tpu.observables.pauli import (
+    PauliEngine as JaxPauliEngine,
+)
 from anqs_quantum_chemistry_tpu.optim.sr import SRConfig as JaxSRConfig
 from anqs_quantum_chemistry_torch.convert import params_from_jax
 from anqs_quantum_chemistry_torch.experiments import vmc as vmc_module
@@ -173,6 +176,27 @@ def test_sector_limit_falls_back_to_dynamic(monkeypatch):
         rows.append(v.run(v.init_state(), 1)[0])
     assert rows[0]["found_pairs"] == rows[1]["found_pairs"]
     assert rows[0]["energy"] == pytest.approx(rows[1]["energy"], abs=1e-6)
+
+
+def test_sector_membership_above_table_qubits(monkeypatch):
+    """With ``MAX_TABLE_QUBITS`` below LiH's 12 qubits in both packages,
+    both trainers keep sector membership (the engine's 'auto' resolving to
+    the unported 'prefilter', which only ``local_energy_proxy`` refuses)
+    and build no direct-address ``sector_pos`` map: the sample set is
+    sorted and searched in the sector. One step from the same weights and
+    uniforms agrees as on the position-map path."""
+    for engine in (JaxPauliEngine, PauliEngine):
+        monkeypatch.setattr(engine, "MAX_TABLE_QUBITS", 10)
+    jv, v, (p0, o0, key), state = build(opt_type="sgd", lr=1.0)
+    assert jv.sector_words is not None and jv.sector_pos is None
+    assert v.sector_words is not None and v.sector_pos is None
+    assert jv.engine.membership == v.engine.membership == "prefilter"
+    _check_one_step(jv, v, p0, o0, key, state, unique_num=225)
+    words = v.sector_words[:4]
+    zeros = torch.zeros(4)
+    with pytest.raises(NotImplementedError, match="prefilter"):
+        v.engine.local_energy_proxy(words, zeros, zeros,
+                                    torch.ones(4, dtype=torch.bool))
 
 
 def test_three_step_energy_trajectory():

@@ -205,8 +205,8 @@ class PauliEngine:
         la_p = torch.where(in_range, rows[..., 0], NEG)
         found = (la_p > 0.5 * NEG) & valid[:, None]
         me = self.matrix_elements(words)
-        return self._combine_via_t(me, la_p, rows[..., 1], found, log_abs,
-                                   phase, valid)
+        return self._combine(me, la_p, rows[..., 1], found, log_abs, phase,
+                             valid)
 
     def _proxy_via_hash(self, words, log_abs, phase, valid):
         """Membership via bucketed hash rows, any qubit count up to 64 (JAX
@@ -219,9 +219,8 @@ class PauliEngine:
         shape = (words.shape[0], self.n_groups)
         found = found.reshape(shape) & valid[:, None]
         me = self.matrix_elements(words)
-        out = self._combine_via_t(me, la_p.reshape(shape),
-                                  ph_p.reshape(shape), found, log_abs,
-                                  phase, valid)
+        out = self._combine(me, la_p.reshape(shape), ph_p.reshape(shape),
+                            found, log_abs, phase, valid)
         return out._replace(table_overflow=overflow)
 
     def _hash_queries(self, words):
@@ -278,9 +277,8 @@ class PauliEngine:
     def _combine_via_t(self, me, la_p, ph_p, found, log_abs, phase, valid):
         """Amplitude-form partner sums computed once; the ratio-form local
         energy is e = t / a_x with a row-level exponent clip on 1/a_x (JAX
-        ``pauli.py:1104``). Every membership path uses it; the JAX dynamic
-        paths' ``_combine`` (a per-pair clip of the amplitude ratio) agrees
-        with it wherever no ratio leaves e^(+-60)."""
+        ``pauli.py:1104``). The sector path uses it, as JAX's does; the
+        dynamic paths use ``_combine``."""
         dph = ph_p - phase[:, None]
         amp_p = torch.where(found, torch.exp(la_p) * me, 0.0)
         s_re = torch.sum(amp_p * torch.cos(dph), dim=1)
@@ -293,4 +291,27 @@ class PauliEngine:
             found_pairs=torch.sum(found & valid[:, None]),
             t_re=torch.where(valid, self.constant * a_x + s_re, 0.0),
             t_im=torch.where(valid, s_im, 0.0),
+        )
+
+    def _combine(self, me, la_p, ph_p, found, log_abs, phase, valid):
+        """Ratio-form local energies with the amplitude ratio of each pair
+        clipped to e^(+-60), beside the same numerators t as
+        ``_combine_via_t``: JAX ``PauliEngine._combine`` (``pauli.py:1132``),
+        which JAX's dynamic paths use."""
+        ratio = torch.exp(torch.clamp(
+            torch.where(found, la_p, 0.0) - log_abs[:, None], -60.0, 60.0))
+        dph = ph_p - phase[:, None]
+        contrib = torch.where(found, me * ratio, 0.0)
+        e_re = torch.sum(contrib * torch.cos(dph), dim=1) + self.constant
+        e_im = torch.sum(contrib * torch.sin(dph), dim=1)
+        a_x = torch.where(valid, torch.exp(log_abs), 0.0)
+        amp_p = torch.where(found, torch.exp(la_p) * me, 0.0)
+        t_re = self.constant * a_x + torch.sum(amp_p * torch.cos(dph), dim=1)
+        t_im = torch.sum(amp_p * torch.sin(dph), dim=1)
+        return LocalEnergies(
+            e_re=torch.where(valid, e_re, 0.0),
+            e_im=torch.where(valid, e_im, 0.0),
+            found_pairs=torch.sum(found & valid[:, None]),
+            t_re=torch.where(valid, t_re, 0.0),
+            t_im=torch.where(valid, t_im, 0.0),
         )

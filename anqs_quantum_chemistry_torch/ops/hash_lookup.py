@@ -19,6 +19,13 @@ On a CUDA tensor it launches ``csrc/hash_lookup.cu`` or raises; on a CPU
 tensor it runs ``hash_lookup_plain``. It counts its launches in
 ``hash_lookup.launches``. The lookup is a gather and a select with no
 arithmetic on the values, so kernel and plain version agree bit for bit.
+
+The kernel decides most misses from a one-byte tag a slot, which
+``hash_tags`` (a kernel of the same source, counted in
+``hash_tags.launches``) builds from the table at every ``hash_lookup``
+call: the top byte of the slot key's ``mix2`` moved into 1..255, and 0 for
+an empty slot (``hash_tags_plain``). The tags only decide which slots the
+kernel reads, never the result.
 """
 
 from __future__ import annotations
@@ -64,6 +71,23 @@ def as_int32(words: torch.Tensor) -> torch.Tensor:
                        words).to(torch.int32)
 
 
+def tag_of(h: torch.Tensor) -> torch.Tensor:
+    """The tag of keys whose ``mix2`` is ``h`` (int64 in [0, 2^32)): the
+    top byte, with 0 (the empty-slot tag) moved to 1."""
+    t = h >> 24
+    return torch.where(t == 0, 1, t)
+
+
+def hash_tags_plain(tab):
+    """(nb, 128) bucket table -> (nb, 32) uint8 tags: each live slot's
+    ``tag_of(mix2(key_lo, key_hi))``, 0 for each slot whose log|psi| is not
+    above 0.5 NEG (what the lookup counts as empty)."""
+    bits = tab.view(torch.int32).to(torch.int64) & MASK32
+    tags = tag_of(mix2(bits[:, :ENTRIES], bits[:, ENTRIES:2 * ENTRIES]))
+    live = tab[:, 2 * ENTRIES:3 * ENTRIES] > 0.5 * NEG
+    return torch.where(live, tags, 0).to(torch.uint8)
+
+
 def hash_lookup_plain(tab, q_lo, q_hi=None):
     """Torch transcription of the JAX ``_hash_lookup_kernel``: gather each
     query's bucket row, compare the key lanes as int32 bits (a key whose
@@ -98,12 +122,51 @@ def hash_lookup_plain(tab, q_lo, q_hi=None):
 def _library():
     lib = cuda_build.load("hash_lookup")
     if lib.hash_lookup_launch.argtypes is None:
+        lib.hash_tags_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+        lib.hash_tags_launch.restype = ctypes.c_int
         lib.hash_lookup_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
             + [ctypes.c_longlong, ctypes.c_void_p]
         )
         lib.hash_lookup_launch.restype = ctypes.c_int
+        lib.hash_lookup_tag_smem_bytes.argtypes = []
+        lib.hash_lookup_tag_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def tags_in_shared_memory(n_buckets: int) -> bool:
+    """Whether the kernel stages a table of ``n_buckets`` buckets' tags in
+    shared memory (else it reads them from global memory)."""
+    return n_buckets * ENTRIES <= _library().hash_lookup_tag_smem_bytes()
+
+
+def _check_table(tab):
+    if tab.shape[1:] != (ROW,) or tab.shape[0] & (tab.shape[0] - 1):
+        raise ValueError(f"tab: expected (2^k, {ROW}), got "
+                         f"{tuple(tab.shape)}")
+
+
+def hash_tags(tab: torch.Tensor) -> torch.Tensor:
+    """(nb, 128) float32 bucket table -> (nb, 32) uint8 slot tags
+    (``hash_tags_plain``)."""
+    _check_table(tab)
+    if tab.device.type == "cpu":
+        return hash_tags_plain(tab)
+    if tab.device.type != "cuda":
+        raise ValueError(f"no kernel for device {tab.device}")
+    cuda_build.check_operand("tab", tab, torch.float32, 2, tab.device)
+    tags = torch.empty((tab.shape[0], ENTRIES), dtype=torch.uint8,
+                       device=tab.device)
+    with torch.cuda.device(tab.device):
+        rc = _library().hash_tags_launch(
+            tab.data_ptr(), tab.shape[0], tags.data_ptr(),
+            torch.cuda.current_stream(tab.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"hash_tags_launch failed: cudaError_t {rc}")
+    hash_tags.launches += 1
+    return tags
 
 
 def hash_lookup(tab: torch.Tensor, q_lo: torch.Tensor,
@@ -111,9 +174,7 @@ def hash_lookup(tab: torch.Tensor, q_lo: torch.Tensor,
     """(nb, 128) float32 bucket table, (N,) int32 query words (the keys'
     32-bit words; ``q_hi=None``: all high words 0) -> (log|psi| (N,)
     float32, phase (N,) float32, found (N,) bool)."""
-    if tab.shape[1:] != (ROW,) or tab.shape[0] & (tab.shape[0] - 1):
-        raise ValueError(f"tab: expected (2^k, {ROW}), got "
-                         f"{tuple(tab.shape)}")
+    _check_table(tab)
     if q_hi is not None and q_lo.shape != q_hi.shape:
         raise ValueError(f"query shapes differ: {tuple(q_lo.shape)} vs "
                          f"{tuple(q_hi.shape)}")
@@ -134,10 +195,10 @@ def hash_lookup(tab: torch.Tensor, q_lo: torch.Tensor,
     found = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return la, ph, found
-    lib = _library()
+    tags = hash_tags(tab)
     with torch.cuda.device(dev):
-        rc = lib.hash_lookup_launch(
-            tab.data_ptr(), tab.shape[0], q_lo.data_ptr(),
+        rc = _library().hash_lookup_launch(
+            tab.data_ptr(), tags.data_ptr(), tab.shape[0], q_lo.data_ptr(),
             None if q_hi is None else q_hi.data_ptr(),
             la.data_ptr(), ph.data_ptr(), found.data_ptr(), n,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -148,4 +209,5 @@ def hash_lookup(tab: torch.Tensor, q_lo: torch.Tensor,
     return la, ph, found
 
 
+hash_tags.launches = 0
 hash_lookup.launches = 0

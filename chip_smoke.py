@@ -20,9 +20,14 @@ path and read just after:
   ('hash' and 'table') must find the sector path's pairs on its batch.
 - Li2O toy model (``li2o_vmc``): Li2O/STO-3G, 30 qubits, MADE 512, 6 qubits
   per qudit, 8192 Gumbel samples, hash membership (the ``hash_lookup``
-  kernel), MinSR top-50, clip 1.0, Adam 3e-3. Step 0's pair count and
-  energy are checked against the host: ``np.isin`` of the partners, and the
-  float64 Rayleigh quotient of H restricted to step 0's own sample set.
+  kernel, which runs the ``hash_tags`` kernel first), MinSR top-50, clip
+  1.0, Adam 3e-3. Step 0's pair count and energy are checked against the
+  host: ``np.isin`` of the partners, and the float64 Rayleigh quotient of H
+  restricted to step 0's own sample set. Before it, the lookup and the tag
+  build are held bit for bit against their plain versions at Li2O's table
+  (nb 1024, tags in shared memory), a two-word random-key table and Li2O's
+  set built with ``hash_extra_bits`` 6 (nb 65536, tags read from global
+  memory), and timed as the median of 5 batches of 20 calls.
 
 Last, the matrix-element kernel runs at the full tables of C2H4/6-31G (52
 qubits, two words a determinant, 104278 terms in 20776 groups) on 8192
@@ -53,6 +58,8 @@ STEPS = 5
 ME_TOL = 0.0
 C2H4_ROWS = 8192  # examples/c2h4_support_ci.py's sample_num
 HASH_TOL = 0.0  # a gather and a select: kernel and plain agree bit for bit
+# Li2O's set in a table above the lookup's shared-memory tier (nb 65536).
+HASH_BIG_EXTRA_BITS = 6
 # The N2 main path's energies from its first runs on the card (NVIDIA H100
 # 80GB HBM3, 700 W, torch 2.11.0+cu128): same weights, sampler and
 # arithmetic, so a run reproduces them to float32 rounding.
@@ -93,6 +100,40 @@ def cuda_ms(fn, reps, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def median_ms(fn, batches=5, reps=20):
+    """Median over ``batches`` of the mean device time of ``reps``
+    back-to-back calls of ``fn``, after 3 warm-up calls."""
+    import statistics
+
+    return statistics.median(cuda_ms(fn, reps, warmup=3 if i == 0 else 0)
+                             for i in range(batches))
+
+
+def kernel_device_ms(fn, kernels, reps=20):
+    """{kernel: mean device time (ms) of one launch} over ``reps`` calls of
+    ``fn``, from ``torch.profiler``'s kernel records whose name contains
+    each of ``kernels``: the kernels' own time, without the host time of
+    the wrappers that launch them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for kernel in kernels:
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+        check(sum(ev.count for ev in events) == reps,
+              f"profiler: {kernel} launched {[ev.count for ev in events]}")
+        out[kernel] = sum(ev.self_device_time_total for ev in events) / (
+            1e3 * reps)
+    return out
 
 
 def me_bound(words, tables):
@@ -278,24 +319,27 @@ def c2h4_phase(torch, me_entry):
                                   figures["max_abs_err"])
 
 
-def reset_launches():
-    from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
+def _counted_kernels():
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        hash_lookup,
+        hash_tags,
+    )
     from anqs_quantum_chemistry_torch.ops.matrix_elements import (
         fused_matrix_elements,
     )
 
-    fused_matrix_elements.launches = 0
-    hash_lookup.launches = 0
+    return {"fused_matrix_elements": fused_matrix_elements,
+            "hash_lookup": hash_lookup, "hash_tags": hash_tags}
+
+
+def reset_launches():
+    for wrapper in _counted_kernels().values():
+        wrapper.launches = 0
 
 
 def read_launches():
-    from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
-    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
-        fused_matrix_elements,
-    )
-
-    return {"fused_matrix_elements": fused_matrix_elements.launches,
-            "hash_lookup": hash_lookup.launches}
+    return {name: wrapper.launches
+            for name, wrapper in _counted_kernels().items()}
 
 
 def membership_crosscheck_phase(torch, mol, vmc):
@@ -385,7 +429,8 @@ def trainer_phase(torch, mol, vmc):
     drift = max(abs(r["energy"] - e) for r, e in zip(rows, N2_ENERGIES))
     log(f"max |energy - first card run| = {drift:.2e} Ha")
     check(drift <= 1e-5, "N2 energies moved from the first card run's")
-    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": 0},
+    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": 0,
+                       "hash_tags": 0},
           f"N2 path launched {launches} in {STEPS} steps")
     return launches
 
@@ -407,16 +452,23 @@ def li2o_sample(torch, vmc, seed):
 
 
 def hash_lookup_phase(torch, vmc):
-    """Kernel #2 against its plain version, bit for bit, on two query sets:
-    Li2O's full set (8192 sampled rows x 3072 groups) and a two-word set
-    with real high words; timed on the first. Also holds kernel #1 against
-    its plain version at Li2O's shapes and times it; returns both
-    kernels' figures."""
+    """Kernel #2 and its tag build against their plain versions, bit for
+    bit, on three tables: Li2O's (8192 sampled rows, queries of all 3072
+    groups), a two-word set with real high words, and Li2O's set in a table
+    above the shared-memory tier; both kernels timed on the first and the
+    lookup on the third. Also holds kernel #1 against its plain version at
+    Li2O's shapes and times it; returns the three kernels' figures."""
+    import copy
+
     import numpy as np
 
     from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        ENTRIES,
         hash_lookup,
         hash_lookup_plain,
+        hash_tags,
+        hash_tags_plain,
+        tags_in_shared_memory,
     )
 
     eng = vmc.engine
@@ -426,6 +478,10 @@ def hash_lookup_phase(torch, vmc):
     q_lo, q_hi = eng._hash_queries(words)  # one-word keys: q_hi is None
 
     def compare(label, tab, q_lo, q_hi):
+        tags = hash_tags(tab)
+        tags_plain = hash_tags_plain(tab)
+        tags_equal = bool(torch.equal(tags, tags_plain))
+        tag_err = float((tags.int() - tags_plain.int()).abs().max())
         got = hash_lookup(tab, q_lo, q_hi)
         want = hash_lookup_plain(tab, q_lo, q_hi)
         torch.cuda.synchronize()
@@ -435,18 +491,25 @@ def hash_lookup_phase(torch, vmc):
         ) and bool(torch.equal(got[2], want[2]))
         err = max(float(torch.max(torch.abs(g - w))) for g, w in
                   zip(got[:2], want[:2]))
+        tier = ("shared memory" if tags_in_shared_memory(tab.shape[0])
+                else "global memory")
         log(f"kernel hash_lookup ({label}): Q={q_lo.numel()} "
-            f"nb={tab.shape[0]} found {int(got[2].sum())} "
-            f"max|kernel - plain| = {err:.3e}, bit-identical {bits_equal}")
+            f"nb={tab.shape[0]} ({tab.numel() * 4 / 1024:.0f} KB, tags "
+            f"{tab.shape[0] * ENTRIES / 1024:.0f} KB in {tier}) found "
+            f"{int(got[2].sum())} max|kernel - plain| = {err:.3e}, "
+            f"bit-identical {bits_equal}; kernel hash_tags bit-identical "
+            f"{tags_equal} ({int((tags != 0).sum())} live slots)")
         check(bits_equal and err <= HASH_TOL,
               f"hash_lookup kernel disagrees with its plain version "
               f"({label})")
-        return err
+        check(tags_equal and tag_err <= HASH_TOL, f"hash_tags kernel "
+              f"disagrees with its plain version ({label})")
+        return err, tag_err
 
-    log(f"Li2O hash table: nb={nb} ({tab.numel() * 4 / 1024:.0f} KB), "
-        f"table_overflow {int(overflow)}")
+    log(f"Li2O hash table: nb={nb}, table_overflow {int(overflow)}")
     check(int(overflow) == 0, "Li2O hash table overflowed")
-    err = compare("Li2O, W=1", tab, q_lo, q_hi)
+    check(tags_in_shared_memory(nb), "Li2O's tags not in shared memory")
+    err, tag_err = compare("Li2O, W=1", tab, q_lo, q_hi)
 
     # Two-word keys with real high words: hits, misses that share key_lo
     # with an entry (only key_hi tells them apart), random misses, and keys
@@ -469,12 +532,31 @@ def hash_lookup_phase(torch, vmc):
     q2[kind == 1, 1] ^= rng.integers(1, 1 << 32, int((kind == 1).sum()))
     q2[kind == 2] = rng.integers(0, 1 << 32, (int((kind == 2).sum()), 2))
     q2 = torch.from_numpy(q2.astype(np.uint32).view(np.int32)).cuda()
-    err = max(err, compare("random keys, W=2", tab2,
-                           q2[:, 0].contiguous(), q2[:, 1].contiguous()))
+    errs = compare("random keys, W=2", tab2, q2[:, 0].contiguous(),
+                   q2[:, 1].contiguous())
+    err, tag_err = max(err, errs[0]), max(tag_err, errs[1])
+    del tab2, q2
 
-    ms = cuda_ms(lambda: hash_lookup(tab, q_lo, q_hi), reps=20)
+    # Li2O's set as the overflow policy would grow its table.
+    big_eng = copy.copy(eng)
+    big_eng.hash_extra_bits = HASH_BIG_EXTRA_BITS
+    tab_big, nb_big, overflow_big = big_eng._hash_build(words, la, ph, valid)
+    check(int(overflow_big) == 0 and not tags_in_shared_memory(nb_big),
+          f"large table: nb {nb_big}, overflow {int(overflow_big)}")
+    errs = compare(f"Li2O, W=1, hash_extra_bits {HASH_BIG_EXTRA_BITS}",
+                   tab_big, q_lo, q_hi)
+    err, tag_err = max(err, errs[0]), max(tag_err, errs[1])
+    big_ms = median_ms(lambda: hash_lookup(tab_big, q_lo, q_hi))
+    del tab_big
+
+    ms = median_ms(lambda: hash_lookup(tab, q_lo, q_hi))
+    tags_call_ms = median_ms(lambda: hash_tags(tab))
+    device = kernel_device_ms(lambda: hash_lookup(tab, q_lo, q_hi),
+                              ("hash_lookup_kernel", "hash_tags_kernel"))
+    tags_ms = device["hash_tags_kernel"]
     plain_ms = cuda_ms(lambda: hash_lookup_plain(tab, q_lo, q_hi), reps=2,
                        warmup=1)
+    tags_plain_ms = cuda_ms(lambda: hash_tags_plain(tab), reps=5, warmup=1)
     n_q = q_lo.numel()
     # Each input read once -- 4 B a key word (q_lo, and q_hi only where
     # there are two-word keys) and the table -- and the (la, ph, found)
@@ -486,31 +568,50 @@ def hash_lookup_phase(torch, vmc):
     # 32 entries, counted at the float32 rate (the data sheet gives no
     # integer rate outside the tensor cores).
     ops_ms = n_q * (9 + 3 * 32) / FP32_FLOP_PER_S * 1e3
-    log(f"hash_lookup timing: {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-        f"{max(bytes_ms, ops_ms) * 1e3:.2f} us ({n_bytes / 1e6:.1f} MB "
-        f"moved with {key_words} 32-bit key word(s) a query; bucket rows "
-        f"read from L2 if whole: {n_q * 512 / 1e9:.2f} GB)")
-    log("hash_lookup library_ms: null (no single PyTorch call computes a "
-        "bucket-hash lookup)")
+    bound_ms = max(bytes_ms, ops_ms)
+    # The tag build reads three planes of the table once (key_lo, key_hi
+    # and log|psi|; never the phase) and writes a byte a slot; per slot,
+    # the hash (9 operations) and the empty-slot compare.
+    tag_bytes = 3 * 4 * nb * ENTRIES + nb * ENTRIES
+    tag_bytes_ms = tag_bytes / HBM_BYTES_PER_S * 1e3
+    tag_ops_ms = nb * ENTRIES * 10 / FP32_FLOP_PER_S * 1e3
+    tag_bound_ms = max(tag_bytes_ms, tag_ops_ms)
+    log(f"hash_lookup timing (median of 5 x 20 calls, tag build included): "
+        f"{ms:.4f} ms ({ms / bound_ms:.2f}x its bound), plain "
+        f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
+        f"({n_bytes / 1e6:.1f} MB moved with {key_words} 32-bit key word(s) "
+        f"a query); at nb {nb_big} (tags in global memory) {big_ms:.4f} ms")
+    log(f"device time a launch (torch.profiler, 20 calls): lookup kernel "
+        f"{device['hash_lookup_kernel']:.4f} ms, tag build "
+        f"{tags_ms:.4f} ms")
+    log(f"hash_tags timing: {tags_ms:.4f} ms on the device (the wrapper "
+        f"alone, median of 5 x 20 calls: {tags_call_ms:.4f} ms, bound by "
+        f"its host time), plain {tags_plain_ms:.4f} ms; bound "
+        f"{tag_bound_ms * 1e3:.3f} us ({tag_bytes / 1e3:.0f} KB moved)")
+    log("hash_lookup, hash_tags library_ms: null (no single PyTorch call "
+        "computes a bucket-hash lookup or its tags)")
 
     # Kernel #1 at Li2O's shapes.
     li2o_figures = me_figures(torch, "Li2O", words, eng.me_tables, reps=20,
                               plain_reps=2)
-    return {
-        "name": "hash_lookup",
-        "route": "cuda",
-        "source": "anqs_quantum_chemistry_torch/csrc/hash_lookup.cu",
-        "replaces": "anqs_quantum_chemistry_tpu/ops/pallas_kernels.py:32",
-        "launches": None,
-        "max_abs_err": err,
-        "tol": HASH_TOL,
-        "ok": True,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }, li2o_figures
+    common = {"route": "cuda",
+              "source": "anqs_quantum_chemistry_torch/csrc/hash_lookup.cu",
+              "replaces": "anqs_quantum_chemistry_tpu/ops/pallas_kernels.py:32",
+              "launches": None, "tol": HASH_TOL, "ok": True,
+              "library_ms": None}
+    lookup_entry = dict(
+        common, name="hash_lookup", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        ms_global_tier=big_ms,
+        kernel_device_ms=device["hash_lookup_kernel"],
+    )
+    tags_entry = dict(
+        common, name="hash_tags", max_abs_err=tag_err, ms=tags_ms,
+        plain_ms=tags_plain_ms, bound_ms=tag_bound_ms,
+        bound_by="bytes" if tag_bytes_ms >= tag_ops_ms else "operations",
+    )
+    return lookup_entry, tags_entry, li2o_figures
 
 
 def li2o_trainer_phase(torch, vmc):
@@ -566,7 +667,8 @@ def li2o_trainer_phase(torch, vmc):
           "Li2O step-0 found_pairs disagrees with the host count")
     check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
           "Li2O step-0 energy disagrees with the Rayleigh quotient")
-    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": STEPS},
+    check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": STEPS,
+                       "hash_tags": STEPS},
           f"Li2O path launched {launches} in {STEPS} steps")
     return launches
 
@@ -647,7 +749,7 @@ def main():
     t0 = time.perf_counter()
     li2o = li2o_vmc(device="cuda")
     log(f"Li2O trainer set-up: {time.perf_counter() - t0:.2f} s")
-    hash_entry, li2o_figures = hash_lookup_phase(torch, li2o)
+    hash_entry, tags_entry, li2o_figures = hash_lookup_phase(torch, li2o)
     me_entry["by_molecule"]["li2o"] = li2o_figures
     li2o_launches = li2o_trainer_phase(torch, li2o)
     del li2o
@@ -658,7 +760,8 @@ def main():
     # counts stand beside them.
     me_entry["launches"] = n2_launches["fused_matrix_elements"]
     hash_entry["launches"] = li2o_launches["hash_lookup"]
-    for entry in (me_entry, hash_entry):
+    tags_entry["launches"] = li2o_launches["hash_tags"]
+    for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {
             "n2": n2_launches[entry["name"]],
             "li2o": li2o_launches[entry["name"]],
@@ -667,7 +770,7 @@ def main():
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")
     check(elapsed < TIME_LIMIT_S, f"took {elapsed:.0f} s")
-    log(json.dumps({"kernels": [me_entry, hash_entry]}))
+    log(json.dumps({"kernels": [me_entry, hash_entry, tags_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count(),

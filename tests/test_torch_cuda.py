@@ -19,8 +19,16 @@ from anqs_quantum_chemistry_torch.chem.jw import PauliHamiltonian
 from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4, load_n2
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+    ENTRIES,
+    NEG,
+    ROW,
     hash_lookup,
     hash_lookup_plain,
+    hash_tags,
+    hash_tags_plain,
+    mix2,
+    tag_of,
+    tags_in_shared_memory,
 )
 from anqs_quantum_chemistry_torch.ops.matrix_elements import (
     build_tables,
@@ -135,19 +143,23 @@ def test_kernel_rejects_bad_inputs(cuda):
         )
 
 
-def _hash_case(device, w, n=4096, n_queries=1 << 18, seed=3):
+def _hash_case(device, w, n=4096, n_queries=1 << 18, seed=3,
+               extra_bits=0):
     """A bucket table of ``n`` random ``w``-word keys (a few invalid, one
-    whose bits read as a float NaN) and queries: hits, misses that share
-    key_lo with an entry, and random misses."""
+    whose bits read as a float NaN, one as NEG) and queries: hits, misses
+    that share key_lo with an entry, and random misses. ``extra_bits``
+    grows the table as the trainer's overflow policy does (512 buckets at
+    0)."""
     rng = np.random.default_rng(seed + w)
     keys = rng.integers(0, 1 << 32, (n, w), dtype=np.int64)
     keys[0, 0] = 0x7FC00001
+    keys[1, 0] = 0xF149F2CA
     valid = np.ones(n, bool)
     valid[-16:] = False
     la = rng.standard_normal(n).astype(np.float32)
     ph = rng.uniform(-3, 3, n).astype(np.float32)
     engine = PauliEngine(load_n2().qubit_ham, device=device,
-                         membership="hash")
+                         membership="hash", hash_extra_bits=extra_bits)
     tab, _, overflow = engine._hash_build(
         *(torch.from_numpy(a).to(device) for a in (keys, la, ph, valid))
     )
@@ -162,21 +174,108 @@ def _hash_case(device, w, n=4096, n_queries=1 << 18, seed=3):
     return tab, q[:, 0].contiguous(), q_hi
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("w", [1, 2])
-def test_hash_lookup_matches_plain_on_card(cuda, w):
+def _assert_lookup_matches_plain(tab, q_lo, q_hi):
     """The kernel against its plain version, bit for bit (a gather and a
-    select: no arithmetic on the values)."""
-    tab, q_lo, q_hi = _hash_case(cuda, w)
-    launches = hash_lookup.launches
+    select: no arithmetic on the values); returns the kernel's result."""
+    launches = hash_lookup.launches, hash_tags.launches
     got = hash_lookup(tab, q_lo, q_hi)
-    assert hash_lookup.launches == launches + 1
+    assert (hash_lookup.launches, hash_tags.launches) == (
+        launches[0] + 1, launches[1] + 1)
     want = hash_lookup_plain(tab, q_lo, q_hi)
     torch.cuda.synchronize()
     for g, p in zip(got[:2], want[:2]):
         assert torch.equal(g.view(torch.int32), p.view(torch.int32))
     assert torch.equal(got[2], want[2])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("extra_bits", [0, 2, 3, 8])
+def test_hash_lookup_matches_plain_on_card(cuda, w, extra_bits):
+    """512 to 131072 buckets: tags staged in shared memory up to 2048
+    buckets (extra_bits 2), read from global memory above."""
+    tab, q_lo, q_hi = _hash_case(cuda, w, extra_bits=extra_bits)
+    assert tab.shape[0] == 512 << extra_bits
+    assert tags_in_shared_memory(tab.shape[0]) == (extra_bits <= 2)
+    got = _assert_lookup_matches_plain(tab, q_lo, q_hi)
     assert 0 < int(got[2].sum()) < q_lo.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra_bits", [0, 8])
+def test_hash_tags_match_plain_on_card(cuda, extra_bits):
+    tab, _, _ = _hash_case(cuda, 2, n_queries=64, extra_bits=extra_bits)
+    launches = hash_tags.launches
+    tags = hash_tags(tab)
+    assert hash_tags.launches == launches + 1
+    assert torch.equal(tags, hash_tags_plain(tab))
+
+
+def _hand_table(nb, entries):
+    """An (nb, 128) table written slot by slot: ``entries`` maps (bucket,
+    slot) to (key_lo, key_hi, log|psi|, phase); every other slot is empty
+    (keys 0, log|psi| NEG)."""
+    tab = torch.zeros((nb, ROW), dtype=torch.int32)
+    tab[:, 2 * ENTRIES:3 * ENTRIES] = torch.tensor(
+        NEG, dtype=torch.float32).view(torch.int32)
+    for (b, e), (lo, hi, la, ph) in entries.items():
+        tab[b, e] = int(np.uint32(lo).view(np.int32))
+        tab[b, ENTRIES + e] = int(np.uint32(hi).view(np.int32))
+        tab[b, 2 * ENTRIES + e] = torch.tensor(la).view(torch.int32)
+        tab[b, 3 * ENTRIES + e] = torch.tensor(ph).view(torch.int32)
+    return tab.view(torch.float32)
+
+
+def _bucket(lo, hi, nb):
+    return int(mix2(torch.tensor([lo]), torch.tensor([hi]))[0]) & (nb - 1)
+
+
+def _queries(keys, device):
+    q = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32))
+    return q[:, 0].contiguous().to(device), q[:, 1].contiguous().to(device)
+
+
+@pytest.mark.cuda
+def test_hash_lookup_edges_on_card(cuda):
+    """Hand-made tables: a bucket holding 32 live entries; two keys of one
+    bucket and one tag; a key stored twice (the first slot wins) behind an
+    empty slot holding it too; keys whose bits read as NaN or as NEG."""
+    nb = 256
+    rng = np.random.default_rng(17)
+    cand = rng.integers(0, 1 << 32, (300_000, 2), dtype=np.int64)
+    h = mix2(torch.from_numpy(cand[:, 0]), torch.from_numpy(cand[:, 1]))
+    bucket = (h & (nb - 1)).numpy()
+    tag = tag_of(h).numpy()
+    full = np.flatnonzero(bucket == 5)[:32]  # 32 keys of bucket 5
+    entries = {(5, e): (*cand[i], float(-e), float(e) / 10)
+               for e, i in enumerate(full)}
+    # Two keys of bucket 9 with one tag: only the second is stored.
+    in9 = np.flatnonzero(bucket == 9)
+    same = next(in9[tag[in9] == t] for t in tag[in9]
+                if (tag[in9] == t).sum() >= 2)[:2]
+    entries[(9, 4)] = (*cand[same[1]], -1.5, 0.25)
+    # One key stored dead in slot 1, live in slots 3 and 7: slot 3 wins.
+    dup = np.flatnonzero(bucket == 11)[0]
+    entries[(11, 1)] = (*cand[dup], NEG, 9.0)
+    entries[(11, 3)] = (*cand[dup], -2.0, 1.0)
+    entries[(11, 7)] = (*cand[dup], -3.0, 2.0)
+    # Keys whose bits read as a float NaN and as NEG, in their buckets.
+    odd = [(0x7FC00001, 0xFFC00000), (0xF149F2CA, 0xF149F2CA),
+           (0xF149F2CA, 0)]
+    for e, (lo, hi) in enumerate(odd):
+        entries[(_bucket(lo, hi, nb), 31 - e)] = (lo, hi, -0.5, -1.0)
+    tab = _hand_table(nb, entries).to(cuda)
+    keys = [*cand[full], cand[same[0]], cand[same[1]], cand[dup], *odd,
+            (0x7FC00001, 0), (0, 0xF149F2CA), *cand[full] ^ (1 << 31)]
+    q_lo, q_hi = _queries(keys, cuda)
+    la, ph, found = _assert_lookup_matches_plain(tab, q_lo, q_hi)
+    found = found.cpu().numpy()
+    assert found[:32].all() and not found[32] and found[33]
+    assert float(la[34]) == -2.0 and float(ph[34]) == 1.0
+    assert found[35:38].all() and not found[38:].any()
+    # One-word keys (q_hi None) against the same table's high-word-0 keys.
+    _assert_lookup_matches_plain(tab, q_lo, None)
 
 
 @pytest.mark.cuda

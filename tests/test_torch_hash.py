@@ -11,6 +11,10 @@ hash, the planar bucket table and the lookup.
 - ``hash_lookup_plain`` (the port's CPU path): bit-equal to the Pallas
   kernel ``hash_lookup`` run in interpret mode, as
   ``tests/test_pallas_kernels.py`` runs it.
+- ``hash_tags_plain``: the slot tags that the CUDA kernel filters with,
+  against a numpy uint32 transcription of the tag of each slot's key; and a
+  torch transcription of the kernel's tag filter, which must select what
+  ``hash_lookup_plain`` selects.
 """
 
 import jax.numpy as jnp
@@ -26,11 +30,20 @@ from anqs_quantum_chemistry_tpu.observables.pauli import (
 from anqs_quantum_chemistry_tpu.ops.pallas_kernels import (
     hash_lookup as pallas_hash_lookup,
 )
+from anqs_quantum_chemistry_torch.chem.fci import random_sector_dets
 from anqs_quantum_chemistry_torch.chem.jw import PauliHamiltonian
+from anqs_quantum_chemistry_torch.chem.molecule import load_li2o, load_n2
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+from anqs_quantum_chemistry_torch.ops.bits import MASK32
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+    ENTRIES,
+    NEG,
     hash_lookup,
     hash_lookup_plain,
+    hash_tags,
+    hash_tags_plain,
+    mix2,
+    tag_of,
 )
 from torch_port_common import molecules
 
@@ -225,3 +238,108 @@ def test_hash_lookup_refuses_bad_tables():
     for q_hi in (q[:0], None):
         out = hash_lookup_plain(torch.zeros((4, 128)), q[:0], q_hi)
         assert [t.shape[0] for t in out] == [0, 0, 0]
+
+
+def _np_tag(lo, hi):
+    """Tag of uint32 key words, in numpy's wrapping uint32 arithmetic."""
+    with np.errstate(over="ignore"):
+        acc = lo.astype(U32) * U32(2654435761)
+        acc ^= acc >> U32(15)
+        acc = (acc ^ hi.astype(U32)) * U32(2654435761)
+        acc ^= acc >> U32(15)
+        acc *= U32(2246822519)
+        acc ^= acc >> U32(13)
+    t = acc >> U32(24)
+    return np.where(t == 0, 1, t).astype(np.uint8)
+
+
+def _tag_table(case):
+    """A ``_hash_build`` table: (table, valid key words (n, 2) uint32)."""
+    rng = np.random.default_rng(21)
+    if case == "li2o":  # 8192 sampled rows of Li2O's sector, one word
+        mol = load_li2o()
+        dets = np.unique(random_sector_dets(mol.n_orbitals, mol.n_alpha,
+                                            mol.n_beta, 8400, rng))[:8192]
+        words = dets.astype(np.int64)[:, None]
+    else:  # two words of random bits, some of them invalid
+        words = rng.integers(0, 1 << 32, (4096, 2), dtype=np.int64)
+        words[0] = [0x7FC00001, 0xF149F2CA]  # NaN and NEG bits
+    valid = np.ones(len(words), bool)
+    valid[-7:] = False
+    la, ph = _amps(rng, len(words))
+    eng = PauliEngine(load_n2().qubit_ham, device="cpu", membership="hash")
+    tab, _, overflow = eng._hash_build(
+        *(torch.from_numpy(a) for a in (words, la, ph, valid)))
+    assert int(overflow) == 0
+    keys = np.zeros((int(valid.sum()), 2), U32)
+    keys[:, :words.shape[1]] = words[valid]
+    return tab, keys
+
+
+@pytest.mark.parametrize("case", ["li2o", "w2"])
+def test_hash_tags_plain(case):
+    """Every live slot carries its key's tag, never the empty tag 0, and
+    every empty slot carries 0."""
+    tab, keys = _tag_table(case)
+    launches = hash_tags.launches
+    tags = hash_tags(tab)
+    assert hash_tags.launches == launches  # CPU: the plain version
+    assert tags.dtype == torch.uint8 and tags.shape == (tab.shape[0], 32)
+    assert torch.equal(tags, hash_tags_plain(tab))
+    tags = tags.numpy()
+    bits = tab.view(torch.int32).numpy().view(U32)
+    live = tab[:, 2 * ENTRIES:3 * ENTRIES].numpy() > 0.5 * NEG
+    assert live.sum() == len(keys)
+    slot_keys = np.stack([bits[:, :ENTRIES][live],
+                          bits[:, ENTRIES:2 * ENTRIES][live]], axis=1)
+    np.testing.assert_array_equal(np.unique(slot_keys, axis=0),
+                                  np.unique(keys, axis=0))
+    np.testing.assert_array_equal(tags[live],
+                                  _np_tag(slot_keys[:, 0], slot_keys[:, 1]))
+    assert np.all(tags[live] != 0) and np.all(tags[~live] == 0)
+
+
+def _lookup_via_tags(tab, q_lo, q_hi):
+    """The kernel's selection, transcribed: only the slots whose tag
+    equals the query's are compared, in ascending order."""
+    if q_hi is None:
+        q_hi = torch.zeros_like(q_lo)
+    tags = hash_tags_plain(tab)
+    h = mix2(q_lo.to(torch.int64) & MASK32, q_hi.to(torch.int64) & MASK32)
+    bucket = h & (tab.shape[0] - 1)
+    rows = tab.view(torch.int32)[bucket]
+    la_e = rows[:, 2 * ENTRIES:3 * ENTRIES].view(torch.float32)
+    match = (
+        (tags[bucket] == tag_of(h)[:, None])
+        & (rows[:, :ENTRIES] == q_lo[:, None])
+        & (rows[:, ENTRIES:2 * ENTRIES] == q_hi[:, None])
+        & (la_e > 0.5 * NEG)
+    )
+    found = match.any(1)
+    first = torch.argmax(match.to(torch.uint8), dim=1, keepdim=True)
+    ph_e = rows[:, 3 * ENTRIES:].view(torch.float32)
+    return (torch.where(found, la_e.gather(1, first)[:, 0], NEG),
+            torch.where(found, ph_e.gather(1, first)[:, 0], 0.0), found)
+
+
+@pytest.mark.parametrize("case", ["li2o", "w2"])
+def test_tag_filter_selects_what_plain_selects(case):
+    """Hits, misses that share key_lo with an entry, and random misses,
+    through the tag filter: bit-equal to ``hash_lookup_plain``."""
+    tab, keys = _tag_table(case)
+    rng = np.random.default_rng(8)
+    q = keys[rng.integers(0, len(keys), 20000)].copy()
+    kind = rng.integers(0, 3, len(q))
+    q[kind == 1, 1] ^= U32(1 << 9)
+    q[kind == 2] = rng.integers(0, 1 << 32, (int((kind == 2).sum()), 2))
+    q = torch.from_numpy(q.view(np.int32))
+    q_lo = q[:, 0].contiguous()
+    q_hi = q[:, 1].contiguous() if case == "w2" else None
+    if q_hi is None:
+        q_lo = q_lo[kind != 1]
+    got = _lookup_via_tags(tab, q_lo, q_hi)
+    want = hash_lookup_plain(tab, q_lo, q_hi)
+    for g, w_ in zip(got[:2], want[:2]):
+        assert torch.equal(g.view(torch.int32), w_.view(torch.int32))
+    assert torch.equal(got[2], want[2])
+    assert 0 < int(got[2].sum()) < len(q_lo)

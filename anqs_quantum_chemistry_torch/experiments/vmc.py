@@ -1,29 +1,38 @@
 """VMC energy optimization: the training step and its driver loop.
 
-A slice of the JAX package's ``experiments/vmc.py``: Gumbel top-k sampling
-of unique determinants -> amplitudes -> sample-aware local energies ->
-Born-weighted float64 estimators -> REINFORCE surrogate loss -> gradient ->
-MinSR -> global-norm clip -> Adam that skips non-finite updates. Membership
-of the local energies' partners goes through the precomputed sector
-connectivity where the (N_alpha, N_beta) sector is small enough (the N2
-main path, ``main_path_vmc``), and otherwise through the engine's dynamic
-membership over the canonically sorted sample set (the Li2O toy model,
-``li2o_vmc``: hash membership at 30 qubits). The surrogate loss is
+Counterpart of the JAX package's ``experiments/vmc.py``: the support
+(Gumbel top-k or multinomial samples of unique determinants, or the whole
+enumerated sector in exact summation) -> amplitudes -> sample-aware local
+energies -> float64 estimators -> REINFORCE surrogate loss -> gradient ->
+MinSR -> global-norm clip (and renormalization) -> Adam or SGD that skips
+non-finite updates. Membership of the local energies' partners goes through
+partner tables built once where the basis is fixed (exact summation,
+``local_energy_static``) or the (N_alpha, N_beta) sector is small enough
+(the N2 main path, ``main_path_vmc``), and otherwise through the engine's
+dynamic membership over the canonically sorted sample set (the Li2O toy
+model, ``li2o_vmc``: hash membership at 30 qubits). The surrogate loss is
 
     loss = 2 sum_x f(x) [ log|psi(x)| Re(dE) + phase(x) Im(dE) ],
 
 whose gradient equals the VMC energy gradient with f and E_loc held
 constant: the local energies are computed without autograd.
 
-Entry points: ``VMC(mol, VMCConfig(...), AnqsConfig(...))``,
-``init_state()``, ``step(state)`` and ``run(state, n)``.
+Entry points: ``VMC(mol, VMCConfig(...), AnqsConfig(...), run_dir=...)``,
+then ``run(iter_num, ...)``, the driver loop: iteration-keyed schedules,
+the adaptive multinomial budget, the periodic unbiased full energy, the
+overflow policy, ``result.csv``, ``best_energy.npy``, checkpoints and
+resume. ``init_state()`` and ``step(state)`` take single steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
-from typing import List, NamedTuple, Optional, Sequence
+import os
+import time
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,64 +40,139 @@ import torch
 from ..chem.fci import SECTOR_MAX_DETS, sector_determinants
 from ..chem.molecule import Molecule
 from ..models.anqs import ANQS, AnqsConfig
-from ..observables.pauli import PauliEngine
+from ..observables.pauli import PauliEngine, mc_estimate
 from ..ops import bits as bitops
 from ..ops import keys
 from ..optim.sr import SRConfig, clip_grad_norm, sr_transform
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
-from ..utils.config import Config
+from ..utils.config import Config, Schedule
 from .preparation import create_masker
 
 # Sector membership is built up to these sizes (the JAX ``VMCConfig``
 # defaults): sector determinants (``SECTOR_MAX_DETS``, shared with
 # ``chem/fci.py``), and determinants x groups of the partner tables.
 SECTOR_MAX_ENTRIES = 48_000_000
-# A step that reports keys dropped by hash-bucket overflow doubles the
-# bucket count and rebuilds the engine, at most this many times; then the
-# trainer raises (the JAX ``VMCConfig.max_overflow_escalations`` default).
-MAX_OVERFLOW_ESCALATIONS = 6
+# Exact summation enumerates at most this many determinants (JAX
+# ``vmc.py:326``).
+EXACT_MAX_DETS = 1 << 20
+OVERFLOW_POLICIES = ("escalate", "raise", "ignore")
+# The one file of a checkpoint directory.
+CHECKPOINT_FILE = "checkpoint.pt"
+# The best-model cascade saves at most once in this many seconds.
+BEST_SAVE_INTERVAL_S = 10.0
 
 
 @dataclasses.dataclass
 class VMCConfig(Config):
-    """The fields of the JAX ``VMCConfig`` that the ported path reads, and
-    the engine's membership (JAX ``engine_overrides["membership"]``)."""
+    """The fields of the JAX ``VMCConfig`` that the port reads, with JAX's
+    names and defaults, and the engine's membership (JAX
+    ``engine_overrides["membership"]``)."""
 
     sample_num: int = 2000
+    # 'gumbel' | 'multinomial' | 'exact' ('exact' enumerates the whole
+    # symmetry sector once and sums over it; sample_num is ignored).
     sampling_mode: str = "gumbel"
+    multinomial_budget: Optional[int] = None
+    # Adaptive multinomial budget (reference sample_precisely,
+    # calculations/sample.py:62-75): rescale the budget between iterations
+    # toward ``target_unique`` distinct states (default sample_num // 2),
+    # within [sample_num, max_multinomial_budget].
+    sample_precisely: bool = False
+    target_unique: Optional[int] = None
+    max_multinomial_budget: int = 1 << 27
     symmetry_level: str = "e_num_spin"
     qubit_per_qudit: int = 6
+    opt_type: str = "adam"  # 'adam' | 'sgd'
     lr: float = 1e-3
+    # Piecewise-constant learning rate ((start_iter, lr), ...), keyed on
+    # the count of applied updates, as optax's schedule is.
+    lr_schedule: Optional[tuple] = None
     sr: Optional[SRConfig] = None
     grad_clip_norm: Optional[float] = None
+    grad_renorm: bool = False  # grad <- grad/||grad|| (process_grad.py:66-70)
+    # Every this many iterations, the unbiased full energy of the step's
+    # own sample (``PauliEngine.local_energy_full``).
+    full_energy_period: Optional[int] = None
+    use_theor_freqs: bool = True  # Born |psi|^2 weights vs sampled weights
     # T > 1 weights the surrogate loss by |psi|^(2/T) (the estimators stay
     # Born); 1.0 = plain Born weights.
     grad_weight_temperature: float = 1.0
+    # Exact summation: resolve membership once at set-up (the basis is
+    # fixed), so a step needs no sort and no membership search.
+    exact_static_membership: bool = True
     seed: int = 0
+    iter_num: int = 500
+    # Iteration-keyed config schedules ((start_iter, {field: value}), ...):
+    # the active entry is the last with start_iter <= iter (reference
+    # energy_opt_exp.py:221-305,483-501).
+    opt_schedule: Optional[tuple] = None  # lr, grad_*, sr
+    sampling_schedule: Optional[tuple] = None  # sample_num, sampling_mode
+    proc_grad_schedule: Optional[tuple] = None  # sr, grad_clip_norm, ...
+    # Initial-weights cache shared by runs of one (ansatz, seed).
+    init_weights_cache: Optional[str] = None
+    # On a new best energy, checkpoint under <run_dir>/best_model and each
+    # extra dir (reference energy_opt_exp.py:414-481,648-675).
+    save_best_model: bool = False
+    extra_best_dirs: Tuple[str, ...] = ()
     # The engine's dynamic membership ('auto' | 'table' | 'hash'). With
     # 'auto' the step uses the precomputed partner connectivity of the
     # (N_alpha, N_beta) sector where it fits the limits above; otherwise
     # (and with any named membership) it sorts the sample set and the
     # engine resolves partners from the set itself.
     membership: str = "auto"
+    # Membership overflow (table_overflow + pf_dropped_rows above the
+    # threshold): 'escalate' doubles the hash bucket count and rebuilds
+    # the engine, at most max_overflow_escalations times, then raises;
+    # 'raise' raises; 'ignore' logs nothing and goes on.
+    overflow_policy: str = "escalate"
+    overflow_threshold: int = 0
+    max_overflow_escalations: int = 6
 
 
-class FiniteGuardAdam:
-    """``optax.apply_if_finite(optax.adam(lr), max_consecutive_errors)``:
-    an update whose gradients hold a NaN or an Inf is skipped (parameters
-    and Adam moments untouched) until more than ``max_consecutive_errors``
-    such updates come in a row; then it is applied anyway."""
+def _lr_at(cfg: VMCConfig, count: int) -> float:
+    """The learning rate of the ``count``-th applied update: ``cfg.lr``, or
+    ``optax.piecewise_constant_schedule`` of ``cfg.lr_schedule`` as the JAX
+    ``_make_opt`` builds it (the first entry's rate, times each boundary's
+    scale new/old once ``count`` reaches it; float64, as the JAX package
+    runs with 64-bit types enabled)."""
+    if not cfg.lr_schedule:
+        return cfg.lr
+    entries = sorted(cfg.lr_schedule)
+    value = float(entries[0][1])
+    for (_, old), (start, new) in zip(entries[:-1], entries[1:]):
+        if count >= int(start):
+            value *= new / old
+    return value
 
-    def __init__(self, params, lr: float, max_consecutive_errors: int = 100):
+
+class FiniteGuardOptimizer:
+    """``optax.apply_if_finite(optax.adam(lr) | optax.sgd(lr),
+    max_consecutive_errors)``: an update whose gradients hold a NaN or an
+    Inf is skipped (parameters, moments and the count of applied updates
+    untouched) until more than ``max_consecutive_errors`` such updates come
+    in a row; then it is applied anyway. The learning rate is set before
+    each applied update from the step's config (``_lr_at``)."""
+
+    def __init__(self, params, opt_type: str = "adam",
+                 max_consecutive_errors: int = 100):
         self.params = list(params)
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+        if opt_type == "adam":
+            self.inner = torch.optim.Adam(self.params, lr=1.0,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        elif opt_type == "sgd":
+            self.inner = torch.optim.SGD(self.params, lr=1.0)
+        else:
+            raise ValueError(f"opt_type={opt_type!r}: expected 'adam' or "
+                             "'sgd'")
+        self.opt_type = opt_type
         self.max_consecutive_errors = max_consecutive_errors
+        self.count = 0  # applied updates: the learning-rate schedule's step
         self.notfinite_count = 0
         self.total_notfinite = 0
+        self.last_lr = None
 
-    def step(self, grads: Sequence[torch.Tensor]) -> bool:
+    def step(self, grads, cfg: VMCConfig) -> bool:
         """Apply ``grads`` (one per parameter); returns whether applied."""
         finite = bool(
             torch.stack([torch.isfinite(g).all() for g in grads]).all()
@@ -100,31 +184,52 @@ class FiniteGuardAdam:
             self.total_notfinite += 1
             if self.notfinite_count <= self.max_consecutive_errors:
                 return False
+        self.last_lr = _lr_at(cfg, self.count)
+        for group in self.inner.param_groups:
+            group["lr"] = self.last_lr
         for p, g in zip(self.params, grads):
             p.grad = g
-        self.adam.step()
-        self.adam.zero_grad(set_to_none=True)
+        self.inner.step()
+        self.inner.zero_grad(set_to_none=True)
+        self.count += 1
         return True
+
+    def state_dict(self) -> dict:
+        return {"opt_type": self.opt_type, "inner": self.inner.state_dict(),
+                "count": self.count, "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, state: dict):
+        """Raises ``ValueError`` (or ``KeyError``) where ``state`` is of
+        another optimizer or parameter layout."""
+        if state["opt_type"] != self.opt_type:
+            raise ValueError(f"saved optimizer {state['opt_type']!r}, this "
+                             f"one {self.opt_type!r}")
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])
+        self.notfinite_count = int(state["notfinite_count"])
+        self.total_notfinite = int(state["total_notfinite"])
 
 
 class TrainState(NamedTuple):
-    opt: FiniteGuardAdam
+    opt: FiniteGuardOptimizer
     generator: torch.Generator  # sampler noise
 
 
 class VMC:
     """The full stack for one molecule: masker, grouping, ansatz, Pauli
-    engine and the static sector tables."""
+    engine and the static tables of the exact or sector paths."""
 
     def __init__(self, mol: Molecule, config: VMCConfig = None,
-                 anqs_config: AnqsConfig = None, device="cuda"):
+                 anqs_config: AnqsConfig = None, device="cuda",
+                 run_dir: Optional[str] = None):
         self.mol = mol
         self.config = config or VMCConfig()
         self.device = torch.device(device)
-        if self.config.sampling_mode != "gumbel":
-            raise NotImplementedError(
-                f"sampling_mode={self.config.sampling_mode!r} is not ported"
-            )
+        if self.config.overflow_policy not in OVERFLOW_POLICIES:
+            raise ValueError(f"overflow_policy="
+                             f"{self.config.overflow_policy!r}: expected one "
+                             f"of {OVERFLOW_POLICIES}")
         self.ham = mol.qubit_ham
         n = self.ham.qubit_num
         self.masker = create_masker(mol, self.config.symmetry_level)
@@ -136,16 +241,46 @@ class VMC:
             torch.Generator().manual_seed(self.config.seed),
         ).to(self.device)
         self._overflow_escalations = 0
+        self._mult_budget = None
         self.engine = PauliEngine(self.ham, device=self.device,
                                   membership=self.config.membership)
-        self.sampling_config = SamplingConfig(
-            sample_num=self.config.sample_num, mode="gumbel"
+        self.sampling_config = self._step_configs()[1]
+        self._schedules = tuple(
+            Schedule([(int(s), dict(d)) for s, d in sched])
+            for sched in (self.config.opt_schedule,
+                          self.config.sampling_schedule,
+                          self.config.proc_grad_schedule)
+            if sched
         )
         hf_bits = torch.tensor([[(mol.hf_det >> i) & 1 for i in range(n)]])
         self.hf_words = bitops.pack(hf_bits).to(self.device)
 
+        self.run_dir = run_dir
+        if run_dir:
+            os.makedirs(run_dir, exist_ok=True)
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                f.write(self.config.to_json())
+
+        self.exact_words = None
+        self.exact_valid = None
+        self.exact_partner_idx = None
+        self.exact_partner_found = None
         self.sector_words = None
         self.sector_pos = None
+        if self.config.sampling_mode == "exact":
+            # Exact summation over the whole sorted sector (JAX
+            # ``vmc.py:317-346``); sentinel rows pad it to a multiple of 64.
+            dets, words_packed, valid, n_real = self._enumerate_sector(mol, n)
+            if n_real > EXACT_MAX_DETS:
+                raise ValueError(f"sector too large for exact summation "
+                                 f"({n_real} > {EXACT_MAX_DETS})")
+            self.exact_words = words_packed
+            self.exact_valid = valid
+            if self.config.exact_static_membership and n <= 64:
+                idx, pf = self._sector_partner_tables(dets, n_real)
+                self.exact_partner_idx = idx
+                self.exact_partner_found = pf
+            return
         if not self._want_sector_membership(mol):
             return
         dets, words_packed, _, n_real = self._enumerate_sector(mol, n)
@@ -155,7 +290,7 @@ class VMC:
         self.sector_partner_found = pf
         if n <= PauliEngine.MAX_TABLE_QUBITS:
             # Direct-address sample -> sector-index map: one gather per
-            # sample and no canonical sort of the sample set (JAX
+            # sample and no canonical sort of a Gumbel sample set (JAX
             # ``vmc.py:359``). Above the limit the sorted sample set is
             # searched in the sector, all W words compared.
             pos = np.full(1 << n, -1, dtype=np.int64)
@@ -205,68 +340,217 @@ class VMC:
                 torch.from_numpy(pf).to(self.device))
 
     # ------------------------------------------------------------------
+    # Config schedules (JAX ``vmc.py:532-577``)
+    # ------------------------------------------------------------------
+    def _schedule_overrides(self, it: int) -> dict:
+        """Merged override dict active at iteration ``it``."""
+        ov = {}
+        for sched in self._schedules:
+            ov.update(sched.at(it))
+        return ov
+
+    def _next_boundary(self, it: int) -> float:
+        """The next iteration after ``it`` at which a schedule changes."""
+        nb = float("inf")
+        for sched in self._schedules:
+            for start in sched.starts:
+                if start > it:
+                    nb = min(nb, start)
+        return nb
+
+    def _step_configs(self, overrides: Optional[dict] = None):
+        """(effective config, sampling config) under ``overrides``."""
+        eff = self.config.replace(**overrides) if overrides else self.config
+        samp = SamplingConfig(sample_num=eff.sample_num,
+                              mode=eff.sampling_mode,
+                              budget=eff.multinomial_budget)
+        return eff, samp
+
+    # ------------------------------------------------------------------
+    def _make_opt(self) -> FiniteGuardOptimizer:
+        return FiniteGuardOptimizer(self.anqs.parameters(),
+                                    self.config.opt_type)
+
     def init_state(self) -> TrainState:
-        """Fresh ansatz weights, Adam state and sampler generator, all from
-        ``config.seed``."""
+        """Fresh (or cached) ansatz weights, optimizer state and sampler
+        generator, all from ``config.seed``."""
         seed = self.config.seed
         self.anqs.reset_parameters(torch.Generator().manual_seed(seed))
-        opt = FiniteGuardAdam(self.anqs.parameters(), self.config.lr)
+        self._init_params_cached()
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return TrainState(opt=opt, generator=gen)
+        return TrainState(opt=self._make_opt(), generator=gen)
 
-    def _support_and_eloc(self, state: TrainState, uniforms=None):
-        """Sample the unique-determinant support, evaluate amplitudes and
-        sample-aware local energies (no autograd)."""
-        with torch.no_grad():
-            words, weights, valid, stats = sample(
-                self.anqs, self.sampling_config, state.generator, uniforms
+    def _init_params_cached(self):
+        """Share initial weights through ``config.init_weights_cache``, one
+        file per (ansatz config, qubit count, qudit widths, seed), keyed as
+        the JAX package keys its cache (``vmc.py:752-783``): a cached file
+        of the same layout replaces the fresh weights, else they are
+        written."""
+        cache_dir = self.config.init_weights_cache
+        if not cache_dir:
+            return
+        sig = json.dumps(
+            [
+                dataclasses.asdict(self.anqs.config),
+                self.ham.qubit_num,
+                list(map(int, self.grouping.qudit_widths)),
+                self.config.seed,
+            ],
+            sort_keys=True,
+            default=str,
+        )
+        tag = hashlib.sha256(sig.encode()).hexdigest()[:16]
+        path = os.path.join(cache_dir, f"init_{tag}.pt")
+        fresh = self.anqs.state_dict()
+        if os.path.exists(path):
+            cached = torch.load(path, map_location="cpu", weights_only=True)
+            if _layout(cached) == _layout(fresh):
+                self.anqs.load_state_dict(cached)
+                return
+        os.makedirs(cache_dir, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in fresh.items()}, path)
+
+    # ------------------------------------------------------------------
+    # Multinomial budget and overflow policy (JAX ``vmc.py:794-871``)
+    # ------------------------------------------------------------------
+    def _current_budget(self, cfg: VMCConfig) -> int:
+        """The multinomial budget (adapted by ``sample_precisely``)."""
+        if self._mult_budget is None:
+            self._mult_budget = int(cfg.multinomial_budget or cfg.sample_num)
+        return self._mult_budget
+
+    def _adapt_budget(self, cfg: VMCConfig, unique_num: float):
+        """Reference sample_precisely (calculations/sample.py:62-75):
+        rescale the budget toward the unique-count target between
+        iterations, by a factor in [0.25, 4]."""
+        if not (cfg.sample_precisely and cfg.sampling_mode == "multinomial"):
+            return
+        target = cfg.target_unique or cfg.sample_num // 2
+        u = max(1.0, float(unique_num))
+        scale = min(4.0, max(0.25, target / u))
+        self._mult_budget = int(min(
+            max(self._current_budget(cfg) * scale, cfg.sample_num),
+            cfg.max_multinomial_budget,
+        ))
+
+    def _handle_overflow(self, row: dict):
+        """Act on an iteration's membership overflow by
+        ``config.overflow_policy``, since dropped keys bias E_loc low:
+        'escalate' doubles the hash bucket count and rebuilds the engine,
+        and raises once ``max_overflow_escalations`` did not suffice."""
+        cfg = self.config
+        table = int(row.get("table_overflow", 0))
+        pf = int(row.get("pf_dropped_rows", 0))
+        if table + pf <= cfg.overflow_threshold or (
+                cfg.overflow_policy == "ignore"):
+            return
+        msg = (f"membership overflow at iter {row.get('iter_idx', '?')}: "
+               f"table_overflow={table} pf_dropped_rows={pf}")
+        if (cfg.overflow_policy == "raise"
+                or self._overflow_escalations >= cfg.max_overflow_escalations):
+            raise RuntimeError(
+                msg + " (policy=raise or escalation cap reached); E_loc "
+                "would be silently biased low"
             )
-            # Invalid rows become all-ones sentinels that never match.
-            words = torch.where(valid[:, None], words, bitops.MASK32)
-            if self.sector_pos is None:
-                # Canonical order (JAX ``vmc.py:955-966``; Gumbel samples
-                # are unique, so no dedup). Only the sector path's position
-                # map needs no sort.
+        self._overflow_escalations += 1
+        extra_bits = self.engine.hash_extra_bits + (
+            1 if self.engine.membership == "hash" else 0)
+        logging.warning("%s -> escalation #%d: rebuilding engine with "
+                        "hash_extra_bits=%d", msg,
+                        self._overflow_escalations, extra_bits)
+        self.engine = PauliEngine(self.ham, device=self.device,
+                                  membership=self.engine.membership,
+                                  hash_extra_bits=extra_bits)
+
+    # ------------------------------------------------------------------
+    # The step
+    # ------------------------------------------------------------------
+    def _support_and_eloc(self, state: TrainState, cfg: VMCConfig = None,
+                          samp: SamplingConfig = None, uniforms=None,
+                          draw=None):
+        """Sample (or take the enumerated sector as) the unique-determinant
+        support, evaluate amplitudes and sample-aware local energies (no
+        autograd). Returns (words, weights, valid, stats, la, ph, e)."""
+        cfg = cfg or self.config
+        samp = samp or self.sampling_config
+        with torch.no_grad():
+            if samp.mode == "exact":
+                words, valid = self.exact_words, self.exact_valid
+                n_real = torch.sum(valid)
+                weights = torch.where(valid, 1.0, 0.0) / n_real
+                stats = {"unique_num": n_real, "dropped": 0}
+            else:
+                budget = (self._current_budget(cfg)
+                          if samp.mode == "multinomial" else None)
+                words, weights, valid, stats = sample(
+                    self.anqs, samp, state.generator, uniforms,
+                    budget=budget, draw=draw,
+                )
+            use_static = (samp.mode == "exact"
+                          and self.exact_partner_idx is not None)
+            if not use_static:
+                # Invalid rows become all-ones sentinels that never match.
+                words = torch.where(valid[:, None], words, bitops.MASK32)
+            if not use_static and not (self.sector_pos is not None
+                                       and samp.mode == "gumbel"):
+                # Canonical order (JAX ``vmc.py:941-966``): only Gumbel
+                # samples on the sector position map skip it; their rows
+                # are unique, and the map needs no sorted set.
                 words, _, weights, valid = keys.sort_words(words, weights,
                                                            valid)
             la, ph = self.anqs.log_psi(words)
-            if self.sector_words is None:
-                e = self.engine.local_energy_proxy(words, la, ph, valid)
-            else:
+            if use_static:
+                e = self.engine.local_energy_static(
+                    words, la, ph, valid, self.exact_partner_idx,
+                    self.exact_partner_found,
+                )
+            elif self.sector_words is not None:
                 e = self.engine.local_energy_sector(
                     words, la, ph, valid, self.sector_words,
                     self.sector_partner_idx, self.sector_partner_found,
                     sector_pos=self.sector_pos,
                 )
+            else:
+                e = self.engine.local_energy_proxy(words, la, ph, valid)
         return words, weights, valid, stats, la, ph, e
 
-    def _grads_and_metrics(self, state: TrainState, uniforms=None):
+    def _grads_and_metrics(self, state: TrainState, uniforms=None,
+                           cfg: VMCConfig = None, samp: SamplingConfig = None,
+                           draw=None, full_energy: bool = False):
         """Everything of a step before the optimizer: (metrics as device
-        scalars, preconditioned and clipped gradients by parameter name)."""
-        cfg = self.config
+        scalars, preconditioned and clipped gradients by parameter name).
+        With ``full_energy``, the metrics also hold the unbiased full energy
+        of the step's sample at the pre-update weights."""
+        cfg = cfg or self.config
         words, weights, valid, stats, la, ph, e = self._support_and_eloc(
-            state, uniforms
+            state, cfg, samp, uniforms, draw
         )
-        # Born weights; float64 estimators in the overflow-free numerator
-        # form (p_x E_x = a_x t_x; p_x |E_x|^2 = |t_x|^2). At |E| ~ 100 Ha
-        # the float32 cancellation in sum|t|^2 - |mean|^2 is ~1e-3 Ha^2.
         theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
-        freqs = theor / torch.clamp(torch.sum(theor), min=1e-30)
-        a_x = torch.where(valid, torch.exp(la), 0.0).to(torch.float64)
-        t_re = e.t_re.to(torch.float64)
-        t_im = e.t_im.to(torch.float64)
-        denom = torch.clamp(torch.sum(a_x**2), min=1e-300)
-        mean_re64 = torch.sum(a_x * t_re) / denom
-        mean_im64 = torch.sum(a_x * t_im) / denom
-        var = (torch.sum(t_re**2 + t_im**2) / denom
-               - mean_re64**2 - mean_im64**2).to(torch.float32)
-        mean_re = mean_re64.to(torch.float32)
-        mean_im = mean_im64.to(torch.float32)
+        if cfg.use_theor_freqs:
+            # Born weights; float64 estimators in the overflow-free
+            # numerator form (p_x E_x = a_x t_x; p_x |E_x|^2 = |t_x|^2). At
+            # |E| ~ 100 Ha the float32 cancellation in sum|t|^2 - |mean|^2
+            # is ~1e-3 Ha^2.
+            freqs = theor / torch.clamp(torch.sum(theor), min=1e-30)
+            a_x = torch.where(valid, torch.exp(la), 0.0).to(torch.float64)
+            t_re = e.t_re.to(torch.float64)
+            t_im = e.t_im.to(torch.float64)
+            denom = torch.clamp(torch.sum(a_x**2), min=1e-300)
+            mean_re64 = torch.sum(a_x * t_re) / denom
+            mean_im64 = torch.sum(a_x * t_im) / denom
+            var = (torch.sum(t_re**2 + t_im**2) / denom
+                   - mean_re64**2 - mean_im64**2).to(torch.float32)
+            mean_re = mean_re64.to(torch.float32)
+            mean_im = mean_im64.to(torch.float32)
+        else:
+            # The sampler's own weights (multinomial: counts / total).
+            freqs = weights / torch.clamp(torch.sum(weights), min=1e-30)
+            mean_re, mean_im, var = mc_estimate(e.e_re, e.e_im, freqs)
         d_re = torch.where(valid, e.e_re - mean_re, 0.0)
         d_im = torch.where(valid, e.e_im - mean_im, 0.0)
 
         temp = cfg.grad_weight_temperature
-        if temp != 1.0:
+        if cfg.use_theor_freqs and temp != 1.0:
             la_max = torch.max(torch.where(valid, la, -torch.inf))
             tempered = torch.where(
                 valid, torch.exp((2.0 / temp) * (la - la_max)), 0.0
@@ -275,6 +559,11 @@ class VMC:
                                                 min=1e-30)
         else:
             grad_freqs = freqs
+
+        metrics = {}
+        if full_energy:
+            metrics["full_energy"], _, metrics["full_energy_var"] = (
+                self._full_energy(words, la, ph, valid))
 
         params = dict(self.anqs.named_parameters())
         la_g, ph_g = self.anqs.log_psi(words)
@@ -290,6 +579,12 @@ class VMC:
                                  cfg.sr)
         if cfg.grad_clip_norm is not None:
             grads, _ = clip_grad_norm(grads, cfg.grad_clip_norm)
+        if cfg.grad_renorm:
+            # grad <- grad / ||grad|| (reference process_grad.py:66-70).
+            norm = torch.linalg.vector_norm(
+                torch.cat([g.reshape(-1) for g in grads.values()]))
+            grads = {n: g / torch.clamp(norm, min=1e-30)
+                     for n, g in grads.items()}
 
         # HF-projected local energy: E_loc at the HF row if it was sampled.
         hf_match = torch.all(words == self.hf_words[0][None, :], dim=1) & valid
@@ -299,7 +594,7 @@ class VMC:
             torch.nan,
         )
         n_valid = torch.sum(valid)
-        metrics = {
+        metrics.update({
             "energy": mean_re,
             "energy_imag": mean_im,
             "energy_var": var,
@@ -312,58 +607,240 @@ class VMC:
             ),
             "max_log_abs": torch.max(torch.where(valid, la, -torch.inf)),
             "ipr": torch.sum(freqs**2),
-            "dropped": torch.tensor(stats["dropped"]),
+            "dropped": torch.as_tensor(stats["dropped"]),
             "min_log_abs": torch.min(torch.where(valid, la, torch.inf)),
             "found_ratio": e.found_pairs
             / torch.clamp(n_valid * self.engine.n_groups, min=1),
             "table_overflow": torch.as_tensor(e.table_overflow),
-        }
+            # Rows truncated by the prefilter membership, which the port
+            # does not have yet: always 0 (the CSV keeps JAX's column).
+            "pf_dropped_rows": torch.zeros((), dtype=torch.int64),
+        })
         return metrics, grads
 
-    def step(self, state: TrainState, uniforms=None) -> dict:
-        """One training step; returns the metrics as Python floats.
-        ``uniforms`` (tests) replaces the sampler's own noise."""
-        metrics, grads = self._grads_and_metrics(state, uniforms)
-        state.opt.step(list(grads.values()))
+    def _full_energy(self, words, la, ph, valid):
+        """The unbiased full energy of a sample (mean, imaginary part,
+        variance) under its Born weights, at the weights that gave (la, ph)
+        (JAX ``vmc.py:1232-1253``)."""
+        e = self.engine.local_energy_full(self.anqs, words, la, ph, valid)
+        theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
+        freqs = theor / torch.clamp(torch.sum(theor), min=1e-30)
+        return mc_estimate(e.e_re, e.e_im, freqs)
+
+    def step(self, state: TrainState, uniforms=None, overrides=None,
+             draw=None, full_energy: bool = False) -> dict:
+        """One training step under the schedule ``overrides``; returns the
+        metrics as Python floats (JAX's metric names, sorted as JAX returns
+        them). ``uniforms`` / ``draw`` (tests) replace the sampler's own
+        noise; ``full_energy`` adds ``full_energy`` / ``full_energy_var``."""
+        cfg, samp = self._step_configs(overrides)
+        metrics, grads = self._grads_and_metrics(state, uniforms, cfg, samp,
+                                                 draw, full_energy)
+        state.opt.step(list(grads.values()), cfg)
         with torch.no_grad():
             metrics["hf_log_abs"] = self.anqs.log_psi(self.hf_words)[0][0]
-        names = list(metrics)
+        names = sorted(metrics)
         values = torch.stack(
             [metrics[k].to(device="cpu", dtype=torch.float64) for k in names]
         ).tolist()
         return dict(zip(names, values))
 
-    def run(self, state: TrainState, n_steps: int) -> List[dict]:
-        """``n_steps`` training steps, each followed by the overflow check;
-        returns one metrics row per step."""
-        rows = []
-        for _ in range(n_steps):
-            rows.append(self.step(state))
-            self._handle_overflow(rows[-1])
-        return rows
+    # ------------------------------------------------------------------
+    # Checkpoints (JAX ``vmc.py:1396-1468``), one ``torch.save`` file
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str, state: TrainState, it: int):
+        """Write (parameters, optimizer and guard state, sampler generator,
+        iteration, multinomial budget) to ``path/checkpoint.pt``."""
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "params": {k: v.detach().cpu()
+                       for k, v in self.anqs.state_dict().items()},
+            "opt": state.opt.state_dict(),
+            "generator": state.generator.get_state(),
+            "iter": int(it),
+            "multinomial_budget": self._mult_budget,
+        }
+        target = os.path.join(path, CHECKPOINT_FILE)
+        torch.save(payload, target + ".tmp")
+        os.replace(target + ".tmp", target)
 
-    def _handle_overflow(self, row: dict):
-        """Act on a step's hash-bucket overflow (JAX ``vmc.py:820-871``,
-        policy 'escalate', threshold 0): double the bucket count and rebuild
-        the engine, and raise once ``MAX_OVERFLOW_ESCALATIONS`` did not
-        suffice, since dropped keys bias E_loc low."""
-        dropped = int(row.get("table_overflow", 0))
-        if dropped == 0:
-            return
-        msg = f"membership overflow: table_overflow={dropped}"
-        if self._overflow_escalations >= MAX_OVERFLOW_ESCALATIONS:
-            raise RuntimeError(
-                msg + " (escalation cap reached); E_loc would be silently "
-                "biased low"
+    def load_checkpoint(self, path: str) -> Tuple[TrainState, int]:
+        """Restore a checkpoint into this trainer; returns (state, iter).
+        Parameters of another layout raise ``ValueError``; optimizer state
+        of another layout (e.g. another ``opt_type``) is dropped with a
+        warning and the optimizer starts fresh."""
+        ckpt = torch.load(os.path.join(path, CHECKPOINT_FILE),
+                          map_location="cpu", weights_only=True)
+        want, got = _layout(self.anqs.state_dict()), _layout(ckpt["params"])
+        if want != got:
+            raise ValueError(f"checkpoint {path} param tree does not match "
+                             f"this model: {got} vs expected {want}")
+        self.anqs.load_state_dict(ckpt["params"])
+        opt = self._make_opt()
+        try:
+            opt.load_state_dict(ckpt["opt"])
+        except (ValueError, KeyError) as exc:
+            logging.warning(
+                "load_checkpoint(%s): optimizer state structure mismatch "
+                "(%s); starting the optimizer FRESH -- Adam moments are lost "
+                "and the resumed trajectory will differ.", path, exc,
             )
-        self._overflow_escalations += 1
-        extra_bits = self.engine.hash_extra_bits + 1
-        logging.warning("%s -> escalation #%d: rebuilding engine with "
-                        "hash_extra_bits=%d", msg,
-                        self._overflow_escalations, extra_bits)
-        self.engine = PauliEngine(self.ham, device=self.device,
-                                  membership=self.engine.membership,
-                                  hash_extra_bits=extra_bits)
+            opt = self._make_opt()
+        gen = torch.Generator(device=self.device)
+        gen.set_state(ckpt["generator"])
+        self._mult_budget = ckpt["multinomial_budget"]
+        return TrainState(opt=opt, generator=gen), int(ckpt["iter"])
+
+    # ------------------------------------------------------------------
+    # The driver loop (JAX ``vmc.py:1470-1663``)
+    # ------------------------------------------------------------------
+    def run(self, iter_num: Optional[int] = None, *, log_every: int = 50,
+            on_iter=None, checkpoint_every: Optional[int] = 1000,
+            resume_from: Optional[str] = None,
+            profile_iters: Optional[tuple] = None, steps_per_call: int = 1,
+            init_params=None):
+        """Train to ``iter_num`` (default ``config.iter_num``); returns
+        (state, history, best).
+
+        Each row goes to ``history``, ``<run_dir>/result.csv`` (JAX's
+        columns: the sorted metric names, then ``iter_idx``, ``wall_time``,
+        ``full_energy``, ``full_energy_var``) and ``on_iter(it, row)``; a
+        new best energy to ``<run_dir>/best_energy.npy`` and, with
+        ``save_best_model``, the best-model cascade. Every
+        ``checkpoint_every`` iterations a checkpoint ``<run_dir>/ckpt_<it>``
+        is written, ``resume_from`` one of them continues. Steps run in
+        windows of up to ``steps_per_call``, split at schedule boundaries
+        and full-energy iterations; the budget adaptation and the overflow
+        policy act on each window's last row. ``log_every``: a log line
+        every that many iterations. ``profile_iters=(start, stop)``: a
+        ``torch.profiler`` trace of those iterations in
+        ``<run_dir>/profile``. ``init_params``: a state dict to start from
+        (fresh optimizer)."""
+        iter_num = iter_num or self.config.iter_num
+        start_iter = 0
+        if resume_from:
+            state, start_iter = self.load_checkpoint(resume_from)
+        else:
+            state = self.init_state()
+            if init_params is not None:
+                self.anqs.load_state_dict(init_params)
+                state = TrainState(opt=self._make_opt(),
+                                   generator=state.generator)
+        history = []
+        csv_path = (os.path.join(self.run_dir, "result.csv")
+                    if self.run_dir else None)
+        best = {"energy": np.inf, "iter": -1, "last_save": -np.inf}
+        t0 = time.perf_counter()
+
+        def save_best_model(it):
+            now = time.perf_counter()
+            if now - best["last_save"] < BEST_SAVE_INTERVAL_S:
+                return
+            best["last_save"] = now
+            dirs = []
+            if self.run_dir:
+                dirs.append(os.path.join(self.run_dir, "best_model"))
+            dirs.extend(self.config.extra_best_dirs)
+            for d in dirs:
+                self.save_checkpoint(d, state, it)
+                np.save(os.path.join(d, "best_energy.npy"),
+                        np.array([best["energy"], best["iter"]]))
+
+        def handle_row(it, row):
+            row["iter_idx"] = it
+            row["wall_time"] = time.perf_counter() - t0
+            row.setdefault("full_energy", float("nan"))
+            row.setdefault("full_energy_var", float("nan"))
+            row = {k: row[k] for k in _csv_columns(row)}
+            history.append(row)
+            if row["energy"] < best["energy"]:
+                best.update({"energy": row["energy"], "iter": it})
+                if self.run_dir:
+                    np.save(os.path.join(self.run_dir, "best_energy.npy"),
+                            np.array([best["energy"], best["iter"]]))
+                if self.config.save_best_model:
+                    save_best_model(it)
+            if csv_path:
+                write_header = not os.path.exists(csv_path)
+                with open(csv_path, "a") as f:
+                    if write_header:
+                        f.write(",".join(row) + "\n")
+                    f.write(",".join(str(v) for v in row.values()) + "\n")
+            if (checkpoint_every and self.run_dir
+                    and (it + 1) % checkpoint_every == 0):
+                self.save_checkpoint(
+                    os.path.join(self.run_dir, f"ckpt_{it + 1}"), state,
+                    it + 1,
+                )
+            if log_every and it % log_every == 0:
+                logging.info("iter %d energy %.6f unique_num %d", it,
+                             row["energy"], int(row["unique_num"]))
+            if on_iter is not None:
+                on_iter(it, row)
+
+        period = self.config.full_energy_period
+        profiler = None
+        it = start_iter
+        while it < iter_num:
+            if (profile_iters and profiler is None and self.run_dir
+                    and profile_iters[0] <= it <= profile_iters[1]):
+                profiler = _start_profiler(self.device)
+            overrides = self._schedule_overrides(it)
+            boundary = self._next_boundary(it)
+            eff = self._step_configs(overrides)[0]
+            fe_now = bool(period) and it > 0 and it % period == 0
+            k_steps = 1
+            if steps_per_call > 1 and not fe_now:
+                k_steps = int(min(steps_per_call, iter_num - it,
+                                  boundary - it))
+                if period:
+                    k_steps = min(k_steps, (it // period + 1) * period - it)
+            for j in range(k_steps):
+                row = self.step(state, overrides=overrides,
+                                full_energy=fe_now)
+                handle_row(it + j, row)
+            self._adapt_budget(eff, row["unique_num"])
+            self._handle_overflow({**row, "iter_idx": it + k_steps - 1})
+            it += k_steps
+            if profiler is not None and it > profile_iters[1]:
+                _stop_profiler(profiler, self.device,
+                               os.path.join(self.run_dir, "profile"))
+                profiler, profile_iters = None, None
+        if profiler is not None:
+            _stop_profiler(profiler, self.device,
+                           os.path.join(self.run_dir, "profile"))
+        return state, history, best
+
+
+def _layout(state_dict) -> dict:
+    """{name: (shape, dtype)} of a state dict."""
+    return {k: (tuple(v.shape), v.dtype) for k, v in state_dict.items()}
+
+
+def _csv_columns(row: dict):
+    """JAX's result.csv columns: the step's metric names, sorted (the
+    order of a JAX dict pytree), then the driver's own four."""
+    tail = ("iter_idx", "wall_time", "full_energy", "full_energy_var")
+    return sorted(k for k in row if k not in tail) + list(tail)
+
+
+def _start_profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profiler(prof, device, out_dir):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.__exit__(None, None, None)
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
 def it_targets(la, ph, e_re, e_im, valid, tau: float):
@@ -390,45 +867,48 @@ def it_targets(la, ph, e_re, e_im, valid, tau: float):
     return la_t, ph_t, m_re
 
 
-def main_path_vmc(device="cuda", hidden_width: int = 512) -> VMC:
+def main_path_vmc(device="cuda", hidden_width: int = 512,
+                  run_dir: Optional[str] = None, **overrides) -> VMC:
     """The main-path workload (JAX ``bench.py:build_vmc("gumbel")``,
     ``examples/n2_convergence.py``): N2/STO-3G, MADE ``hidden_width``,
     qubit_per_qudit 10, Gumbel top-k over the whole 14400-determinant
     sector (14464 rows), sector membership, MinSR top-50, clip 1.0, Adam
-    1e-3, seed 0."""
+    1e-3, seed 0. ``overrides``: other ``VMCConfig`` fields."""
     from ..chem.molecule import load_n2
 
+    cfg = dict(sample_num=14464, sampling_mode="gumbel", qubit_per_qudit=10,
+               lr=1e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
+               seed=0)
     return VMC(
         load_n2(),
-        VMCConfig(
-            sample_num=14464, sampling_mode="gumbel", qubit_per_qudit=10,
-            lr=1e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
-            seed=0,
-        ),
+        VMCConfig(**{**cfg, **overrides}),
         AnqsConfig(hidden_widths=(hidden_width,),
                    aux_hidden_widths=(hidden_width,)),
         device=device,
+        run_dir=run_dir,
     )
 
 
-def li2o_vmc(device="cuda", hidden_width: int = 512) -> VMC:
+def li2o_vmc(device="cuda", hidden_width: int = 512,
+             run_dir: Optional[str] = None, **overrides) -> VMC:
     """The reference's documented toy workload (its Colab notebook, JAX
     ``examples/li2o_toy_model.py``): Li2O/STO-3G, 30 qubits, MADE
     ``hidden_width``, qubit_per_qudit 6, Gumbel top-k over 8192 unique
     determinants, hash membership (the example's docstring names it; the
     41.4M-determinant sector is far beyond sector membership), MinSR
     top-50, clip 1.0, Adam 3e-3 (the example's schedule holds 3e-3 for its
-    first 1200 steps), seed 0."""
+    first 1200 steps), seed 0. ``overrides``: other ``VMCConfig``
+    fields."""
     from ..chem.molecule import load_li2o
 
+    cfg = dict(sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
+               lr=3e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
+               membership="hash", seed=0)
     return VMC(
         load_li2o(),
-        VMCConfig(
-            sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
-            lr=3e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
-            membership="hash", seed=0,
-        ),
+        VMCConfig(**{**cfg, **overrides}),
         AnqsConfig(hidden_widths=(hidden_width,),
                    aux_hidden_widths=(hidden_width,)),
         device=device,
+        run_dir=run_dir,
     )

@@ -8,21 +8,24 @@ on the CPU), and local energies over the sampled set,
     E_loc(x) = C + sum_m <x|H|x ^ A_m> psi(x ^ A_m) / psi(x),
 
 summed over partners x ^ A_m in the sampled set. Membership of the
-partners is resolved either through the precomputed connectivity of the
-(N_alpha, N_beta) sector (``local_energy_sector``; its amplitude table is
-the (N + 1, 2) layout of the JAX engine's ``table_pairs_per_row=1``) or
-dynamically, from the sampled set alone (``local_energy_proxy``): a
+partners is resolved through partner tables built once at set-up: over a
+fixed sorted basis in exact summation (``local_energy_static``, plain
+gathers of the basis amplitudes), or over the (N_alpha, N_beta) sector for
+a sampled set (``local_energy_sector``; its amplitude table is the (N + 1,
+2) layout of the JAX engine's ``table_pairs_per_row=1``); or dynamically,
+from the sampled set alone (``local_energy_proxy``): a
 (2^n, 2) direct-address table up to ``MAX_TABLE_QUBITS`` qubits
 (``membership='table'``), or a bucket-hash table of 32 entries per bucket
 for any qubit count up to 64 (``membership='hash'``; the lookup is
-``ops/hash_lookup.py``, the CUDA kernel on the card). Amplitudes are real
-pairs ``(log|psi|, phase)``. Real Hamiltonians only (every molecular JW
-case).
+``ops/hash_lookup.py``, the CUDA kernel on the card). The unbiased full
+local energy (``local_energy_full``) evaluates the network at every
+partner instead. Amplitudes are real pairs ``(log|psi|, phase)``. Real
+Hamiltonians only (every molecular JW case).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +49,9 @@ class LocalEnergies(NamedTuple):
     # Overflow-free numerators t_x = |psi(x)| E_loc(x): every term is
     # me * exp(la) with la <= 0, so no amplitude ratio can blow up. The
     # Born-weighted estimators use these: mean = sum(a t) / sum(a^2).
-    t_re: torch.Tensor
-    t_im: torch.Tensor
+    # (0 where not computed: the full local energy has none.)
+    t_re: torch.Tensor | float = 0.0
+    t_im: torch.Tensor | float = 0.0
     # Keys dropped by hash-bucket overflow (0 for table and sector
     # membership; expected 0 for hash at its dimensioned load, and acted on
     # by the VMC trainer's overflow policy when it is not).
@@ -109,6 +113,20 @@ class PauliEngine:
         Group sums are symmetric under x <-> x^A for a real Hamiltonian, so
         signs are evaluated on the source x only."""
         return fused_matrix_elements(words, self.me_tables)
+
+    def local_energy_static(self, words, log_abs, phase, valid,
+                            partner_idx, partner_found) -> LocalEnergies:
+        """Local energies over a fixed sorted basis whose membership was
+        resolved at set-up (exact summation; JAX ``pauli.py:535-553``):
+        ``partner_idx`` (B, M) are the partners' rows of ``words`` and
+        ``partner_found`` whether they are in it, so partner amplitudes are
+        plain gathers. JAX's 64-pair row table (a TPU lane layout) is not
+        needed for them. Summed with ``_combine``, as JAX's is."""
+        me = self.matrix_elements(words)
+        la_p = torch.where(valid, log_abs, NEG)[partner_idx]
+        ph_p = torch.where(valid, phase, 0.0)[partner_idx]
+        found = partner_found & (la_p > 0.5 * NEG) & valid[:, None]
+        return self._combine(me, la_p, ph_p, found, log_abs, phase, valid)
 
     def local_energy_sector(
         self, words, log_abs, phase, valid,
@@ -315,3 +333,44 @@ class PauliEngine:
             t_re=torch.where(valid, t_re, 0.0),
             t_im=torch.where(valid, t_im, 0.0),
         )
+
+    # ------------------------------------------------------------------
+    def local_energy_full(self, anqs, words, log_abs, phase, valid,
+                          amp_chunk: int = 1 << 16) -> LocalEnergies:
+        """Full local energies (JAX ``pauli.py:1164-1208``): psi evaluated
+        through the network at every connected x ^ A_m of every row, in
+        chunks of ``amp_chunk`` partners (a row's result does not depend on
+        the chunk it falls in), not only at the sampled ones."""
+        b, w = words.shape
+        m = self.n_groups
+        xp = (words[:, None, :] ^ self.a_words[None, :, :]).reshape(-1, w)
+        la_p = torch.empty(b * m, dtype=torch.float32, device=words.device)
+        ph_p = torch.empty_like(la_p)
+        with torch.no_grad():
+            for s in range(0, b * m, amp_chunk):
+                la_p[s:s + amp_chunk], ph_p[s:s + amp_chunk] = anqs.log_psi(
+                    xp[s:s + amp_chunk])
+        la_p = la_p.reshape(b, m)
+        ph_p = ph_p.reshape(b, m)
+        me = self.matrix_elements(words)
+        ratio = torch.exp(torch.clamp(la_p - log_abs[:, None], -60.0, 60.0))
+        dph = ph_p - phase[:, None]
+        e_re = torch.sum(me * ratio * torch.cos(dph), dim=1) + self.constant
+        e_im = torch.sum(me * ratio * torch.sin(dph), dim=1)
+        return LocalEnergies(
+            e_re=torch.where(valid, e_re, 0.0),
+            e_im=torch.where(valid, e_im, 0.0),
+            found_pairs=torch.tensor(b * m, device=words.device),
+        )
+
+
+def mc_estimate(values_re, values_im, weights) -> Tuple:
+    """Weighted Monte-Carlo mean and variance (JAX ``pauli.py:1211-1219``;
+    reference MonteCarloEstimator, compute_local_energies.py:47-62).
+    ``weights`` must sum to 1 over valid rows (invalid rows weight 0)."""
+    mean_re = torch.sum(weights * values_re)
+    mean_im = torch.sum(weights * values_im)
+    var = torch.sum(
+        weights * ((values_re - mean_re) ** 2 + (values_im - mean_im) ** 2)
+    )
+    return mean_re, mean_im, var

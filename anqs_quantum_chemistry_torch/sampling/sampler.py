@@ -1,23 +1,31 @@
-"""Exact Gumbel top-k sampling of unique determinants.
+"""Fixed-capacity ancestral samplers: exact Gumbel top-k and multinomial.
 
-Counterpart of the JAX package's ``sampling/sampler.py`` for ``mode='gumbel'``
-(reference sample_indices_gumbel, abstract_anqs.py:676-818): a frontier of at
-most K = ``sample_num`` rows advances one qudit per step; every child gets a
-Gumbel conditioned on its parent's (Kool et al. stochastic beams), and the
-global top-K by Gumbel survives. Keeping the global top-K each step is exact.
-Symmetry projection happens during sampling through the masker's per-qudit
+Counterpart of the JAX package's ``sampling/sampler.py``: a frontier of at
+most K = ``sample_num`` rows advances one qudit per step. Symmetry
+projection happens during sampling through the masker's per-qudit
 transition/mask tables, so every emitted determinant is physical.
 
-The Gumbel noise comes from uniforms in ``[1e-38, 1)``: drawn from a
-``torch.Generator`` by default, or given, one array per qudit step of shape
-``uniform_shapes(...)[q]`` -- the tests feed the JAX package's own uniforms
-here (torch cannot reproduce JAX's threefry stream).
+* ``gumbel_top_k_sample`` (reference sample_indices_gumbel,
+  abstract_anqs.py:676-818): every child gets a Gumbel conditioned on its
+  parent's (Kool et al. stochastic beams), and the global top-K by Gumbel
+  survives. Keeping the global top-K each step is exact. The Gumbel noise
+  comes from uniforms in ``[1e-38, 1)``: drawn from a ``torch.Generator`` by
+  default, or given, one array per qudit step of shape
+  ``uniform_shapes(...)[q]`` -- the tests feed the JAX package's own
+  uniforms here (torch cannot reproduce JAX's threefry stream).
+* ``multinomial_sample`` (reference sample_mult_new_new,
+  abstract_anqs.py:557-591): occupation counts of a ``budget``-draw
+  multinomial, split over each row's children by binomial bisection of the
+  masked softmax, counts carried in float64. The K largest child counts
+  survive a step; the rest are reported as ``dropped``. The binomial draw
+  is ``torch.binomial`` with the caller's generator, or a given
+  ``draw(counts, p)`` (the tests' deterministic split).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +37,18 @@ class GumbelSample(NamedTuple):
     words: torch.Tensor  # (K, W)
     log_probs: torch.Tensor  # (K,) renormalized over the returned set
     valid: torch.Tensor  # (K,) bool
+
+
+class MultinomialSample(NamedTuple):
+    words: torch.Tensor  # (K, W)
+    counts: torch.Tensor  # (K,) int64
+    valid: torch.Tensor  # (K,) bool
+    dropped: torch.Tensor  # () int64: counts lost to capacity truncation
+
+
+# A multinomial budget above this is refused: the JAX package keeps counts
+# in int32 (the float64 bisection itself is exact to 2^53).
+MAX_BUDGET = 1 << 30
 
 
 def _log1mexp(x):
@@ -164,28 +184,160 @@ def gumbel_top_k_sample(
     return GumbelSample(words=words, log_probs=log_probs, valid=valid)
 
 
+def _top_k(x, k: int):
+    """The ``k`` largest of ``x`` and their indices, ties to the lower
+    index (the order of ``jax.lax.top_k``)."""
+    values, idx = torch.sort(x, descending=True, stable=True)
+    return values[:k], idx[:k]
+
+
+def _binomial_bisect(counts, probs, k_bits: int, generator=None,
+                     draw: Optional[Callable] = None):
+    """Split integer ``counts`` (K,) over D = 2**k_bits slots ~ multinomial
+    of ``probs`` (K, D), by ``k_bits`` levels of binomial halving.
+
+    Counts ride in float64, so draws stay exact up to 2^53. The
+    deterministic splits (p = 0 or 1) bypass the draw: the JAX package's
+    binomial loses counts at p == 1, so it special-cases them, and so does
+    this port."""
+    if draw is None:
+        def draw(n, p):
+            return torch.binomial(n, p, generator=generator)
+    k_cap = counts.shape[0]
+    counts_l = counts[:, None].to(torch.float64)  # (K, 1)
+    blocks = probs[:, None, :]  # (K, blocks, block_size)
+    for _ in range(k_bits):
+        half = blocks.shape[-1] // 2
+        left, right = blocks[..., :half], blocks[..., half:]
+        pl = torch.sum(left, dim=-1)
+        pr = torch.sum(right, dim=-1)
+        ratio = torch.nan_to_num(pl / torch.clamp(pl + pr, min=1e-38),
+                                 nan=0.0)
+        safe_ratio = torch.clamp(ratio, 1e-7, 1.0 - 1e-7).to(torch.float64)
+        n_left = torch.nan_to_num(
+            draw(counts_l.expand_as(safe_ratio).contiguous(), safe_ratio),
+            nan=0.0)
+        n_left = torch.where(ratio >= 1.0 - 1e-9, counts_l, n_left)
+        n_left = torch.where(ratio <= 1e-9, 0.0, n_left)
+        n_left = torch.where(counts_l > 0, n_left, 0.0)
+        counts_l = torch.stack([n_left, counts_l - n_left],
+                               dim=-1).reshape(k_cap, -1)
+        blocks = torch.stack([left, right], dim=2).reshape(k_cap, -1, half)
+    return counts_l.to(torch.int64)  # (K, D)
+
+
+@torch.no_grad()
+def _multinomial_core(anqs: ANQS, k_cap: int, budget: int, generator=None,
+                      draw: Optional[Callable] = None) -> MultinomialSample:
+    """``multinomial_sample`` without the budget check. Capacity-scheduled
+    like ``gumbel_top_k_sample``: exactly-sized frontiers until the
+    frontier saturates at ``k_cap``, then ``k_cap`` rows a step."""
+    d = anqs.max_dim
+    k_bits = int(d).bit_length() - 1
+    device = anqs.trans_tables.device
+    q_sat = _frontier_saturation_step(anqs, k_cap)
+
+    words = torch.zeros((1, anqs.n_words), dtype=torch.int64, device=device)
+    memo = torch.full((1,), anqs.start_memo_idx, dtype=torch.int64,
+                      device=device)
+    counts = torch.full((1,), int(budget), dtype=torch.int64, device=device)
+    dropped = torch.zeros((), dtype=torch.int64, device=device)
+    cap_now = 1
+    for q in range(anqs.qudit_num):
+        if q < q_sat:
+            cap_now = min(cap_now * (1 << int(anqs.qudit_widths[q])), k_cap)
+        k_out = cap_now if q < q_sat else k_cap
+        alive = counts > 0
+        cond = anqs.cond_for_qudit_dyn(
+            words, q, anqs.mask_tables[q][memo], alive=alive
+        )
+        probs = torch.where(cond > 0.5 * NEG,
+                            torch.exp(2.0 * torch.clamp(cond, min=-40.0)),
+                            0.0)
+        child = _binomial_bisect(counts, probs, k_bits, generator, draw)
+        child = torch.where(counts[:, None] > 0, child, 0).reshape(-1)
+        top_c, top_idx = _top_k(child, k_out)
+        dropped = dropped + (torch.sum(child) - torch.sum(top_c))
+        parent = top_idx // d
+        cont = top_idx % d
+        words = _expand_words_dyn(anqs, words, parent, cont, q)
+        memo = anqs.trans_tables[q][memo[parent], cont]
+        counts = top_c
+        if q == q_sat - 1 and cap_now < k_cap:
+            pad = k_cap - cap_now
+            words = torch.cat([words, words.new_zeros((pad, anqs.n_words))])
+            memo = torch.cat(
+                [memo, memo.new_full((pad,), anqs.start_memo_idx)]
+            )
+            counts = torch.cat([counts, counts.new_zeros((pad,))])
+    return MultinomialSample(words=words, counts=counts, valid=counts > 0,
+                             dropped=dropped)
+
+
+def multinomial_sample(anqs: ANQS, sample_num: int,
+                       budget: Optional[int] = None, generator=None,
+                       draw: Optional[Callable] = None) -> MultinomialSample:
+    """Occupation-count sampling of ``budget`` draws (default
+    ``sample_num``) with capacity K = ``sample_num``."""
+    budget = int(budget if budget is not None else sample_num)
+    if budget > MAX_BUDGET:
+        raise ValueError("multinomial budget > 2^30 overflows int32 counts")
+    return _multinomial_core(anqs, sample_num, budget, generator, draw)
+
+
+def sample_precisely(anqs: ANQS, sample_num: int, target_unique: int,
+                     max_budget: int = 1 << 27, growth: float = 4.0,
+                     generator=None, draw: Optional[Callable] = None):
+    """Adaptive multinomial budget: grow it by ``growth`` until at least
+    ``min(target_unique, sample_num)`` unique states are drawn or it reaches
+    ``max_budget`` (reference sample_precisely,
+    calculations/sample.py:62-75). Returns (MultinomialSample, budget)."""
+    budget = sample_num
+    while True:
+        out = _multinomial_core(anqs, sample_num, budget, generator, draw)
+        n_unique = int(torch.sum(out.valid))
+        if n_unique >= min(target_unique, sample_num) or budget >= max_budget:
+            return out, budget
+        budget = min(int(budget * growth), max_budget)
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
     """Counterpart of the reference SamplingConfig
-    (reference: .../experiments/calculations/sample.py:8-50); the port
-    samples in ``mode='gumbel'`` only."""
+    (reference: .../experiments/calculations/sample.py:8-50)."""
 
     sample_num: int = 10000
-    mode: str = "gumbel"
+    mode: str = "gumbel"  # 'gumbel' (unique top-k) | 'multinomial'
+    budget: Optional[int] = None  # multinomial budget (default sample_num)
 
 
 def sample(anqs: ANQS, config: SamplingConfig,
            generator: Optional[torch.Generator] = None,
-           uniforms: Optional[Sequence[torch.Tensor]] = None):
+           uniforms: Optional[Sequence[torch.Tensor]] = None,
+           budget: Optional[int] = None, draw: Optional[Callable] = None):
     """Unified entry: returns (words, weights, valid, stats dict).
 
-    ``weights`` are the theoretical |psi|^2 frequencies renormalized over
-    the returned set."""
-    if config.mode != "gumbel":
-        raise NotImplementedError(
-            f"sampling mode {config.mode!r} is not ported; use 'gumbel'"
-        )
-    out = gumbel_top_k_sample(anqs, config.sample_num, generator, uniforms)
-    weights = torch.where(out.valid, torch.exp(out.log_probs), 0.0)
-    stats = {"unique_num": torch.sum(out.valid), "dropped": 0}
-    return out.words, weights, out.valid, stats
+    ``weights`` are normalized frequencies: the theoretical |psi|^2
+    renormalized over the returned set in Gumbel mode, the empirical
+    counts / total in multinomial mode. ``budget`` overrides the
+    multinomial budget (the trainer's adaptive ``sample_precisely``);
+    ``uniforms`` (Gumbel) and ``draw`` (multinomial) replace the
+    generator's draws."""
+    if config.mode == "gumbel":
+        out = gumbel_top_k_sample(anqs, config.sample_num, generator,
+                                  uniforms)
+        weights = torch.where(out.valid, torch.exp(out.log_probs), 0.0)
+        stats = {"unique_num": torch.sum(out.valid), "dropped": 0}
+        return out.words, weights, out.valid, stats
+    if config.mode == "multinomial":
+        if budget is None:
+            out = multinomial_sample(anqs, config.sample_num, config.budget,
+                                     generator, draw)
+        else:
+            out = _multinomial_core(anqs, config.sample_num, int(budget),
+                                    generator, draw)
+        total = torch.clamp(torch.sum(out.counts), min=1)
+        weights = out.counts.to(torch.float32) / total
+        stats = {"unique_num": torch.sum(out.valid), "dropped": out.dropped}
+        return out.words, weights, out.valid, stats
+    raise ValueError(config.mode)

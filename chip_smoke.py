@@ -29,6 +29,29 @@ path and read just after:
   set built with ``hash_extra_bits`` 6 (nb 65536, tags read from global
   memory), and timed as the median of 5 batches of 20 calls.
 
+Then the driver (all three from random weights, seed 0, counts set to 0
+before each and read after):
+
+- N2 exact summation (``main_path_vmc`` with ``sampling_mode='exact'``: the
+  whole sorted sector, static membership) for 3 steps. Step 0 shares the
+  Gumbel path's weights and determinants, so its energy must equal
+  ``N2_ENERGIES[0]`` within 1e-5 Ha and the float64 Rayleigh quotient within
+  1e-4 Ha; before it, the unbiased full energy of those weights (all 7.7M
+  partners through the network, timed) must equal the Rayleigh quotient
+  within 1e-4 Ha. Kernel #1 launches once a step.
+- N2 through ``run()`` into a temporary run directory: 6 steps, full energy
+  every 3, checkpoints every 3, windows of 2 steps. The whole sector is
+  sampled, so row 3's full energy must equal its energy within 1e-4 Ha;
+  ``result.csv`` must have 6 rows under the JAX package's header
+  (``JAX_CSV_HEADER``); a run resumed from ``ckpt_3`` must repeat rows 3-5
+  within 1e-6 Ha.
+- Li2O with multinomial sampling and the adaptive budget
+  (``sample_precisely``, 4096 unique determinants targeted) for 3 steps,
+  the budget adapted after each step as ``run`` does: energies finite,
+  ``unique_num`` at most 8192, each step's counts summing to its budget
+  less ``dropped`` (its sample drawn once more from a copy of the
+  generator's state), kernels #1 and #2 once a step.
+
 Last, the matrix-element kernel runs at the full tables of C2H4/6-31G (52
 qubits, two words a determinant, 104278 terms in 20776 groups) on 8192
 random determinants of its (8, 8) sector, bit for bit against its plain
@@ -53,6 +76,17 @@ T_START = time.monotonic()
 TIME_LIMIT_S = 300.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
+EXACT_STEPS = 3
+DRIVER_STEPS = 6
+MULTINOMIAL_STEPS = 3
+# The header of the result.csv that the JAX package's ``VMC.run`` writes
+# (its sorted metric names, then the driver's four columns).
+JAX_CSV_HEADER = (
+    "dropped,energy,energy_imag,energy_var,found_pairs,found_ratio,"
+    "grad_norm,hf_log_abs,hf_proj_energy,ipr,max_log_abs,min_log_abs,"
+    "pf_dropped_rows,sampled_prob,table_overflow,unique_num,iter_idx,"
+    "wall_time,full_energy,full_energy_var"
+)
 # Kernel #1 vs its plain version: the same rounding contract, and float64
 # sums of +-bf16 values are exact in any order, so they agree bit for bit.
 ME_TOL = 0.0
@@ -632,18 +666,17 @@ def li2o_trainer_phase(torch, vmc):
     psi = np.exp(la.double().cpu().numpy()[keep]
                  + 1j * ph.double().cpu().numpy()[keep])
 
-    reset_launches()
-    rows = []
-    for i in range(STEPS):
-        t = time.perf_counter()
-        row = vmc.run(state, 1)[0]
-        dt = time.perf_counter() - t
-        rows.append(row)
+    def progress(i, row):
         log(f"Li2O step {i}: energy {row['energy']:.6f} unique_num "
             f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
             f"table_overflow {int(row['table_overflow'])} grad_norm "
-            f"{row['grad_norm']:.4f} step_s {dt:.4f} launches "
-            f"{read_launches()}")
+            f"{row['grad_norm']:.4f} wall_time {row['wall_time']:.4f} "
+            f"launches {read_launches()}")
+
+    # ``run`` starts from ``init_state()`` again: the same weights and
+    # generator as the replay above.
+    reset_launches()
+    _, rows, _ = vmc.run(STEPS, checkpoint_every=None, on_iter=progress)
     launches = read_launches()
 
     t = time.perf_counter()
@@ -670,6 +703,212 @@ def li2o_trainer_phase(torch, vmc):
     check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": STEPS,
                        "hash_tags": STEPS},
           f"Li2O path launched {launches} in {STEPS} steps")
+    return launches
+
+
+def sector_rayleigh(mol, vmc, words):
+    """The float64 Rayleigh quotient of ``vmc``'s current weights over the
+    N2 sector's first ``mol.fci_ndet`` rows of ``words`` (the host-built
+    sector Hamiltonian)."""
+    import numpy as np
+
+    import torch
+    from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
+
+    sector = words[:mol.fci_ndet]
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(sector)
+    psi = np.exp(la.double().cpu().numpy() + 1j * ph.double().cpu().numpy())
+    dets = sector[:, 0].cpu().numpy().astype(np.uint64)
+    h = sector_hamiltonian(mol.qubit_ham, dets)
+    return float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
+
+
+def n2_exact_phase(torch, mol):
+    """``EXACT_STEPS`` steps of the main path in exact summation (the whole
+    sector, static membership) from the Gumbel path's initial weights;
+    times the step and one full-energy measurement. Returns the kernel
+    launches of the steps."""
+    import statistics
+
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+
+    t = time.perf_counter()
+    vmc = main_path_vmc(device="cuda", sampling_mode="exact")
+    log(f"N2 exact set-up: {time.perf_counter() - t:.2f} s")
+    check(vmc.exact_partner_idx is not None, "exact: no static membership")
+    state = vmc.init_state()
+    e_ref = sector_rayleigh(mol, vmc, vmc.exact_words)
+
+    # The full energy of the initial weights over the whole sector: every
+    # partner inside the sector is in the basis, so it is the Rayleigh
+    # quotient too.
+    words, valid = vmc.exact_words, vmc.exact_valid
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(words)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fe, _, fe_var = vmc._full_energy(words, la, ph, valid)
+        fe = float(fe)
+        fe_s = time.perf_counter() - t
+    log(f"N2 full energy at the initial weights: {fe:.6f} (|full - "
+        f"Rayleigh quotient| = {abs(fe - e_ref):.2e} Ha), variance "
+        f"{float(fe_var):.4e}; {words.shape[0] * vmc.engine.n_groups} "
+        f"partners through the network in {fe_s:.3f} s (host clock, "
+        "synchronised)")
+    check(abs(fe - e_ref) <= 1e-4, "N2 full energy disagrees with the "
+          "Rayleigh quotient")
+
+    reset_launches()
+    rows, times = [], []
+    for i in range(EXACT_STEPS):
+        t = time.perf_counter()
+        row = vmc.step(state)
+        times.append(time.perf_counter() - t)
+        rows.append(row)
+        log(f"N2 exact step {i}: energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
+            f"grad_norm {row['grad_norm']:.4f} step_s {times[-1]:.4f} "
+            f"launches {read_launches()}")
+    launches = read_launches()
+    log(f"N2 exact: step 0 {rows[0]['energy']:.6f}, Gumbel path's "
+        f"{N2_ENERGIES[0]:.6f} (|diff| = "
+        f"{abs(rows[0]['energy'] - N2_ENERGIES[0]):.2e} Ha), Rayleigh "
+        f"quotient {e_ref:.6f} (|diff| = {abs(rows[0]['energy'] - e_ref):.2e}"
+        f" Ha); median step {statistics.median(times[1:]):.4f} s")
+    for i, row in enumerate(rows):
+        check(int(row["unique_num"]) == mol.fci_ndet,
+              f"exact step {i}: unique_num {row['unique_num']}")
+        check(np.isfinite(row["energy"]), f"exact step {i}: energy")
+    check(abs(rows[0]["energy"] - N2_ENERGIES[0]) <= 1e-5,
+          "N2 exact step 0 disagrees with the Gumbel path's step 0")
+    check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
+          "N2 exact step 0 disagrees with the Rayleigh quotient")
+    check(launches == {"fused_matrix_elements": EXACT_STEPS,
+                       "hash_lookup": 0, "hash_tags": 0},
+          f"N2 exact launched {launches} in {EXACT_STEPS} steps")
+    return launches, {"exact_step_s": statistics.median(times[1:]),
+                      "full_energy_s": fe_s}
+
+
+def n2_driver_phase(torch):
+    """``run()`` of the main path into a temporary run directory: 6 steps,
+    full energy every 3, checkpoints every 3, windows of 2 steps; then a
+    run resumed from ``ckpt_3`` must repeat rows 3-5. Returns the kernel
+    launches of the first run."""
+    import tempfile
+
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        first, resumed = os.path.join(tmp, "run"), os.path.join(tmp, "resume")
+        kw = dict(device="cuda", full_energy_period=3)
+        vmc = main_path_vmc(run_dir=first, **kw)
+        reset_launches()
+        t = time.perf_counter()
+        _, history, best = vmc.run(DRIVER_STEPS, checkpoint_every=3,
+                                   steps_per_call=2)
+        run_s = time.perf_counter() - t
+        launches = read_launches()
+        for row in history:
+            log(f"N2 run row {row['iter_idx']}: energy {row['energy']:.6f} "
+                f"full_energy {row['full_energy']:.6f} unique_num "
+                f"{int(row['unique_num'])} wall_time {row['wall_time']:.3f}")
+        with open(os.path.join(first, "result.csv")) as f:
+            lines = f.read().splitlines()
+        files = sorted(os.listdir(first))
+        log(f"N2 run: {run_s:.2f} s, best {best['energy']:.6f} at iter "
+            f"{best['iter']}, files {files}, launches {launches}")
+        check(len(history) == DRIVER_STEPS and len(lines) == DRIVER_STEPS + 1,
+              f"result.csv has {len(lines) - 1} rows")
+        check(lines[0] == JAX_CSV_HEADER, f"result.csv header {lines[0]}")
+        for name in ("config.json", "best_energy.npy", "ckpt_3", "ckpt_6"):
+            check(name in files, f"run directory lacks {name}")
+        measured = [r["iter_idx"] for r in history
+                    if np.isfinite(r["full_energy"])]
+        fe_gap = abs(history[3]["full_energy"] - history[3]["energy"])
+        log(f"N2 run: full energy on rows {measured}; row 3 |full - energy|"
+            f" = {fe_gap:.2e} Ha")
+        check(measured == [3], f"full energy on rows {measured}")
+        check(fe_gap <= 1e-4, "full energy disagrees with the energy")
+        check(launches == {"fused_matrix_elements": DRIVER_STEPS + 1,
+                           "hash_lookup": 0, "hash_tags": 0},
+              f"N2 run launched {launches}")
+
+        vmc2 = main_path_vmc(run_dir=resumed, **kw)
+        _, again, _ = vmc2.run(DRIVER_STEPS, checkpoint_every=3,
+                               steps_per_call=2,
+                               resume_from=os.path.join(first, "ckpt_3"))
+        check([r["iter_idx"] for r in again] == [3, 4, 5],
+              f"resumed rows {[r['iter_idx'] for r in again]}")
+        diff = max(abs(a[k] - b[k]) for a, b in zip(history[3:], again)
+                   for k in ("energy", "full_energy")
+                   if np.isfinite(a[k]) or np.isfinite(b[k]))
+        log(f"N2 resumed from ckpt_3: rows 3-5 energies "
+            f"{[round(r['energy'], 6) for r in again]}, max |resumed - "
+            f"uninterrupted| = {diff:.3e} Ha")
+        check(diff <= 1e-6, "the resumed run does not repeat rows 3-5")
+    return launches
+
+
+def li2o_multinomial_phase(torch):
+    """``MULTINOMIAL_STEPS`` steps of the Li2O toy model with multinomial
+    sampling and the adaptive budget (``sample_precisely``, 4096 unique
+    determinants targeted), the budget adapted after each step as ``run``
+    does. Before each step its sample is drawn once more from a copy of
+    the generator's state to check the counts. Returns the kernel
+    launches of the steps."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import li2o_vmc
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        multinomial_sample,
+    )
+
+    t = time.perf_counter()
+    vmc = li2o_vmc(device="cuda", sampling_mode="multinomial",
+                   sample_precisely=True, target_unique=4096)
+    log(f"Li2O multinomial set-up: {time.perf_counter() - t:.2f} s")
+    cfg = vmc.config
+    state = vmc.init_state()
+    reset_launches()
+    rows = []
+    for i in range(MULTINOMIAL_STEPS):
+        budget = vmc._current_budget(cfg)
+        gen_state = state.generator.get_state()
+        out = multinomial_sample(vmc.anqs, cfg.sample_num, budget,
+                                 generator=state.generator)
+        state.generator.set_state(gen_state)
+        counts, dropped = int(out.counts.sum()), int(out.dropped)
+        t = time.perf_counter()
+        row = vmc.step(state)
+        dt = time.perf_counter() - t
+        vmc._adapt_budget(cfg, row["unique_num"])
+        rows.append(row)
+        log(f"Li2O multinomial step {i}: budget {budget}, counts {counts} + "
+            f"dropped {dropped}, energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
+            f"table_overflow {int(row['table_overflow'])} step_s {dt:.4f} "
+            f"launches {read_launches()}")
+        check(counts + dropped == budget, f"step {i}: counts {counts} + "
+              f"dropped {dropped} != budget {budget}")
+        check(int(row["dropped"]) == dropped
+              and int(row["unique_num"]) == int(out.valid.sum()),
+              f"step {i}: the step drew another sample than its replay")
+        check(np.isfinite(row["energy"]), f"multinomial step {i}: energy")
+        check(int(row["unique_num"]) <= cfg.sample_num,
+              f"multinomial step {i}: unique_num {row['unique_num']}")
+        check(int(row["table_overflow"]) == 0,
+              f"multinomial step {i}: table_overflow")
+    launches = read_launches()
+    n = MULTINOMIAL_STEPS
+    check(launches == {"fused_matrix_elements": n, "hash_lookup": n,
+                       "hash_tags": n},
+          f"Li2O multinomial launched {launches} in {n} steps")
     return launches
 
 
@@ -754,18 +993,25 @@ def main():
     li2o_launches = li2o_trainer_phase(torch, li2o)
     del li2o
 
+    exact_launches, exact_times = n2_exact_phase(torch, mol)
+    driver_launches = n2_driver_phase(torch)
+    multinomial_launches = li2o_multinomial_phase(torch)
+
     c2h4_phase(torch, me_entry)
 
-    # Each kernel's launches on the path it was ported for; both paths'
+    # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
     me_entry["launches"] = n2_launches["fused_matrix_elements"]
     hash_entry["launches"] = li2o_launches["hash_lookup"]
     tags_entry["launches"] = li2o_launches["hash_tags"]
+    by_path = {"n2": n2_launches, "li2o": li2o_launches,
+               "n2_exact": exact_launches, "n2_driver": driver_launches,
+               "li2o_multinomial": multinomial_launches}
     for entry in (me_entry, hash_entry, tags_entry):
-        entry["launches_by_path"] = {
-            "n2": n2_launches[entry["name"]],
-            "li2o": li2o_launches[entry["name"]],
-        }
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in by_path.items()}
+    me_entry["n2_exact_step_s"] = exact_times["exact_step_s"]
+    me_entry["n2_full_energy_s"] = exact_times["full_energy_s"]
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

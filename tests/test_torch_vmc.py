@@ -22,7 +22,7 @@ from anqs_quantum_chemistry_torch.convert import params_from_jax
 from anqs_quantum_chemistry_torch.experiments import vmc as vmc_module
 from anqs_quantum_chemistry_torch.experiments.vmc import (
     VMC,
-    FiniteGuardAdam,
+    FiniteGuardOptimizer,
     VMCConfig,
     it_targets,
 )
@@ -112,21 +112,22 @@ def test_dynamic_step_grads_and_metrics(membership):
                     hf_rel=2.4e-7)
 
 
-def _hash_pair(**jax_kw):
-    """(JAX VMC, port VMC) on H2O with hash membership."""
+def _hash_pair(**kw):
+    """(JAX VMC, port VMC) on H2O with hash membership; ``kw``: config
+    fields of both."""
     jv, v, _, _ = build(
-        name="H2O", **jax_kw, engine_overrides={"membership": "hash"},
-        port_cfg={"membership": "hash"},
+        name="H2O", **kw, engine_overrides={"membership": "hash"},
+        port_cfg={"membership": "hash", **kw},
     )
     return jv, v
 
 
-def test_overflow_escalates_then_raises_at_cap(monkeypatch):
+def test_overflow_escalates_then_raises_at_cap():
     """A reported overflow doubles the bucket count (``hash_extra_bits``
     0 -> 1) and rebuilds the engine; at the escalation cap both packages
-    raise (the port's cap a module constant, the JAX package's a config
-    field, both set to one escalation here)."""
-    monkeypatch.setattr(vmc_module, "MAX_OVERFLOW_ESCALATIONS", 1)
+    raise (``max_overflow_escalations`` set to one escalation in both);
+    with ``overflow_policy='raise'`` the first overflow raises, with
+    'ignore' nothing changes."""
     jv, v = _hash_pair(max_overflow_escalations=1)
     row = {"table_overflow": 3.0, "pf_dropped_rows": 0.0}
     for drv in (jv, v):
@@ -139,14 +140,22 @@ def test_overflow_escalates_then_raises_at_cap(monkeypatch):
     # No overflow: nothing changes.
     v._handle_overflow({"table_overflow": 0.0})
     assert v.engine.hash_extra_bits == 1
+    for policy in ("raise", "ignore"):
+        jv, v = _hash_pair(overflow_policy=policy)
+        for drv in (jv, v):
+            if policy == "raise":
+                with pytest.raises(RuntimeError, match="overflow"):
+                    drv._handle_overflow(dict(row))
+            else:
+                drv._handle_overflow(dict(row))
+            assert drv.engine.hash_extra_bits == 0
 
 
 def test_run_acts_on_overflow(monkeypatch):
     """``run`` hands every step's ``table_overflow`` to the policy: with a
     bucket build that reports 5 dropped keys, the first step escalates and
     the second raises at a cap of one escalation."""
-    monkeypatch.setattr(vmc_module, "MAX_OVERFLOW_ESCALATIONS", 1)
-    _, v = _hash_pair()
+    _, v = _hash_pair(max_overflow_escalations=1)
     build_table = PauliEngine._hash_build
 
     def overflowing(self, *args):
@@ -154,12 +163,11 @@ def test_run_acts_on_overflow(monkeypatch):
         return tab, nb, torch.tensor(5, dtype=torch.int32)
 
     monkeypatch.setattr(PauliEngine, "_hash_build", overflowing)
-    state = v.init_state()
-    rows = v.run(state, 1)
+    _, rows, _ = v.run(1, checkpoint_every=None)
     assert rows[0]["table_overflow"] == 5
     assert v.engine.hash_extra_bits == 1
     with pytest.raises(RuntimeError, match="overflow"):
-        v.run(state, 1)
+        v.run(1, checkpoint_every=None)
 
 
 def test_sector_limit_falls_back_to_dynamic(monkeypatch):
@@ -173,7 +181,7 @@ def test_sector_limit_falls_back_to_dynamic(monkeypatch):
         v = VMC(mol, VMCConfig(**kw), AnqsConfig(hidden_widths=(8,)),
                 device="cpu")
         assert (v.sector_words is None) == (limit == 224)
-        rows.append(v.run(v.init_state(), 1)[0])
+        rows.append(v.run(1, checkpoint_every=None)[1][0])
     assert rows[0]["found_pairs"] == rows[1]["found_pairs"]
     assert rows[0]["energy"] == pytest.approx(rows[1]["energy"], abs=1e-6)
 
@@ -220,15 +228,17 @@ def test_step_with_own_generator_is_seeded():
     _, v, _, _ = build()
     rows = []
     for _ in range(2):
-        state = v.init_state()
-        rows.append(v.run(state, 2))
-    assert rows[0] == rows[1]
+        rows.append(v.run(2, checkpoint_every=None)[1])
+        for row in rows[-1]:
+            row.pop("wall_time")
+    np.testing.assert_equal(rows[0], rows[1])
     assert all(np.isfinite(r["energy"]) for r in rows[0])
 
 
 def test_finite_guard_matches_apply_if_finite():
     """Skip-non-finite Adam against optax.apply_if_finite(adam, 2): a NaN
-    step is skipped, and the third NaN in a row is applied."""
+    step is skipped, and the third NaN in a row is applied (the guard's
+    learning rate is the step config's)."""
     rng = np.random.default_rng(0)
     p0 = rng.standard_normal(5).astype(np.float32)
     steps = [rng.standard_normal(5).astype(np.float32) for _ in range(3)]
@@ -238,11 +248,12 @@ def test_finite_guard_matches_apply_if_finite():
     opt = optax.apply_if_finite(optax.adam(1e-2), max_consecutive_errors=2)
     p, s = jnp.asarray(p0), opt.init(jnp.asarray(p0))
     param = torch.nn.Parameter(torch.from_numpy(p0.copy()))
-    guard = FiniteGuardAdam([param], 1e-2, max_consecutive_errors=2)
+    guard = FiniteGuardOptimizer([param], "adam", max_consecutive_errors=2)
+    cfg = VMCConfig(lr=1e-2)
     for i, g in enumerate(seq):
         u, s = opt.update(jnp.asarray(g), s, p)
         p = optax.apply_updates(p, u)
-        guard.step([torch.from_numpy(g)])
+        guard.step([torch.from_numpy(g)], cfg)
         np.testing.assert_allclose(param.detach().numpy(), np.asarray(p),
                                    rtol=1e-6, atol=1e-7, err_msg=str(i))
     assert guard.total_notfinite == int(s.total_notfinite) == 4
@@ -268,9 +279,6 @@ def test_it_targets_match_jax():
 def test_unported_paths_raise():
     _, mol = molecules("LiH")
     anqs = AnqsConfig(hidden_widths=(8,))
-    with pytest.raises(NotImplementedError):
-        VMC(mol, VMCConfig(**{**CFG, "sampling_mode": "exact"}), anqs,
-            device="cpu")
     with pytest.raises(NotImplementedError):  # a JAX membership not ported
         VMC(mol, VMCConfig(**CFG, membership="prefilter"), anqs,
             device="cpu")

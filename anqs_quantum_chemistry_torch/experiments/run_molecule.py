@@ -5,13 +5,13 @@ Usage:
     python -m anqs_quantum_chemistry_torch.experiments.run_molecule \
         [molecule] [iters] [sample_num]
 
-``molecule`` is ``n2`` (default) or ``li2o``, the molecule files packaged
-with the port, or the path of a molecule ``.npz`` (the JAX package's
-``mols/`` cache format, ``chem/molecule.py``). The example's config: Gumbel
-sampling of ``sample_num`` (default 2000) unique determinants, MADE 512,
-MinSR top 50, Adam 2e-3, seed 0. Membership is the JAX engine's 'auto' up
-to ``PauliEngine.MAX_TABLE_QUBITS`` qubits and hash membership above (where
-the JAX 'auto' picks prefilter membership, which the port does not have).
+``molecule`` is ``n2`` (default), ``li2o`` or ``c2h4``, the molecule files
+packaged with the port, or the path of a molecule ``.npz`` (the JAX
+package's ``mols/`` cache format, ``chem/molecule.py``). The example's
+config: Gumbel sampling of ``sample_num`` (default 2000) unique
+determinants, MADE 512, MinSR top 50, Adam 2e-3, seed 0, and the JAX
+engine's 'auto' membership (prefilter above 22 qubits). C2H4 trains only
+with its HF neighbourhood pinned: use ``experiments.c2h4_transformer``.
 Writes ``runs/<name>_torch/result.csv``.
 """
 
@@ -20,13 +20,12 @@ from __future__ import annotations
 import os
 import sys
 
-from ..chem.molecule import Molecule, load_li2o, load_n2
+from ..chem.molecule import Molecule, load_c2h4, load_li2o, load_n2
 from ..models.anqs import AnqsConfig
-from ..observables.pauli import PauliEngine
 from ..optim.sr import SRConfig
 from .vmc import VMC, VMCConfig
 
-PACKAGED = {"n2": load_n2, "li2o": load_li2o}
+PACKAGED = {"n2": load_n2, "li2o": load_li2o, "c2h4": load_c2h4}
 
 
 def load(name: str) -> Molecule:
@@ -45,13 +44,10 @@ def main(argv=None, device="cuda", run_root="runs"):
     mol = load(name)
     print(f"{mol.name}: HF {mol.hf_energy:.6f}  FCI {mol.fci_energy}  "
           f"qubits {mol.qubit_num}")
-    membership = ("auto" if mol.qubit_num <= PauliEngine.MAX_TABLE_QUBITS
-                  else "hash")
     vmc = VMC(
         mol,
         VMCConfig(sample_num=sample_num, sampling_mode="gumbel",
-                  sr=SRConfig(max_indices_num=50), lr=2e-3,
-                  membership=membership),
+                  sr=SRConfig(max_indices_num=50), lr=2e-3),
         AnqsConfig(hidden_widths=(512,), aux_hidden_widths=(512,)),
         device=device,
         run_dir=os.path.join(run_root, f"{mol.name.lower()}_torch"),

@@ -66,8 +66,9 @@ BEST_SAVE_INTERVAL_S = 10.0
 @dataclasses.dataclass
 class VMCConfig(Config):
     """The fields of the JAX ``VMCConfig`` that the port reads, with JAX's
-    names and defaults, and the engine's membership (JAX
-    ``engine_overrides["membership"]``)."""
+    names and defaults, and the engine's membership and matrix-element
+    form (JAX ``engine_overrides["membership"]`` and
+    ``["weights_matmul"]``)."""
 
     sample_num: int = 2000
     # 'gumbel' | 'multinomial' | 'exact' ('exact' enumerates the whole
@@ -99,8 +100,21 @@ class VMCConfig(Config):
     # Born); 1.0 = plain Born weights.
     grad_weight_temperature: float = 1.0
     # Exact summation: resolve membership once at set-up (the basis is
-    # fixed), so a step needs no sort and no membership search.
+    # fixed), so a step needs no sort and no membership search (off when a
+    # coupling below augments the set).
     exact_static_membership: bool = True
+    # Couplings: determinants added to every step's set with zero sample
+    # weight (Born weights supply |psi|^2), before the canonical sort, with
+    # duplicates dropped after it (JAX ``vmc.py:901-971``): the
+    # alpha <-> beta spin flip of every row (``couple_spin_flip``); the K =
+    # ``couple_ref_dets`` partners HF ^ A_m with the largest
+    # |<HF ^ A_m|H|HF>| (the pinned HF neighbourhood); the top
+    # ``couple_support_k`` determinants by |coef| (or the first k) of an
+    # npz file with ``dets`` (uint64) and optionally ``coef``.
+    couple_spin_flip: bool = False
+    couple_ref_dets: int = 0
+    couple_support_file: Optional[str] = None
+    couple_support_k: int = 8192
     seed: int = 0
     iter_num: int = 500
     # Iteration-keyed config schedules ((start_iter, {field: value}), ...):
@@ -121,9 +135,13 @@ class VMCConfig(Config):
     # (and with any named membership) it sorts the sample set and the
     # engine resolves partners from the set itself.
     membership: str = "auto"
+    # The engine's group order ('auto' | 'split' | 'grouped'; the JAX
+    # engine's ``weights_matmul``).
+    weights_matmul: str = "auto"
     # Membership overflow (table_overflow + pf_dropped_rows above the
-    # threshold): 'escalate' doubles the hash bucket count and rebuilds
-    # the engine, at most max_overflow_escalations times, then raises;
+    # threshold): 'escalate' doubles the hash bucket count (and, under
+    # prefilter membership, both prefilter capacities) and rebuilds the
+    # engine, at most max_overflow_escalations times, then raises;
     # 'raise' raises; 'ignore' logs nothing and goes on.
     overflow_policy: str = "escalate"
     overflow_threshold: int = 0
@@ -243,7 +261,8 @@ class VMC:
         self._overflow_escalations = 0
         self._mult_budget = None
         self.engine = PauliEngine(self.ham, device=self.device,
-                                  membership=self.config.membership)
+                                  membership=self.config.membership,
+                                  weights_matmul=self.config.weights_matmul)
         self.sampling_config = self._step_configs()[1]
         self._schedules = tuple(
             Schedule([(int(s), dict(d)) for s, d in sched])
@@ -254,6 +273,8 @@ class VMC:
         )
         hf_bits = torch.tensor([[(mol.hf_det >> i) & 1 for i in range(n)]])
         self.hf_words = bitops.pack(hf_bits).to(self.device)
+        self.ref_neighbor_words = self._ref_neighbors()
+        self.coupled_words = self._support_words()
 
         self.run_dir = run_dir
         if run_dir:
@@ -276,7 +297,8 @@ class VMC:
                                  f"({n_real} > {EXACT_MAX_DETS})")
             self.exact_words = words_packed
             self.exact_valid = valid
-            if self.config.exact_static_membership and n <= 64:
+            if (self.config.exact_static_membership and n <= 64
+                    and not self._couples()):
                 idx, pf = self._sector_partner_tables(dets, n_real)
                 self.exact_partner_idx = idx
                 self.exact_partner_found = pf
@@ -296,6 +318,64 @@ class VMC:
             pos = np.full(1 << n, -1, dtype=np.int64)
             pos[dets.astype(np.int64)] = np.arange(n_real, dtype=np.int64)
             self.sector_pos = torch.from_numpy(pos).to(self.device)
+
+    def _couples(self, cfg: VMCConfig = None) -> bool:
+        """Whether a coupling augments each step's determinant set."""
+        cfg = cfg or self.config
+        return bool(cfg.couple_spin_flip or cfg.couple_ref_dets
+                    or cfg.couple_support_file)
+
+    def _ref_neighbors(self):
+        """The pinned HF neighbourhood (JAX ``vmc.py:298-307``): the K =
+        min(``couple_ref_dets``, M) partners HF ^ A_m with the largest
+        |<HF ^ A_m|H|HF>|, from one matrix-element row, ranked by numpy's
+        ``argsort(-|row|)`` as JAX ranks them (ties in the order of the
+        engine's groups). None when off."""
+        k = int(self.config.couple_ref_dets)
+        if not k:
+            return None
+        with torch.no_grad():
+            me_row = self.engine.matrix_elements(self.hf_words)[0]
+        top = np.argsort(-np.abs(me_row.cpu().numpy()))[:k]
+        return self.hf_words ^ self.engine.a_words[
+            torch.from_numpy(top).to(self.device)]
+
+    def _support_words(self):
+        """The pinned support of ``couple_support_file`` (JAX
+        ``vmc.py:284-296``), packed; None when off."""
+        path = self.config.couple_support_file
+        if not path:
+            return None
+        k = self.config.couple_support_k
+        with np.load(path) as data:
+            dets = np.asarray(data["dets"], np.uint64)
+            if "coef" in data and k < len(dets):
+                dets = dets[np.argsort(-np.abs(np.asarray(data["coef"])))[:k]]
+            else:
+                dets = dets[:k]
+        n = self.ham.qubit_num
+        bits = ((dets[:, None] >> np.arange(n, dtype=np.uint64)[None])
+                & np.uint64(1)).astype(np.int64)
+        return bitops.pack(torch.from_numpy(bits)).to(self.device)
+
+    def _augment(self, cfg: VMCConfig, words, weights, valid):
+        """Append each coupling's rows (JAX ``vmc.py:901-931``): zero
+        sample weight; flipped rows keep their source's validity, pinned
+        rows are valid."""
+        parts = [(words, weights, valid)]
+        if cfg.couple_spin_flip:
+            flipped = bitops.interleave_swap(words, self.ham.qubit_num)
+            parts.append((flipped, torch.zeros_like(weights), valid))
+        for pinned, on in ((self.ref_neighbor_words, cfg.couple_ref_dets),
+                           (self.coupled_words, cfg.couple_support_file)):
+            if on and pinned is not None:
+                k = pinned.shape[0]
+                parts.append((pinned, weights.new_zeros(k),
+                              torch.ones(k, dtype=torch.bool,
+                                         device=valid.device)))
+        if len(parts) == 1:
+            return words, weights, valid
+        return tuple(torch.cat(p) for p in zip(*parts))
 
     def _want_sector_membership(self, mol) -> bool:
         """JAX ``vmc.py:425-443`` in its 'auto' mode, whatever the engine's
@@ -323,7 +403,7 @@ class VMC:
     def _sector_partner_tables(self, dets, n_real):
         """Host-side searchsorted of every det's M connected partners into
         the sorted sector: (N_padded, M) indices + found mask."""
-        a_np = np.asarray(self.ham.a_masks).astype(np.uint64)
+        a_np = self.engine.a_words.cpu().numpy().astype(np.uint64)
         a_ints = a_np[:, 0]
         if a_np.shape[1] > 1:
             a_ints = a_ints | (a_np[:, 1] << np.uint64(32))
@@ -453,53 +533,74 @@ class VMC:
                 "would be silently biased low"
             )
         self._overflow_escalations += 1
-        extra_bits = self.engine.hash_extra_bits + (
-            1 if self.engine.membership == "hash" else 0)
-        logging.warning("%s -> escalation #%d: rebuilding engine with "
-                        "hash_extra_bits=%d", msg,
-                        self._overflow_escalations, extra_bits)
-        self.engine = PauliEngine(self.ham, device=self.device,
-                                  membership=self.engine.membership,
-                                  hash_extra_bits=extra_bits)
+        eng = self.engine
+        caps = {}
+        if eng.membership == "prefilter":
+            caps["prefilter_row_capacity"] = 2 * eng.prefilter_row_capacity
+            caps["prefilter_dense_rows"] = 2 * eng.prefilter_dense_rows
+        if eng.membership in ("hash", "prefilter"):
+            caps["hash_extra_bits"] = eng.hash_extra_bits + 1
+        logging.warning("%s -> escalation #%d: rebuilding engine with %s",
+                        msg, self._overflow_escalations, caps)
+        # Only capacities change: the rebuilt engine shares the device
+        # tables (kernel #1's cut of the terms is not redone).
+        self.engine = eng.with_capacities(**caps)
 
     # ------------------------------------------------------------------
     # The step
     # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _support(self, generator: torch.Generator, cfg: VMCConfig = None,
+                 samp: SamplingConfig = None, uniforms=None, draw=None):
+        """Sample (or take the enumerated sector as) the unique-determinant
+        support, add the couplings' rows, and order it as its membership
+        needs: (words, weights, valid, stats). Launches no kernel."""
+        cfg = cfg or self.config
+        samp = samp or self.sampling_config
+        if samp.mode == "exact":
+            words, valid = self.exact_words, self.exact_valid
+            n_real = torch.sum(valid)
+            weights = torch.where(valid, 1.0, 0.0) / n_real
+            stats = {"unique_num": n_real, "dropped": 0}
+        else:
+            budget = (self._current_budget(cfg)
+                      if samp.mode == "multinomial" else None)
+            words, weights, valid, stats = sample(
+                self.anqs, samp, generator, uniforms, budget=budget,
+                draw=draw,
+            )
+        couples = self._couples(cfg)
+        words, weights, valid = self._augment(cfg, words, weights, valid)
+        if self._use_static(samp):
+            return words, weights, valid, stats
+        # Invalid rows become all-ones sentinels that never match.
+        words = torch.where(valid[:, None], words, bitops.MASK32)
+        if not (self.sector_pos is not None and samp.mode == "gumbel"
+                and not couples):
+            # Canonical order (JAX ``vmc.py:941-966``): only Gumbel samples
+            # on the sector position map skip it; their rows are unique,
+            # and the map needs no sorted set. A coupling may repeat a row:
+            # the sort's first copy stays valid.
+            words, _, weights, valid = keys.sort_words(words, weights, valid)
+            if couples:
+                valid = valid & keys.unique_mask(words)
+        return words, weights, valid, stats
+
+    def _use_static(self, samp: SamplingConfig) -> bool:
+        return samp.mode == "exact" and self.exact_partner_idx is not None
+
     def _support_and_eloc(self, state: TrainState, cfg: VMCConfig = None,
                           samp: SamplingConfig = None, uniforms=None,
                           draw=None):
-        """Sample (or take the enumerated sector as) the unique-determinant
-        support, evaluate amplitudes and sample-aware local energies (no
-        autograd). Returns (words, weights, valid, stats, la, ph, e)."""
-        cfg = cfg or self.config
+        """The support (``_support``), its amplitudes and sample-aware
+        local energies (no autograd). Returns (words, weights, valid,
+        stats, la, ph, e)."""
         samp = samp or self.sampling_config
+        words, weights, valid, stats = self._support(
+            state.generator, cfg, samp, uniforms, draw)
         with torch.no_grad():
-            if samp.mode == "exact":
-                words, valid = self.exact_words, self.exact_valid
-                n_real = torch.sum(valid)
-                weights = torch.where(valid, 1.0, 0.0) / n_real
-                stats = {"unique_num": n_real, "dropped": 0}
-            else:
-                budget = (self._current_budget(cfg)
-                          if samp.mode == "multinomial" else None)
-                words, weights, valid, stats = sample(
-                    self.anqs, samp, state.generator, uniforms,
-                    budget=budget, draw=draw,
-                )
-            use_static = (samp.mode == "exact"
-                          and self.exact_partner_idx is not None)
-            if not use_static:
-                # Invalid rows become all-ones sentinels that never match.
-                words = torch.where(valid[:, None], words, bitops.MASK32)
-            if not use_static and not (self.sector_pos is not None
-                                       and samp.mode == "gumbel"):
-                # Canonical order (JAX ``vmc.py:941-966``): only Gumbel
-                # samples on the sector position map skip it; their rows
-                # are unique, and the map needs no sorted set.
-                words, _, weights, valid = keys.sort_words(words, weights,
-                                                           valid)
             la, ph = self.anqs.log_psi(words)
-            if use_static:
+            if self._use_static(samp):
                 e = self.engine.local_energy_static(
                     words, la, ph, valid, self.exact_partner_idx,
                     self.exact_partner_found,
@@ -612,9 +713,7 @@ class VMC:
             "found_ratio": e.found_pairs
             / torch.clamp(n_valid * self.engine.n_groups, min=1),
             "table_overflow": torch.as_tensor(e.table_overflow),
-            # Rows truncated by the prefilter membership, which the port
-            # does not have yet: always 0 (the CSV keeps JAX's column).
-            "pf_dropped_rows": torch.zeros((), dtype=torch.int64),
+            "pf_dropped_rows": torch.as_tensor(e.pf_dropped_rows),
         })
         return metrics, grads
 
@@ -912,3 +1011,39 @@ def li2o_vmc(device="cuda", hidden_width: int = 512,
         device=device,
         run_dir=run_dir,
     )
+
+
+# The C2H4/6-31G trainer's two nets (JAX ``examples/c2h4_transformer.py``):
+# the transformer ANQS with the logit soft-cap and a warm-up schedule, or
+# MADE 512 with the Li2O-style schedule; each with its gradient clip.
+C2H4_NETS = {
+    "transformer": (
+        AnqsConfig(net_type="transformer", d_model=128, n_layers=3,
+                   n_heads=4, d_ff=512, logit_cap=4.0),
+        ((0, 3e-5), (400, 1e-4), (1500, 3e-4)), 0.25),
+    "made": (AnqsConfig(hidden_widths=(512,)),
+             ((0, 1e-3), (1500, 3e-4)), 0.5),
+}
+
+
+def c2h4_vmc(device="cuda", net: str = "transformer", sample_num: int = 4096,
+             run_dir: Optional[str] = None, **overrides) -> VMC:
+    """The top rung of the reference ladder (JAX
+    ``examples/c2h4_transformer.py``): C2H4/6-31G, 52 qubits (two words a
+    determinant), 104278 terms in 20776 groups; ``net`` 'transformer'
+    (d_model 128, 3 layers, 4 heads, d_ff 512, logit_cap 4) or 'made'
+    (MADE 512), qubit_per_qudit 4 (13 qudits), ``sample_num`` Gumbel
+    samples plus the 2048 pinned HF neighbours (``couple_ref_dets``:
+    without them a 4096-state sample has no H-connected pairs), prefilter
+    membership and the 'grouped' group order (both the engine's 'auto'),
+    MinSR top-50, Adam on the net's learning-rate schedule and clip, seed
+    0. ``overrides``: other ``VMCConfig`` fields."""
+    from ..chem.molecule import load_c2h4
+
+    anqs_config, lr_schedule, clip = C2H4_NETS[net]
+    cfg = dict(sample_num=sample_num, sampling_mode="gumbel",
+               qubit_per_qudit=4, lr=lr_schedule[0][1],
+               lr_schedule=lr_schedule, grad_clip_norm=clip,
+               sr=SRConfig(max_indices_num=50), couple_ref_dets=2048, seed=0)
+    return VMC(load_c2h4(), VMCConfig(**{**cfg, **overrides}), anqs_config,
+               device=device, run_dir=run_dir)

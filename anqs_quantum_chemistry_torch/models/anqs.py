@@ -1,8 +1,9 @@
-"""Autoregressive neural quantum state over qudits, MADE path.
+"""Autoregressive neural quantum state over qudits.
 
-Counterpart of the JAX package's ``models/anqs.py`` for ``net_type='made'``
-and the ``log_abs_phase`` head: amplitudes are real pairs ``(log|psi|,
-phase)``; conditionals come from one MADE forward per batch; symmetry masks
+Counterpart of the JAX package's ``models/anqs.py`` for ``net_type`` 'made'
+and 'transformer' and the ``log_abs_phase`` head: amplitudes are real pairs
+``(log|psi|, phase)``; conditionals come from one forward of the main net
+per batch (optionally soft-capped, ``logit_cap``); symmetry masks
 are per-qudit table lookups on the packed memo index; masked slots get NEG,
 and normalization is a masked log-softmax of ``2 * log|psi|``.
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,23 +25,35 @@ from torch import nn
 from ..ops import bits as bitops
 from ..symmetries.grouping import QubitGrouping
 from .made import MADE, MadeSpec
+from .transformer import Transformer, TransformerSpec
 
 NEG = -1e30
+NET_TYPES = ("made", "transformer")
 
 
 @dataclasses.dataclass(frozen=True)
 class AnqsConfig:
-    """The JAX ``AnqsConfig`` at its defaults (MADE nets, ``log_abs_phase``
-    head, tanh, biases, residuals, mean-subtracted conditionals), with the
-    two widths free."""
+    """The JAX ``AnqsConfig`` at its defaults (``log_abs_phase`` head, tanh
+    MADE with biases and residuals, mean-subtracted conditionals), with the
+    net type, the MADE widths, the transformer sizes and ``logit_cap``
+    free, under JAX's names and defaults."""
 
+    net_type: str = "made"  # 'made' | 'transformer' ('nade' is not ported)
     hidden_widths: Tuple[int, ...] = (512,)
     aux_hidden_widths: Tuple[int, ...] = (512,)
+    # Soft cap on the main net's raw conditionals, la -> cap tanh(la / cap),
+    # before masking and normalization (None: off).
+    logit_cap: Optional[float] = None
+    # Transformer sizes (net_type='transformer').
+    d_model: int = 64
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 256
 
 
 class ANQS(nn.Module):
-    """Symmetry tables as buffers, the two MADE nets as submodules
-    (``main``: conditional log|psi|, ``aux``: conditional phase)."""
+    """Symmetry tables as buffers, the two nets as submodules (``main``:
+    conditional log|psi|, ``aux``: conditional phase)."""
 
     def __init__(self, grouping: QubitGrouping, config: AnqsConfig = None,
                  generator: torch.Generator = None):
@@ -80,16 +93,30 @@ class ANQS(nn.Module):
             qudit_ends=grouping.qudit_ends,
             max_qudit_dim=self.max_dim,
         )
-        self.main = MADE(
-            MadeSpec(hidden_widths=tuple(self.config.hidden_widths),
-                     **spec_kwargs),
-            generator,
-        )
-        self.aux = MADE(
-            MadeSpec(hidden_widths=tuple(self.config.aux_hidden_widths),
-                     **spec_kwargs),
-            generator,
-        )
+        cfg = self.config
+        if cfg.net_type == "made":
+            self.main = MADE(
+                MadeSpec(hidden_widths=tuple(cfg.hidden_widths),
+                         **spec_kwargs),
+                generator,
+            )
+            self.aux = MADE(
+                MadeSpec(hidden_widths=tuple(cfg.aux_hidden_widths),
+                         **spec_kwargs),
+                generator,
+            )
+        elif cfg.net_type == "transformer":
+            spec = TransformerSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                                   n_layers=cfg.n_layers, d_ff=cfg.d_ff,
+                                   **spec_kwargs)
+            self.main = Transformer(spec, generator)
+            self.aux = Transformer(spec, generator)
+        elif cfg.net_type == "nade":
+            raise NotImplementedError(
+                "net_type='nade' is not ported (ROADMAP §1 item 9)")
+        else:
+            raise ValueError(f"net_type={cfg.net_type!r}: expected one of "
+                             f"{NET_TYPES}")
 
     def reset_parameters(self, generator: torch.Generator):
         """Fresh Glorot weights from ``generator`` (main first, then aux)."""
@@ -148,10 +175,15 @@ class ANQS(nn.Module):
     forward = log_psi
 
     def main_log_abs_raw(self, words):
-        """Raw (B, Q, D) conditional log-abs of the main net, before
-        masking and normalization (the sampler skips the phase net)."""
+        """Raw (B, Q, D) conditional log-abs of the main net, soft-capped
+        by ``logit_cap``, before masking and normalization (the sampler
+        skips the phase net)."""
         x = bitops.unpack(words, self.qubit_num, dtype=torch.float32)
-        return self.main(x)[..., 0]
+        la = self.main(x)[..., 0]
+        cap = self.config.logit_cap
+        if cap:
+            la = cap * torch.tanh(la / cap)
+        return la
 
     def _phase_raw(self, words):
         """Raw per-continuation phases (B, Q, D) of ``words``."""

@@ -17,15 +17,25 @@ from the sampled set alone (``local_energy_proxy``): a
 (2^n, 2) direct-address table up to ``MAX_TABLE_QUBITS`` qubits
 (``membership='table'``), or a bucket-hash table of 32 entries per bucket
 for any qubit count up to 64 (``membership='hash'``; the lookup is
-``ops/hash_lookup.py``, the CUDA kernel on the card). The unbiased full
-local energy (``local_energy_full``) evaluates the network at every
-partner instead. Amplitudes are real pairs ``(log|psi|, phase)``. Real
+``ops/hash_lookup.py``, the CUDA kernel on the card), or cheap-first
+through the same table (``membership='prefilter'``, the JAX engine's choice
+above 22 qubits): a 32-bit fingerprint pass over every partner, per-row
+compaction of the candidates, and exact verification of the survivors by
+the lookup kernel, with a dense fallback for rows over capacity. The
+unbiased full local energy (``local_energy_full``) evaluates the network at
+every partner instead. Amplitudes are real pairs ``(log|psi|, phase)``. Real
 Hamiltonians only (every molecular JW case).
+
+Groups come in the Hamiltonian's order, or, where the JAX engine would use
+its ``'grouped'`` matrix elements (``weights_matmul``), in its class-major
+order (``regroup_by_size_class``), so that ``a_words`` and the columns of
+``matrix_elements`` match the JAX engine's row for row.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import copy
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +47,17 @@ from ..ops import keys
 from ..ops.matrix_elements import build_tables, fused_matrix_elements
 
 NEG = -1e30
-MEMBERSHIPS = ("auto", "table", "hash")
+MEMBERSHIPS = ("auto", "table", "hash", "prefilter")
 # Memberships of the JAX engine that the port does not have yet.
-UNPORTED_MEMBERSHIPS = ("search", "prefilter", "hash_dist")
+UNPORTED_MEMBERSHIPS = ("search", "hash_dist")
+# The JAX engine's matrix-element forms that fix the group order: 'split'
+# keeps the Hamiltonian's, 'grouped' its class-major order; 'auto' picks
+# 'grouped' where the dense (T, M) operand would exceed 2^29 elements.
+WEIGHTS_MATMULS = ("auto", "split", "grouped")
+GROUPED_MIN_ELEMENTS = 1 << 29
+# Partner queries a pass of the prefilter's fingerprint probe: bounds its
+# (chunk, 32) int32 row gather at 1 GB.
+FP_QUERY_CHUNK = 1 << 23
 
 
 class LocalEnergies(NamedTuple):
@@ -56,6 +74,35 @@ class LocalEnergies(NamedTuple):
     # membership; expected 0 for hash at its dimensioned load, and acted on
     # by the VMC trainer's overflow policy when it is not).
     table_overflow: torch.Tensor | int = 0
+    # Rows whose candidate count exceeded the prefilter's row capacity and
+    # did not fit its dense-row fallback: their E_loc is truncated (0 means
+    # the prefilter result is exact; 0 for every other membership).
+    pf_dropped_rows: torch.Tensor | int = 0
+
+
+def regroup_by_size_class(ham: PauliHamiltonian) -> PauliHamiltonian:
+    """The JAX engine's ``'grouped'`` group order (``_regroup_by_size_class``,
+    JAX ``pauli.py:266-312``): groups stably sorted by their power-of-two
+    size class. JAX also pads each group's terms to its class size (a TPU
+    layout); the port keeps the terms as they are, since kernel #1 walks
+    each group's CSR range."""
+    starts = np.asarray(ham.group_starts).astype(np.int64)
+    sizes = np.diff(starts)
+    kpad = np.array([1 << max(0, int(n - 1).bit_length()) for n in sizes],
+                    dtype=np.int64)
+    order = np.argsort(kpad, kind="stable")
+    new_sizes = sizes[order]
+    new_starts = np.concatenate([[0], np.cumsum(new_sizes)])
+    terms = (np.repeat(starts[order] - new_starts[:-1], new_sizes)
+             + np.arange(int(new_starts[-1])))
+    return PauliHamiltonian(
+        qubit_num=ham.qubit_num,
+        constant=ham.constant,
+        a_masks=np.asarray(ham.a_masks)[order],
+        b_words=np.asarray(ham.b_words)[terms],
+        weights=np.asarray(ham.weights)[terms],
+        group_starts=new_starts,
+    )
 
 
 class PauliEngine:
@@ -66,15 +113,26 @@ class PauliEngine:
     MAX_TABLE_QUBITS = 22
 
     def __init__(self, ham: PauliHamiltonian, device="cuda",
-                 membership: str = "auto", hash_extra_bits: int = 0):
-        """``membership``: 'auto' | 'table' | 'hash', the dynamic
-        membership of ``local_energy_proxy``; 'auto' resolves as the JAX
-        engine's does: to 'table' up to ``MAX_TABLE_QUBITS`` qubits, and
-        above that to 'prefilter' (W <= 4) or 'search', which are not
-        ported, so ``local_energy_proxy`` raises on such an engine (its
-        matrix elements and sector local energies work).
-        ``hash_extra_bits``: extra log2 bucket-count bits of the hash table
-        (0 = ~25% average load; the trainer's overflow policy raises it)."""
+                 membership: str = "auto", hash_extra_bits: int = 0,
+                 weights_matmul: str = "auto",
+                 prefilter_row_capacity: int = 64,
+                 prefilter_dense_rows: int = 256,
+                 pf_row_chunk: Optional[int] = None):
+        """``membership``: 'auto' | 'table' | 'hash' | 'prefilter', the
+        dynamic membership of ``local_energy_proxy``; 'auto' resolves as
+        the JAX engine's does: to 'table' up to ``MAX_TABLE_QUBITS`` qubits,
+        and above that to 'prefilter' (W <= 4) or 'search'. 'search', and
+        'prefilter' above 64 qubits, are not ported: ``local_energy_proxy``
+        raises on such an engine (its matrix elements and sector local
+        energies work). ``hash_extra_bits``: extra log2 bucket-count bits of
+        the hash table (0 = ~25% average load; the trainer's overflow
+        policy raises it). ``weights_matmul``: 'auto' | 'split' |
+        'grouped', the JAX engine's option, which here only chooses the
+        group order (module docstring). Prefilter capacities (JAX's
+        defaults): candidates kept a row (``prefilter_row_capacity``), rows
+        over it re-done over all groups (``prefilter_dense_rows``), and the
+        rows a block of the fingerprint, compaction and verification stages
+        (``pf_row_chunk``; None: one block)."""
         n_words = bitops.n_words(ham.qubit_num)
         if membership in UNPORTED_MEMBERSHIPS:
             raise NotImplementedError(
@@ -83,21 +141,44 @@ class PauliEngine:
         if membership not in MEMBERSHIPS:
             raise ValueError(f"membership={membership!r}: expected one of "
                              f"{MEMBERSHIPS}")
+        if weights_matmul not in WEIGHTS_MATMULS:
+            raise ValueError(f"weights_matmul={weights_matmul!r}: expected "
+                             f"one of {WEIGHTS_MATMULS}")
         if membership == "auto":
             if ham.qubit_num <= self.MAX_TABLE_QUBITS:
                 membership = "table"
             else:
                 membership = "prefilter" if n_words <= 4 else "search"
+        elif membership in ("hash", "prefilter") and n_words > 2:
+            raise NotImplementedError(
+                f"{membership} membership above 64 qubits (16-entry bucket "
+                "rows) is not ported (ROADMAP item 6)"
+            )
         if membership == "table" and ham.qubit_num > self.MAX_TABLE_QUBITS:
             raise ValueError(f"membership='table' needs <= "
                              f"{self.MAX_TABLE_QUBITS} qubits")
-        if membership == "hash" and n_words > 2:
-            raise NotImplementedError(
-                "hash membership above 64 qubits (16-entry bucket rows) is "
-                "not ported (ROADMAP item 6)"
-            )
+        offsets = getattr(ham, "phase_offsets", None)
+        if (membership == "prefilter" and offsets is not None
+                and np.any(offsets)):
+            # JAX pauli.py:252-262: the compaction carries no per-group
+            # phase channel (odd-Y, imaginary-weight Hamiltonians).
+            raise ValueError("prefilter membership does not carry a "
+                             "per-group phase channel")
+        if min(prefilter_row_capacity, prefilter_dense_rows) < 1 or (
+                pf_row_chunk is not None and pf_row_chunk < 1):
+            raise ValueError("prefilter capacities must be positive")
+        if weights_matmul == "auto":
+            weights_matmul = (
+                "grouped" if ham.n_terms * ham.n_groups * 2
+                > GROUPED_MIN_ELEMENTS else "split")
+        if weights_matmul == "grouped":
+            ham = regroup_by_size_class(ham)
+        self.weights_matmul = weights_matmul
         self.membership = membership
         self.hash_extra_bits = hash_extra_bits
+        self.prefilter_row_capacity = prefilter_row_capacity
+        self.prefilter_dense_rows = prefilter_dense_rows
+        self.pf_row_chunk = pf_row_chunk
         self.qubit_num = ham.qubit_num
         self.constant = float(ham.constant)
         self.n_groups = ham.n_groups
@@ -106,6 +187,22 @@ class PauliEngine:
             np.asarray(ham.a_masks).astype(np.int64)
         ).to(device)  # (M, W)
         self.me_tables = build_tables(ham, device)
+
+    def with_capacities(self, **capacities) -> "PauliEngine":
+        """A copy of this engine with other membership capacities
+        (``hash_extra_bits``, ``prefilter_row_capacity``,
+        ``prefilter_dense_rows``), sharing its device tables: what the
+        trainer's overflow escalation rebuilds, without recutting kernel
+        #1's tables on the host."""
+        unknown = set(capacities) - {"hash_extra_bits",
+                                     "prefilter_row_capacity",
+                                     "prefilter_dense_rows"}
+        if unknown:
+            raise ValueError(f"not a capacity: {sorted(unknown)}")
+        eng = copy.copy(self)
+        for name, value in capacities.items():
+            setattr(eng, name, int(value))
+        return eng
 
     def matrix_elements(self, words) -> torch.Tensor:
         """(B, W) packed sources -> (B, M) elements <x ^ A_m | H | x>.
@@ -187,6 +284,29 @@ class PauliEngine:
             acc = cls._mix2(acc, c)
         return acc
 
+    @staticmethod
+    def _fp32(lo, hi):
+        """Independent 32-bit key fingerprint of two uint32 words held in
+        int64 (JAX ``_fp32``, constants distinct from the bucket hash);
+        never 0, the empty-slot value."""
+        acc = hashops.mul32(lo, 0x9E3779B1)
+        acc = acc ^ (acc >> 16)
+        acc = hashops.mul32(acc ^ hi, 0x85EBCA77)
+        acc = acc ^ (acc >> 13)
+        acc = hashops.mul32(acc, 0xC2B2AE3D)
+        acc = acc ^ (acc >> 16)
+        return acc | 1
+
+    @classmethod
+    def _fp_hash(cls, cols):
+        """Fingerprint over W key words (JAX ``_fp_hash``): ``_fp32(lo,
+        hi)`` for W <= 2."""
+        cols = cls._padded_cols(cols)
+        acc = cls._fp32(cols[0], cols[1])
+        for c in cols[2:]:
+            acc = cls._fp32(acc, c)
+        return acc
+
     def local_energy_proxy(self, sorted_words, log_abs, phase,
                            valid) -> LocalEnergies:
         """Sample-aware local energies over the unique sampled set, with
@@ -194,14 +314,19 @@ class PauliEngine:
 
         ``sorted_words`` rows of invalid entries must hold words that can
         never match (the VMC step writes all-ones sentinels)."""
-        if self.membership in UNPORTED_MEMBERSHIPS:
+        if self.membership in UNPORTED_MEMBERSHIPS or (
+                self.membership == "prefilter"
+                and sorted_words.shape[1] > 2):
             raise NotImplementedError(
                 f"membership='auto' at {self.qubit_num} qubits resolves to "
                 f"{self.membership!r} in the JAX engine, which is not ported "
-                "(ROADMAP item 6); pass membership='hash'"
+                "at this width (ROADMAP item 6)"
             )
         if self.membership == "table":
             return self._proxy_via_table2(sorted_words, log_abs, phase, valid)
+        if self.membership == "prefilter":
+            return self._proxy_via_prefilter(sorted_words, log_abs, phase,
+                                             valid)
         return self._proxy_via_hash(sorted_words, log_abs, phase, valid)
 
     def _proxy_via_table2(self, words, log_abs, phase, valid):
@@ -251,10 +376,13 @@ class PauliEngine:
                 for i in range(words.shape[1])]
         return cols[0], (cols[1] if len(cols) > 1 else None)
 
-    def _hash_build(self, words, log_abs, phase, valid):
+    def _hash_build(self, words, log_abs, phase, valid, with_fp=False):
         """Scatter (key, log|psi|, phase) entries of the valid rows into
         planar bucket rows (JAX ``pauli.py:799-870``, W <= 2: 32 entries a
-        bucket). Returns (table (nb, 128) float32, nb, overflow count).
+        bucket). Returns (table (nb, 128) float32, nb, overflow count), and
+        with ``with_fp`` also the (nb, 32) fingerprint table (each entry's
+        ``_fp_hash`` as int32 bits, 0 for an empty slot) under the same
+        bucket and rank assignment.
 
         Lanes [0, 32) key_lo, [32, 64) key_hi (the keys' 32 bits, written
         through int32 so that no key is handled as a float), [64, 96)
@@ -290,7 +418,154 @@ class PauliEngine:
             valid, log_abs, NEG).view(torch.int32)
         tab[row, lane + 3 * epb] = phase.to(torch.float32).view(torch.int32)
         overflow_count = torch.sum(overflow).to(torch.int32)
-        return tab[:nb].view(torch.float32), nb, overflow_count
+        if not with_fp:
+            return tab[:nb].view(torch.float32), nb, overflow_count
+        fptab = torch.zeros((nb + 1, epb), dtype=torch.int32, device=dev)
+        fptab[row, lane] = hashops.as_int32(self._fp_hash(cols))
+        return tab[:nb].view(torch.float32), nb, overflow_count, fptab[:nb]
+
+    def _fp_candidates(self, fptab, nb, words):
+        """Stage 1 of the prefilter: (B, M) bool, whether any entry of the
+        bucket of partner x ^ A_m has its fingerprint -- no false negatives
+        against the table, ~32 / 2^32 false positives a partner. In passes
+        of about ``FP_QUERY_CHUNK`` partners.
+
+        JAX gathers the bucket's (32,) fingerprint row a partner and
+        compares its lanes; here the same question is one binary search of
+        the key bucket * 2^32 + fingerprint among the table's sorted slot
+        keys (an empty slot's fingerprint, 0, is never a partner's), which
+        answers alike without the (chunk, 32) gather."""
+        b, w = words.shape
+        m = self.n_groups
+        dev = words.device
+        slots = ((torch.arange(nb, device=dev)[:, None] << 32)
+                 | (fptab.to(torch.int64) & bitops.MASK32)).reshape(-1)
+        slots = torch.sort(slots).values
+        hits = torch.empty((b, m), dtype=torch.bool, device=dev)
+        step = max(1, FP_QUERY_CHUNK // m)
+        for s in range(0, b, step):
+            cols = tuple(words[s:s + step, i, None] ^ self.a_words[None, :, i]
+                         for i in range(w))
+            key = ((self._bucket_hash(cols) & (nb - 1)) << 32) | (
+                self._fp_hash(cols))
+            pos = torch.clamp(torch.searchsorted(slots, key),
+                              max=slots.numel() - 1)
+            hits[s:s + step] = slots[pos] == key
+        return hits
+
+    def _lookup_rows(self, tab, words, m_idx=None):
+        """Exact lookups of partners x ^ A_m of each row of ``words``: of
+        the groups ``m_idx`` (rows, k) of each row, or of all M. Returns
+        (log|psi|, phase, found), each shaped like ``m_idx`` or (rows, M)."""
+        w32 = hashops.as_int32(words)
+        a32 = hashops.as_int32(self.a_words)
+        cols = [(w32[:, None, i] ^ (a32[:, i][m_idx] if m_idx is not None
+                                    else a32[None, :, i])).reshape(-1)
+                for i in range(words.shape[1])]
+        la, ph, found = hashops.hash_lookup(
+            tab, cols[0], cols[1] if len(cols) > 1 else None)
+        shape = (words.shape[0], -1)
+        return la.reshape(shape), ph.reshape(shape), found.reshape(shape)
+
+    def _proxy_via_prefilter(self, words, log_abs, phase, valid):
+        """Cheap-first membership (JAX ``pauli.py:907-1084``):
+
+        1. fingerprint pass over all (B, M) partners (``_fp_candidates``,
+           plain torch: XLA in the JAX package, not Pallas);
+        2. per-row compaction: the first ``c_row = min(row capacity, M)``
+           candidate groups of each row, in ascending group order (top-k of
+           the keys m - idx);
+        3. (a) exact verification of the B x c_row candidates, (b) a dense
+           pass over all M groups for up to ``prefilter_dense_rows`` rows
+           with more than c_row candidates; both look up through
+           ``hash_lookup`` (kernel #2 on the card; JAX's ``_hash_query`` is
+           the same function, the table's keys being unique);
+        4. merge: dense rows replace their truncated sums; rows over
+           capacity beyond the dense buffer are counted in
+           ``pf_dropped_rows``.
+
+        Stages 1-3a run in blocks of ``pf_row_chunk`` rows. The dense buffer
+        holds min(``prefilter_dense_rows``, B) rows: at most B rows can be
+        over capacity, so the result is JAX's."""
+        b = words.shape[0]
+        m = self.n_groups
+        dev = words.device
+        c_row = min(self.prefilter_row_capacity, m)
+        tab, nb, build_overflow, fptab = self._hash_build(
+            words, log_abs, phase, valid, with_fp=True)
+        keys_m = m - torch.arange(m, dtype=torch.int32, device=dev)
+
+        sums, counts = [], []
+        chunk = self.pf_row_chunk or b
+        for s in range(0, b, chunk):
+            words_c, valid_c = words[s:s + chunk], valid[s:s + chunk]
+            hit = self._fp_candidates(fptab, nb, words_c) & valid_c[:, None]
+            counts.append(torch.sum(hit, dim=1))
+            kvals, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row,
+                                      dim=1)
+            me = self.matrix_elements(words_c)
+            la1, ph1, found1 = self._lookup_rows(tab, words_c, m_idx)
+            sums.append(self._combine_rows(
+                torch.gather(me, 1, m_idx), la1, ph1, found1 & (kvals > 0),
+                phase[s:s + chunk]))
+        row_count = torch.cat(counts)
+        s_re, s_im, found_per_row = (torch.cat(parts) for parts in zip(*sums))
+
+        # Stage 3b: the rows over capacity, up to the dense buffer's size.
+        over = valid & (row_count > c_row)
+        rows_buf, row_ok, safe_rows = self._dense_rows(over)
+        rw = words[safe_rows]
+        la2, ph2, found2 = self._lookup_rows(tab, rw)
+        dense = self._combine_rows(self.matrix_elements(rw), la2, ph2,
+                                   found2 & row_ok[:, None],
+                                   phase[safe_rows])
+
+        # Merge: dense rows overwrite their truncated stage-3a sums.
+        scatter_to = torch.where(row_ok, rows_buf, b)
+        s_re, s_im, found_per_row = (
+            torch.cat([s1, s1.new_zeros(1)]).index_put_((scatter_to,), s2)[:b]
+            for s1, s2 in zip((s_re, s_im, found_per_row), dense))
+
+        ratio_scale = torch.exp(torch.clamp(
+            -torch.where(valid, log_abs, 0.0), -60.0, 60.0))
+        a_x = torch.where(valid, torch.exp(log_abs), 0.0)
+        dropped = torch.sum(over) - self.prefilter_dense_rows
+        return LocalEnergies(
+            e_re=torch.where(valid, s_re * ratio_scale + self.constant, 0.0),
+            e_im=torch.where(valid, s_im * ratio_scale, 0.0),
+            found_pairs=torch.sum(torch.where(valid, found_per_row, 0)),
+            t_re=torch.where(valid, self.constant * a_x + s_re, 0.0),
+            t_im=torch.where(valid, s_im, 0.0),
+            table_overflow=build_overflow,
+            pf_dropped_rows=torch.clamp(dropped, min=0),
+        )
+
+    def _dense_rows(self, over):
+        """The dense fallback's row buffer: the first r =
+        min(``prefilter_dense_rows``, B) rows flagged ``over``, in order,
+        then filler. Returns (r row indices, B for filler; which are rows;
+        the indices clamped into range)."""
+        b = over.shape[0]
+        r_buf = min(self.prefilter_dense_rows, b)
+        pos = torch.cumsum(over.to(torch.int64), 0) - 1
+        rows_buf = torch.full((r_buf + 1,), b, dtype=torch.int64,
+                              device=over.device)
+        rows_buf[torch.where(over & (pos < r_buf), pos, r_buf)] = (
+            torch.arange(b, device=over.device))
+        rows_buf = rows_buf[:r_buf]
+        return rows_buf, rows_buf < b, torch.clamp(rows_buf, max=b - 1)
+
+    @staticmethod
+    def _combine_rows(me, la_p, ph_p, found, phase_x):
+        """Per-row partner sums in amplitude form (JAX ``_combine_rows``,
+        ``pauli.py:1086-1103``; the 1/|psi(x)| scale is the caller's):
+        (sum me a_p cos, sum me a_p sin, found count), each (rows,)."""
+        amp_p = torch.where(
+            found, torch.exp(torch.where(found, la_p, 0.0)) * me, 0.0)
+        dph = ph_p - phase_x[:, None]
+        return (torch.sum(amp_p * torch.cos(dph), dim=1),
+                torch.sum(amp_p * torch.sin(dph), dim=1),
+                torch.sum(found, dim=1))
 
     def _combine_via_t(self, me, la_p, ph_p, found, log_abs, phase, valid):
         """Amplitude-form partner sums computed once; the ratio-form local

@@ -73,6 +73,16 @@ def parity(words: torch.Tensor) -> torch.Tensor:
     return w & 1
 
 
+def interleave_swap(words: torch.Tensor, qubit_num: int) -> torch.Tensor:
+    """Swap even and odd qubits (alpha <-> beta spin-orbitals) in packed
+    words: the JAX package's ``interleave_swap``. ``qubit_num`` must be
+    even; bits above it must be zero."""
+    if qubit_num % 2:
+        raise ValueError(f"interleave_swap needs an even qubit count, got "
+                         f"{qubit_num}")
+    return ((words & _M1) << 1) | ((words & (_M1 << 1)) >> 1)
+
+
 def set_bit_range(words, start: int, width: int, value):
     """Write ``value`` (ints < 2**width) into qubits [start, start+width).
 

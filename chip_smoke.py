@@ -59,6 +59,33 @@ version and within one float32 ulp of the float64 host reference on the
 first 64 rows; it is timed beside the plain version and, where the (T, M)
 float32 one-hot fits in the card's free memory, the dense two-matmul form.
 
+Then the C2H4 transformer trainer (``c2h4_vmc``, the JAX package's
+``examples/c2h4_transformer.py`` at its full width and settings: the
+transformer with d_model 128, 3 layers, 4 heads, d_ff 512, logit_cap 4,
+qubit_per_qudit 4, 4096 Gumbel samples and the 2048 pinned HF neighbours,
+prefilter membership, the 'grouped' group order, MinSR top-50, clip 0.25,
+the example's learning-rate schedule), counts set to 0 before its steps and
+read after:
+
+- Membership cross-check on one set (the transformer's samples at its
+  initial weights, seed 1, and the pinned neighbours): the prefilter's
+  capacities are doubled from (row 64, dense 256) until it drops no row,
+  each level printed; then prefilter and hash membership must find the
+  same pairs and agree on the numerators t to 1e-6 of the largest |t|,
+  and on e to 1e-6 of the largest |e| over rows with log|psi| > -60 (the
+  two combine with different float32 arithmetic, JAX's ``_combine_rows``
+  and ``_combine``, so they are not bit-identical). Each prefilter stage
+  (``tools/profile_torch_step.py`` ``prefilter_stages``) and both kernels
+  at its shapes are timed.
+- 5 steps from seed 0, the overflow policy acting after each step as
+  ``run`` does: energies finite, 4096 <= ``unique_num`` <= 6144,
+  ``table_overflow`` 0, no row dropped from the first step that drops
+  none, and on that step ``found_pairs`` equal to a host count over its
+  own set and the energy within 1e-4 Ha of the float64 Rayleigh quotient
+  over that set (matrix elements summed term by term on the host). Kernels
+  #1 and #2 (and the tag build) launch twice a step: stage 3a and the dense
+  fallback 3b.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -485,6 +512,18 @@ def li2o_sample(torch, vmc, seed):
     return words, valid, la, ph
 
 
+def lookup_bound(n_q, key_words, tab):
+    """(bytes moved, bytes ms, operations ms) of kernel #2 on ``n_q``
+    queries of ``key_words`` 32-bit words into table ``tab``: each input
+    read once -- 4 B a key word and the table -- and the (la, ph, found)
+    outputs written once; per query the hash (9 integer operations) and 3
+    compares of each of 32 entries, counted at the float32 rate (the data
+    sheet gives no integer rate outside the tensor cores)."""
+    n_bytes = n_q * 4 * key_words + tab.numel() * 4 + n_q * (4 + 4 + 1)
+    return (n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3,
+            n_q * (9 + 3 * 32) / FP32_FLOP_PER_S * 1e3)
+
+
 def hash_lookup_phase(torch, vmc):
     """Kernel #2 and its tag build against their plain versions, bit for
     bit, on three tables: Li2O's (8192 sampled rows, queries of all 3072
@@ -591,17 +630,8 @@ def hash_lookup_phase(torch, vmc):
     plain_ms = cuda_ms(lambda: hash_lookup_plain(tab, q_lo, q_hi), reps=2,
                        warmup=1)
     tags_plain_ms = cuda_ms(lambda: hash_tags_plain(tab), reps=5, warmup=1)
-    n_q = q_lo.numel()
-    # Each input read once -- 4 B a key word (q_lo, and q_hi only where
-    # there are two-word keys) and the table -- and the (la, ph, found)
-    # outputs written once.
     key_words = 1 if q_hi is None else 2
-    n_bytes = n_q * 4 * key_words + tab.numel() * 4 + n_q * (4 + 4 + 1)
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    # Per query: the hash (9 integer operations) and 3 compares of each of
-    # 32 entries, counted at the float32 rate (the data sheet gives no
-    # integer rate outside the tensor cores).
-    ops_ms = n_q * (9 + 3 * 32) / FP32_FLOP_PER_S * 1e3
+    n_bytes, bytes_ms, ops_ms = lookup_bound(q_lo.numel(), key_words, tab)
     bound_ms = max(bytes_ms, ops_ms)
     # The tag build reads three planes of the table once (key_lo, key_hi
     # and log|psi|; never the phase) and writes a byte a slot; per slot,
@@ -912,6 +942,242 @@ def li2o_multinomial_phase(torch):
     return launches
 
 
+def c2h4_set(torch, vmc, generator):
+    """One step's determinant set of the C2H4 trainer (``VMC._support``:
+    the Gumbel samples and the pinned HF neighbours, canonically sorted,
+    repeated rows invalid) drawn with ``generator`` at the current weights,
+    whose state is then restored (the step that follows draws the same
+    samples); and its amplitudes. Launches no kernel."""
+    gen_state = generator.get_state()
+    words, _, valid, _ = vmc._support(generator)
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(words)
+    generator.set_state(gen_state)
+    return words, valid, la, ph
+
+
+def host_pairs_and_rayleigh(ham, words, valid, la, ph):
+    """(connected pairs, float64 Rayleigh quotient) of a two-word set on the
+    host: every ordered pair (x, y) of the set's valid rows with x ^ y a flip
+    mask A_m (the diagonal included), its element <y|H|x> summed term by
+    term in float64, and psi = exp(la + i ph) over the set."""
+    import numpy as np
+    import scipy.sparse
+
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_uint64
+
+    keep = valid.cpu().numpy()
+    dets = words_to_uint64(words.cpu().numpy()[keep])
+    psi = np.exp(la.double().cpu().numpy()[keep]
+                 + 1j * ph.double().cpu().numpy()[keep])
+    a = words_to_uint64(ham.a_masks)
+    order = np.argsort(a)
+    a_sorted = a[order]
+    n = len(dets)
+    src, dst, grp = [], [], []
+    for r in range(0, n, 1024):
+        x = dets[r:r + 1024, None] ^ dets[None, :]
+        pos = np.clip(np.searchsorted(a_sorted, x), 0, len(a) - 1)
+        i, j = np.nonzero(a_sorted[pos] == x)
+        src.append(i + r)
+        dst.append(j)
+        grp.append(order[pos[i, j]])
+    src, dst, grp = (np.concatenate(v) for v in (src, dst, grp))
+    starts = np.asarray(ham.group_starts, np.int64)
+    sizes = np.diff(starts)[grp]
+    pair = np.repeat(np.arange(len(src)), sizes)
+    term = (np.repeat(starts[grp] - (np.cumsum(sizes) - sizes), sizes)
+            + np.arange(int(sizes.sum())))
+    par = dets[src][pair] & words_to_uint64(ham.b_words)[term]
+    for shift in (32, 16, 8, 4, 2, 1):
+        par = par ^ (par >> np.uint64(shift))
+    sign = 1.0 - 2.0 * (par & np.uint64(1)).astype(np.float64)
+    me = np.bincount(pair, weights=sign * np.asarray(ham.weights)[term],
+                     minlength=len(src))
+    h = scipy.sparse.csr_matrix((me, (dst, src)), shape=(n, n))
+    norm = np.vdot(psi, psi).real
+    energy = np.real(np.vdot(psi, h @ psi)) / norm + ham.constant
+    return len(src), float(energy)
+
+
+def _profile_tool():
+    """``tools/profile_torch_step.py`` as a module (its prefilter stages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_step",
+        os.path.join(ROOT, "tools", "profile_torch_step.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def c2h4_membership_phase(torch, vmc):
+    """Prefilter membership against hash membership on one C2H4 set
+    (Gumbel samples of the transformer at its initial weights, seed 1, and
+    the pinned neighbours): the prefilter's capacities are doubled, as the
+    overflow policy doubles them, until it drops no row; then both must
+    find the same pairs and agree on the numerators t (which the energy
+    uses) to 1e-6 of the largest |t|. Their e are sums of other float32
+    terms (JAX's ``_combine_rows`` scales a row's sum by 1/|psi(x)| clipped
+    at e^60; ``_combine`` clips each pair's ratio), so e is held to 1e-6 of
+    the largest |e| only on rows with log|psi| > -60, where neither clip
+    binds. Times each prefilter stage and kernel at those capacities.
+    Returns the figures."""
+    import copy
+
+    words, valid, la, ph = c2h4_set(
+        torch, vmc, torch.Generator(device="cuda").manual_seed(1))
+    hash_eng = copy.copy(vmc.engine)
+    hash_eng.membership = "hash"
+    eng = vmc.engine
+    with torch.no_grad():
+        ref = hash_eng.local_energy_proxy(words, la, ph, valid)
+        levels = []
+        while True:
+            e = eng.local_energy_proxy(words, la, ph, valid)
+            levels.append((eng.prefilter_row_capacity,
+                           eng.prefilter_dense_rows,
+                           int(e.pf_dropped_rows)))
+            log(f"C2H4 prefilter at capacities (row "
+                f"{eng.prefilter_row_capacity}, dense "
+                f"{eng.prefilter_dense_rows}, hash_extra_bits "
+                f"{eng.hash_extra_bits}): pf_dropped_rows "
+                f"{int(e.pf_dropped_rows)}, found_pairs {int(e.found_pairs)}")
+            if int(e.pf_dropped_rows) == 0:
+                break
+            check(len(levels) <= vmc.config.max_overflow_escalations,
+                  "C2H4: prefilter capacities beyond the escalation cap")
+            eng = eng.with_capacities(
+                prefilter_row_capacity=2 * eng.prefilter_row_capacity,
+                prefilter_dense_rows=2 * eng.prefilter_dense_rows,
+                hash_extra_bits=eng.hash_extra_bits + 1)
+    torch.cuda.synchronize()
+    unclipped = valid & (la > -60.0)
+    diffs = {}
+    for field in ("e_re", "e_im", "t_re", "t_im"):
+        got, want = getattr(e, field), getattr(ref, field)
+        if field[0] == "e":
+            got, want = got[unclipped], want[unclipped]
+        diffs[field] = (float(torch.max(torch.abs(got - want))),
+                        float(torch.max(torch.abs(want))),
+                        bool(torch.equal(got, want)))
+    log(f"C2H4 set: {int(valid.sum())} rows ({int(unclipped.sum())} with "
+        f"log|psi| > -60); hash membership found_pairs "
+        f"{int(ref.found_pairs)} (table_overflow {int(ref.table_overflow)})"
+        f", prefilter {int(e.found_pairs)} (table_overflow "
+        f"{int(e.table_overflow)}); max|prefilter - hash| (max|hash|, "
+        f"bit-identical): " + ", ".join(
+            f"{k} {d:.3e} ({m:.3e}, {same})" for k, (d, m, same)
+            in diffs.items()))
+    check(int(e.found_pairs) == int(ref.found_pairs),
+          "C2H4: prefilter and hash membership find other pairs")
+    check(int(e.table_overflow) == int(ref.table_overflow) == 0,
+          "C2H4: hash table overflowed")
+    for field, (d, m, _) in diffs.items():
+        check(d <= 1e-6 * m, f"C2H4: prefilter {field} disagrees with hash")
+
+    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
+                                                       valid)
+    times = {}
+    with torch.no_grad():
+        for name, fn in stages.items():
+            times[name] = cuda_ms(fn, reps=5, warmup=1)
+        times["prefilter_total_ms"] = cuda_ms(
+            lambda: eng.local_energy_proxy(words, la, ph, valid), reps=5,
+            warmup=1)
+        times["hash_membership_total_ms"] = cuda_ms(
+            lambda: hash_eng.local_energy_proxy(words, la, ph, valid),
+            reps=3, warmup=1)
+    log("C2H4 prefilter stages (device ms, mean of 5; "
+        f"Q 3a {queries['kernel2_3a']}, Q 3b {queries['kernel2_3b']}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    tab = eng._hash_build(words, la, ph, valid)[0]
+    bounds = {}
+    for stage in ("kernel2_3a", "kernel2_3b"):
+        _, bytes_ms, ops_ms = lookup_bound(queries[stage], 2, tab)
+        bounds[stage] = max(bytes_ms, ops_ms)
+        log(f"kernel hash_lookup at the C2H4 {stage[-2:]} shape: "
+            f"{times[stage + '_ms']:.4f} ms, bound {bounds[stage] * 1e3:.2f}"
+            f" us ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+            f"{times[stage + '_ms'] / bounds[stage]:.2f}x), nb "
+            f"{tab.shape[0]}")
+    return {"capacities": levels, "rows": int(valid.sum()),
+            "queries": queries, "stage_ms": times, "lookup_bound_ms": bounds,
+            "max_abs_diff_vs_hash": {k: d for k, (d, _, _) in diffs.items()}}
+
+
+def c2h4_trainer_phase(torch):
+    """The C2H4 transformer trainer (``c2h4_vmc``: the example's full width
+    and settings) for ``STEPS`` steps from seed 0, the overflow policy
+    acting after each step as ``run`` does, after the membership
+    cross-check on its initial weights. Returns (launches, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import c2h4_vmc
+
+    t = time.perf_counter()
+    vmc = c2h4_vmc(device="cuda")
+    log(f"C2H4 trainer set-up: {time.perf_counter() - t:.2f} s "
+        f"(membership {vmc.engine.membership}, group order "
+        f"{vmc.engine.weights_matmul}, {vmc.ref_neighbor_words.shape[0]} "
+        "pinned neighbours)")
+    figures = c2h4_membership_phase(torch, vmc)
+
+    state = vmc.init_state()
+    reset_launches()
+    rows, step_ms, ref = [], [], None
+    for i in range(STEPS):
+        snap = (c2h4_set(torch, vmc, state.generator) if ref is None
+                else None)
+        t = time.perf_counter()
+        row = vmc.step(state)
+        dt = time.perf_counter() - t
+        rows.append(row)
+        step_ms.append(dt * 1e3)
+        log(f"C2H4 step {i}: energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
+            f"pf_dropped_rows {int(row['pf_dropped_rows'])} table_overflow "
+            f"{int(row['table_overflow'])} escalations "
+            f"{vmc._overflow_escalations} step_ms {dt * 1e3:.1f}")
+        if ref is None and int(row["pf_dropped_rows"]) == 0:
+            ref = (i, snap)
+        vmc._handle_overflow({**row, "iter_idx": i})
+    launches = read_launches()
+    log(f"C2H4 path launches {launches}; capacities after the run (row "
+        f"{vmc.engine.prefilter_row_capacity}, dense "
+        f"{vmc.engine.prefilter_dense_rows})")
+
+    for i, row in enumerate(rows):
+        check(np.isfinite(row["energy"]), f"C2H4 step {i}: energy")
+        check(4096 <= int(row["unique_num"]) <= 6144,
+              f"C2H4 step {i}: unique_num {row['unique_num']}")
+        check(int(row["table_overflow"]) == 0,
+              f"C2H4 step {i}: table_overflow {row['table_overflow']}")
+    check(ref is not None, "C2H4: every step dropped rows")
+    i0, snap = ref
+    check(all(int(r["pf_dropped_rows"]) == 0 for r in rows[i0:]),
+          "C2H4: rows dropped after the last escalation")
+    t = time.perf_counter()
+    host_pairs, e_ref = host_pairs_and_rayleigh(vmc.ham, *snap)
+    log(f"C2H4 step {i0} (the first with no dropped row) on the host "
+        f"({time.perf_counter() - t:.1f} s): found_pairs {host_pairs}, "
+        f"Rayleigh quotient over its {int(snap[1].sum())} determinants "
+        f"{e_ref:.6f} (|step - ref| = {abs(rows[i0]['energy'] - e_ref):.2e} "
+        f"Ha); HF {vmc.mol.hf_energy:.6f}")
+    check(int(rows[i0]["found_pairs"]) == host_pairs,
+          "C2H4: found_pairs disagrees with the host count")
+    check(abs(rows[i0]["energy"] - e_ref) <= 1e-4,
+          "C2H4: energy disagrees with the Rayleigh quotient")
+    check(launches == {"fused_matrix_elements": 2 * STEPS,
+                       "hash_lookup": 2 * STEPS, "hash_tags": 2 * STEPS},
+          f"C2H4 path launched {launches} in {STEPS} steps")
+    figures.update(escalations=vmc._overflow_escalations,
+                   first_clean_step=i0, step_ms=step_ms,
+                   energies=[r["energy"] for r in rows])
+    return launches, figures
+
+
 def main():
     try:
         import torch
@@ -998,6 +1264,7 @@ def main():
     multinomial_launches = li2o_multinomial_phase(torch)
 
     c2h4_phase(torch, me_entry)
+    c2h4_launches, c2h4_figures = c2h4_trainer_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -1006,12 +1273,22 @@ def main():
     tags_entry["launches"] = li2o_launches["hash_tags"]
     by_path = {"n2": n2_launches, "li2o": li2o_launches,
                "n2_exact": exact_launches, "n2_driver": driver_launches,
-               "li2o_multinomial": multinomial_launches}
+               "li2o_multinomial": multinomial_launches,
+               "c2h4_transformer": c2h4_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
     me_entry["n2_exact_step_s"] = exact_times["exact_step_s"]
     me_entry["n2_full_energy_s"] = exact_times["full_energy_s"]
+    stage_ms = c2h4_figures["stage_ms"]
+    me_entry["ms_c2h4_prefilter_batch"] = stage_ms["kernel1_me_ms"]
+    hash_entry["c2h4_prefilter"] = {
+        f"{key}_{stage}": value for stage in ("3a", "3b")
+        for key, value in (
+            ("Q", c2h4_figures["queries"][f"kernel2_{stage}"]),
+            ("ms", stage_ms[f"kernel2_{stage}_ms"]),
+            ("bound_ms", c2h4_figures["lookup_bound_ms"][
+                f"kernel2_{stage}"]))}
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

@@ -291,3 +291,75 @@ def test_hash_lookup_rejects_bad_inputs(cuda):
         hash_lookup(tab, q_lo[::2], q_hi[::2])
     with pytest.raises(ValueError):  # float64 table
         hash_lookup(tab.double(), q_lo, q_hi)
+
+
+def _c2h4_batch(device, rows=1024, seed=3):
+    """C2H4/6-31G's engine ('auto': prefilter membership, grouped order) and
+    a canonically sorted two-word batch: random sector determinants, HF and
+    its 64 largest-|me| partners (rows that couple to each other), all-ones
+    sentinel rows at the end; amplitudes from a numpy seed."""
+    from anqs_quantum_chemistry_torch.ops import keys
+    from anqs_quantum_chemistry_torch.ops.bits import MASK32
+
+    mol = load_c2h4()
+    engine = PauliEngine(mol.qubit_ham, device=device)
+    rng = np.random.default_rng(seed)
+    dets = random_sector_dets(mol.n_orbitals, mol.n_alpha, mol.n_beta,
+                              rows - 80, rng)
+    hf = np.uint64(mol.hf_det)
+    words = torch.from_numpy(np.stack(
+        [dets & np.uint64(MASK32), dets >> np.uint64(32)], 1).astype(np.int64))
+    hf_words = torch.tensor([[int(hf) & MASK32, int(hf) >> 32]]).to(device)
+    me = engine.matrix_elements(hf_words)[0].abs()
+    top = torch.argsort(me, descending=True, stable=True)[:64]
+    words = torch.cat([words.to(device), hf_words, hf_words ^
+                       engine.a_words[top],
+                       torch.full((15, 2), MASK32, device=device)])
+    valid = torch.ones(rows, dtype=torch.bool, device=device)
+    valid[-15:] = False
+    words, _, valid = keys.sort_words(words, valid)
+    valid = valid & keys.unique_mask(words)
+    la = torch.from_numpy(-np.abs(rng.standard_normal(rows)).astype(
+        np.float32)).to(device)
+    ph = torch.from_numpy(rng.uniform(-3, 3, rows).astype(np.float32)).to(
+        device)
+    return engine, words, la, ph, valid
+
+
+@pytest.mark.cuda
+def test_hash_lookup_matches_plain_on_card_c2h4_dense_rows(cuda):
+    """Kernel #2 at two-word keys and the prefilter's dense-fallback shape
+    on the C2H4 path: 256 rows x all 20776 groups = 5.3M queries."""
+    engine, words, la, ph, valid = _c2h4_batch(cuda)
+    tab, nb, overflow = engine._hash_build(words, la, ph, valid)
+    assert int(overflow) == 0
+    w32 = words[:256].to(torch.int64)
+    q = (w32[:, None, :] ^ engine.a_words[None, :, :]).reshape(-1, 2)
+    q = torch.where(q >= 1 << 31, q - (1 << 32), q).to(torch.int32)
+    got = _assert_lookup_matches_plain(tab, q[:, 0].contiguous(),
+                                       q[:, 1].contiguous())
+    assert q.shape[0] == 256 * engine.n_groups
+    assert int(got[2].sum()) > 256  # each row finds itself and partners
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacities", [{}, dict(prefilter_row_capacity=4,
+                                                 prefilter_dense_rows=32)])
+def test_prefilter_matches_cpu_on_card(cuda, capacities):
+    """Prefilter membership on the card (kernels #1 and #2) against the
+    same engine on the CPU (plain versions) on a C2H4 batch: equal counts,
+    e within 1e-6 of the largest |e|, t to atol 1e-6 + 4e-7 relative."""
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        engine, words, la, ph, valid = _c2h4_batch(device)
+        engine = engine.with_capacities(**capacities)
+        out.append(engine.local_energy_proxy(words, la, ph, valid))
+    got, want = out
+    for field in ("found_pairs", "pf_dropped_rows", "table_overflow"):
+        assert int(getattr(got, field)) == int(getattr(want, field)), field
+    assert int(got.found_pairs) > int(valid.sum())
+    for field in ("e_re", "e_im", "t_re", "t_im"):
+        g, w = getattr(got, field).cpu(), getattr(want, field)
+        atol = (1e-6 * float(w.abs().max()) if field[0] == "e" else 1e-6)
+        torch.testing.assert_close(g, w, rtol=4e-7 if field[0] == "t"
+                                   else 0.0, atol=atol)

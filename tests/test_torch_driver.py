@@ -466,3 +466,30 @@ def test_n2_convergence_entry_point(tmp_path, monkeypatch, capsys):
     assert "iter      0 E" in out and "chemical accuracy: None" in out
     with open(tmp_path / "result.csv") as f:
         assert len(f.read().splitlines()) == 4
+
+
+def test_c2h4_transformer_entry_point(tmp_path, monkeypatch, capsys):
+    """``experiments/c2h4_transformer.py`` for 2 steps on the CPU at the
+    example's full transformer width, with 16 samples and 8 pinned HF
+    neighbours (the card runs 4096 and 2048): prefilter membership, the
+    progress line with ``pf_dropped_rows``, and ``result.csv`` under the
+    JAX package's header with 2 rows."""
+    from anqs_quantum_chemistry_torch.experiments import c2h4_transformer
+
+    real = c2h4_transformer.c2h4_vmc
+    monkeypatch.setattr(c2h4_transformer, "c2h4_vmc",
+                        lambda **kw: real(couple_ref_dets=8, **kw))
+    history, best = c2h4_transformer.main(
+        ["c2h4_transformer", "2", "16"], device="cpu",
+        run_root=str(tmp_path))
+    assert np.isfinite(best["energy"]) and len(history) == 2
+    for row in history:
+        assert 16 <= row["unique_num"] <= 24
+        assert row["found_pairs"] > row["unique_num"]  # pinned rows couple
+        assert row["pf_dropped_rows"] == row["table_overflow"] == 0
+    out = capsys.readouterr().out
+    assert "membership prefilter" in out and "pf_dropped 0" in out
+    with open(tmp_path / "c2h4_transformer_torch" / "result.csv") as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 3 and lines[0].startswith("dropped,energy,")
+    assert "pf_dropped_rows" in lines[0]

@@ -25,7 +25,10 @@ from anqs_quantum_chemistry_tpu.observables.pauli import (
     PauliEngine as JaxPauliEngine,
 )
 from anqs_quantum_chemistry_torch.chem.fci import sector_determinants
-from anqs_quantum_chemistry_torch.chem.jw import words_to_uint64
+from anqs_quantum_chemistry_torch.chem.jw import (
+    PauliHamiltonian,
+    words_to_uint64,
+)
 from anqs_quantum_chemistry_torch.chem.molecule import load_li2o
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
@@ -154,18 +157,43 @@ def test_li2o_proxy_matches_jax():
     assert found > valid.sum()
 
 
+def _one_term_ham(qubit_num):
+    """A one-term diagonal Hamiltonian on ``qubit_num`` qubits."""
+    w = -(-qubit_num // 32)
+    return PauliHamiltonian(
+        qubit_num=qubit_num, constant=0.0,
+        a_masks=np.zeros((1, w), np.uint32),
+        b_words=np.zeros((1, w), np.uint32), weights=np.ones(1),
+        group_starts=np.array([0, 1]),
+    )
+
+
 def test_unported_memberships_raise():
+    """The JAX memberships the port still lacks raise
+    ``NotImplementedError``: 'search' and 'hash_dist' when named; 'hash'
+    and 'prefilter' above 64 qubits (JAX's 16-entry bucket rows) when
+    named; and 'auto' where it resolves to one of those (W 3-4:
+    'prefilter', W > 4: 'search'), in ``local_energy_proxy`` only. Li2O's
+    'auto' resolves to the ported 'prefilter'."""
     mol = load_li2o()  # 30 qubits: the JAX engine's 'auto' -> 'prefilter'
-    eng = PauliEngine(mol.qubit_ham, device="cpu")
-    assert eng.membership == "prefilter"
-    words = torch.full((2, 1), mol.hf_det, dtype=torch.int64)
-    zeros = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        eng.local_energy_proxy(words, zeros, zeros,
-                               torch.ones(2, dtype=torch.bool))
+    assert PauliEngine(mol.qubit_ham, device="cpu").membership == "prefilter"
+    for membership in ("search", "hash_dist"):
+        with pytest.raises(NotImplementedError, match=membership):
+            PauliEngine(mol.qubit_ham, device="cpu", membership=membership)
     with pytest.raises(ValueError):
         PauliEngine(mol.qubit_ham, device="cpu", membership="table")
-    with pytest.raises(NotImplementedError):
-        PauliEngine(mol.qubit_ham, device="cpu", membership="prefilter")
     with pytest.raises(ValueError):
         PauliEngine(mol.qubit_ham, device="cpu", membership="bloom")
+    for n, resolved in ((70, "prefilter"), (130, "search")):
+        ham = _one_term_ham(n)
+        for membership in ("hash", "prefilter"):
+            with pytest.raises(NotImplementedError, match="64 qubits"):
+                PauliEngine(ham, device="cpu", membership=membership)
+        eng = PauliEngine(ham, device="cpu")
+        assert eng.membership == resolved
+        words = torch.zeros((2, -(-n // 32)), dtype=torch.int64)
+        words[1, -1] = 1
+        zeros = torch.zeros(2)
+        with pytest.raises(NotImplementedError, match=resolved):
+            eng.local_energy_proxy(words, zeros, zeros,
+                                   torch.ones(2, dtype=torch.bool))

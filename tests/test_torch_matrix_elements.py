@@ -222,10 +222,10 @@ def test_c2h4_plain_matches_jax():
     """C2H4/6-31G (52 qubits: two words a determinant; 104278 terms in
     20776 groups) at 16 random determinants of its (8, 8) sector: the
     plain version against the JAX engine's matrix elements in the form its
-    'auto' picks ('grouped', which reorders the groups by size class), the
-    columns matched by each group's flip mask, and against the float64
-    host reference. The JAX engine gets the Hamiltonian from the port's
-    packaged arrays."""
+    'auto' picks ('grouped', which reorders the groups by size class; the
+    port's engine takes the same group order), and against the float64
+    host reference, its columns matched by each group's flip mask. The JAX
+    engine gets the Hamiltonian from the port's packaged arrays."""
     mol = load_c2h4()
     h = mol.qubit_ham
     jham = JaxPauliHamiltonian(
@@ -242,9 +242,10 @@ def test_c2h4_plain_matches_jax():
     eng = PauliEngine(h, device="cpu")
     got = eng.matrix_elements(torch.from_numpy(words)).numpy()
     assert got.shape == want.shape == (16, h.n_groups)
+    np.testing.assert_array_equal(eng.a_words.numpy(),
+                                  np.asarray(jeng.a_words).astype(np.int64))
     column = {tuple(a): m for m, a in enumerate(np.asarray(h.a_masks))}
     order = [column[tuple(a)] for a in np.asarray(jeng.a_words)]
-    got = got[:, order]
     # 'grouped' sums a group's products in float32: over the 1378-term
     # diagonal group (flip mask 0) its partial sums reach tens of Ha and it
     # strays up to 3.8e-6 Ha from the float64 sum, so that group is held

@@ -1,5 +1,6 @@
 """The PyTorch port imports no JAX: every module of
-``anqs_quantum_chemistry_torch``, ``chip_smoke.py`` and
+``anqs_quantum_chemistry_torch`` (the transformer ansatz and the C2H4
+trainer's entry point among them), ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX)."""
 
@@ -25,8 +26,16 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in ("jax", "jaxlib")]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+# Modules that must be among those walked.
+REQUIRED = (
+    "anqs_quantum_chemistry_torch.models.transformer",
+    "anqs_quantum_chemistry_torch.experiments.c2h4_transformer",
+    "anqs_quantum_chemistry_torch.observables.pauli",
+    "anqs_quantum_chemistry_torch.experiments.vmc",
+)
 
 
 def test_port_imports_no_jax():
@@ -34,4 +43,6 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    walked = out.stdout.split()
+    assert len(walked) >= 22  # every module was walked
+    assert set(REQUIRED) <= set(walked)

@@ -189,10 +189,11 @@ def test_sector_limit_falls_back_to_dynamic(monkeypatch):
 def test_sector_membership_above_table_qubits(monkeypatch):
     """With ``MAX_TABLE_QUBITS`` below LiH's 12 qubits in both packages,
     both trainers keep sector membership (the engine's 'auto' resolving to
-    the unported 'prefilter', which only ``local_energy_proxy`` refuses)
-    and build no direct-address ``sector_pos`` map: the sample set is
-    sorted and searched in the sector. One step from the same weights and
-    uniforms agrees as on the position-map path."""
+    'prefilter', which only ``local_energy_proxy`` uses) and build no
+    direct-address ``sector_pos`` map: the sample set is sorted and
+    searched in the sector. One step from the same weights and uniforms
+    agrees as on the position-map path, and the engine's prefilter finds
+    the sector path's pairs on the whole sector."""
     for engine in (JaxPauliEngine, PauliEngine):
         monkeypatch.setattr(engine, "MAX_TABLE_QUBITS", 10)
     jv, v, (p0, o0, key), state = build(opt_type="sgd", lr=1.0)
@@ -200,11 +201,20 @@ def test_sector_membership_above_table_qubits(monkeypatch):
     assert v.sector_words is not None and v.sector_pos is None
     assert jv.engine.membership == v.engine.membership == "prefilter"
     _check_one_step(jv, v, p0, o0, key, state, unique_num=225)
-    words = v.sector_words[:4]
-    zeros = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="prefilter"):
-        v.engine.local_energy_proxy(words, zeros, zeros,
-                                    torch.ones(4, dtype=torch.bool))
+    words = v.sector_words
+    valid = torch.arange(words.shape[0]) < v.mol.fci_ndet
+    with torch.no_grad():
+        la, ph = v.anqs.log_psi(words)
+    ref = v.engine.local_energy_sector(
+        words, la, ph, valid, v.sector_words, v.sector_partner_idx,
+        v.sector_partner_found)
+    e = v.engine.local_energy_proxy(words, la, ph, valid)
+    assert int(e.found_pairs) == int(ref.found_pairs)
+    assert int(e.pf_dropped_rows) == int(e.table_overflow) == 0
+    for field in ("t_re", "t_im"):
+        np.testing.assert_allclose(getattr(e, field).numpy(),
+                                   getattr(ref, field).numpy(), rtol=4e-7,
+                                   atol=1e-6, err_msg=field)
 
 
 def test_three_step_energy_trajectory():
@@ -277,10 +287,16 @@ def test_it_targets_match_jax():
 
 
 def test_unported_paths_raise():
+    """What the port does not have yet raises ``NotImplementedError``: the
+    'search' and 'hash_dist' memberships and the NADE ansatz."""
     _, mol = molecules("LiH")
     anqs = AnqsConfig(hidden_widths=(8,))
-    with pytest.raises(NotImplementedError):  # a JAX membership not ported
-        VMC(mol, VMCConfig(**CFG, membership="prefilter"), anqs,
+    for membership in ("search", "hash_dist"):  # JAX memberships not ported
+        with pytest.raises(NotImplementedError, match=membership):
+            VMC(mol, VMCConfig(**CFG, membership=membership), anqs,
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="nade"):
+        VMC(mol, VMCConfig(**CFG), AnqsConfig(net_type="nade"),
             device="cpu")
     with pytest.raises(ValueError):  # no membership of either package
         VMC(mol, VMCConfig(**CFG, membership="sector"), anqs, device="cpu")

@@ -30,15 +30,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MOLS = os.path.join(ROOT, "mols")
 
 
+# Molecules whose configuration is not the default one (STO-3G).
+MOL_CONFIGS = {"C2H4": dict(basis="6-31g")}
+
+
+def mol_config(name):
+    return MolConfig(name=name, **MOL_CONFIGS.get(name, {}))
+
+
 def mol_path(name):
-    """The ``mols/`` file of ``name`` at its default configuration."""
-    cfg = MolConfig(name=name)
+    """The ``mols/`` file of ``name`` at its configuration."""
+    cfg = mol_config(name)
     return os.path.join(MOLS, name, cfg.to_sha256_str()[:16] + ".npz")
 
 
 def molecules(name):
     """(JAX Molecule, port Molecule) read from the same ``mols/`` file."""
-    jmol = JaxMolecule.create(MolConfig(name=name), mols_dir=MOLS,
+    jmol = JaxMolecule.create(mol_config(name), mols_dir=MOLS,
                               run_fci=False, run_cisd=False)
     return jmol, Molecule.from_npz(mol_path(name), name=name)
 
@@ -59,18 +67,22 @@ def to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def build_pair(name, qpq, width, seed=1):
+def build_pair(name, qpq, width=None, seed=1, **anqs_kw):
     """(port Molecule, JAX ANQS, its params, port ANQS with those params)
-    for the e_num_spin masker at ``qubit_per_qudit=qpq``."""
+    for the e_num_spin masker at ``qubit_per_qudit=qpq``: MADE nets of
+    ``width``, or the ``AnqsConfig`` fields ``anqs_kw`` in both packages."""
     jmol, mol = molecules(name)
+    if width is not None:
+        anqs_kw = dict(hidden_widths=(width,), aux_hidden_widths=(width,),
+                       **anqs_kw)
     jax_anqs = JaxANQS(
         JaxGrouping.create(jax_create_masker(jmol, "e_num_spin"), qpq),
-        JaxAnqsConfig(hidden_widths=(width,), aux_hidden_widths=(width,)),
+        JaxAnqsConfig(**anqs_kw),
     )
     params = jax_anqs.init(jax.random.PRNGKey(seed))
     anqs = ANQS(
         QubitGrouping.create(create_masker(mol, "e_num_spin"), qpq),
-        AnqsConfig(hidden_widths=(width,), aux_hidden_widths=(width,)),
+        AnqsConfig(**anqs_kw),
     )
     anqs.load_state_dict(params_from_jax(to_np(params)))
     return mol, jax_anqs, params, anqs

@@ -1,15 +1,20 @@
 """Where the time of one training step of the PyTorch port goes, on one card.
 
-Usage: python tools/profile_torch_step.py [reps] [n2|li2o]
+Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4]
 
 Builds a training workload -- ``n2`` (default): the main path,
 ``experiments.vmc.main_path_vmc`` (N2, MADE 512, 14464 Gumbel samples,
 sector membership, MinSR top-50); ``li2o``: the toy model,
 ``experiments.vmc.li2o_vmc`` (Li2O, MADE 512, 8192 Gumbel samples, hash
-membership, MinSR top-50) -- warms it up with 3 steps, then
+membership, MinSR top-50); ``c2h4``: ``experiments.vmc.c2h4_vmc`` (C2H4/
+6-31G, the transformer, 4096 Gumbel samples and 2048 pinned HF
+neighbours, prefilter membership, MinSR top-50) -- warms it up with 3
+steps (and on until a step drops no rows, the overflow policy acting after
+each step, as ``run`` does), then
 times ``reps`` whole steps on the host clock, and each stage of the step
 on its own with CUDA events, ``reps`` times each (mean ms), the way the
-JAX package's ``VMC.profile_stages`` splits a step. It then traces
+JAX package's ``VMC.profile_stages`` splits a step; under prefilter
+membership also each prefilter stage (``prefilter_stages``). It then traces
 ``reps`` whole steps with ``torch.profiler`` and prints the kernels that
 take the most device time and two busy shares: summed kernel time over the
 profiled steps' wall time (which the profiler stretches), and the same
@@ -38,12 +43,77 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def prefilter_stages(eng, words, la, ph, valid):
+    """{stage: callable} of the prefilter membership's stages on one
+    canonically sorted batch (``PauliEngine._proxy_via_prefilter`` at the
+    engine's capacities, one row block), each callable running its stage
+    alone on the stage's real inputs: the table build, stage 1 (the
+    fingerprint pass), stage 2 (the per-row top-k compaction), stage 3a
+    (query build, ``hash_lookup`` and the row sums of the B x c_row
+    candidates), stage 3b (the dense rows' lookups, matrix elements and
+    sums), and the two kernels alone at their shapes on this path: kernel
+    #1 on the whole batch and kernel #2 on stage 3a's and stage 3b's
+    queries. Also returns {stage: query count} of the two lookups."""
+    import torch
+
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        as_int32,
+        hash_lookup,
+    )
+
+    m = eng.n_groups
+    tab, nb, _, fptab = eng._hash_build(words, la, ph, valid, with_fp=True)
+    hit = eng._fp_candidates(fptab, nb, words) & valid[:, None]
+    c_row = min(eng.prefilter_row_capacity, m)
+    keys_m = m - torch.arange(m, dtype=torch.int32, device=words.device)
+    kvals, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row, dim=1)
+    over = valid & (torch.sum(hit, dim=1) > c_row)
+    _, row_ok, safe_rows = eng._dense_rows(over)
+    rw = words[safe_rows]
+
+    def queries(rows, idx=None):
+        w32, a32 = as_int32(rows), as_int32(eng.a_words)
+        return [(w32[:, None, i] ^ (a32[:, i][idx] if idx is not None
+                                    else a32[None, :, i])).reshape(-1)
+                for i in range(rows.shape[1])]
+
+    q3a, q3b = queries(words, m_idx), queries(rw)
+
+    def stage3a():
+        la1, ph1, f1 = eng._lookup_rows(tab, words, m_idx)
+        me = eng.matrix_elements(words)
+        return eng._combine_rows(torch.gather(me, 1, m_idx), la1, ph1,
+                                 f1 & (kvals > 0), ph)
+
+    def stage3b():
+        la2, ph2, f2 = eng._lookup_rows(tab, rw)
+        return eng._combine_rows(eng.matrix_elements(rw), la2, ph2,
+                                 f2 & row_ok[:, None], ph[safe_rows])
+
+    stages = {
+        "hash_build_ms": lambda: eng._hash_build(words, la, ph, valid,
+                                                 with_fp=True),
+        "stage1_fingerprint_ms": lambda: eng._fp_candidates(fptab, nb,
+                                                            words),
+        "stage2_compaction_ms": lambda: torch.topk(
+            torch.where(hit, keys_m, 0), c_row, dim=1),
+        "stage3a_verify_ms": stage3a,
+        "stage3b_dense_ms": stage3b,
+        "kernel1_me_ms": lambda: eng.matrix_elements(words),
+        "kernel2_3a_ms": lambda: hash_lookup(tab, *q3a),
+        "kernel2_3b_ms": lambda: hash_lookup(tab, *q3b),
+    }
+    return stages, {"kernel2_3a": q3a[0].numel(),
+                    "kernel2_3b": q3b[0].numel()}
+
+
 def main():
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from anqs_quantum_chemistry_torch.experiments.vmc import (
+        c2h4_vmc,
         li2o_vmc,
         main_path_vmc,
     )
@@ -55,10 +125,14 @@ def main():
         sys.exit("profile_torch_step: needs a CUDA device")
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     workload = sys.argv[2] if len(sys.argv) > 2 else "n2"
-    vmc = {"n2": main_path_vmc, "li2o": li2o_vmc}[workload]("cuda")
+    vmc = {"n2": main_path_vmc, "li2o": li2o_vmc,
+           "c2h4": c2h4_vmc}[workload]("cuda")
     state = vmc.init_state()
-    for _ in range(3):
-        vmc.step(state)
+    for i in range(3 + vmc.config.max_overflow_escalations):
+        row = vmc.step(state)
+        if i >= 2 and row["pf_dropped_rows"] + row["table_overflow"] == 0:
+            break
+        vmc._handle_overflow({**row, "iter_idx": i})
     torch.cuda.synchronize()
 
     anqs, eng, cfg = vmc.anqs, vmc.engine, vmc.config
@@ -87,12 +161,17 @@ def main():
         else:
             stages["local_energy_proxy_ms"] = cuda_ms(
                 lambda: eng.local_energy_proxy(words, la, ph, valid), reps)
-            stages["hash_build_ms"] = cuda_ms(
-                lambda: eng._hash_build(words, la, ph, valid), reps)
-            tab = eng._hash_build(words, la, ph, valid)[0]
-            queries = eng._hash_queries(words)
-            stages["hash_lookup_ms"] = cuda_ms(
-                lambda: hash_lookup(tab, *queries), reps)
+            if eng.membership == "prefilter":
+                fns, _ = prefilter_stages(eng, words, la, ph, valid)
+                for name, fn in fns.items():
+                    stages[f"prefilter_{name}"] = cuda_ms(fn, reps)
+            else:
+                stages["hash_build_ms"] = cuda_ms(
+                    lambda: eng._hash_build(words, la, ph, valid), reps)
+                tab = eng._hash_build(words, la, ph, valid)[0]
+                queries = eng._hash_queries(words)
+                stages["hash_lookup_ms"] = cuda_ms(
+                    lambda: hash_lookup(tab, *queries), reps)
     stages["loss_fwd_bwd_ms"] = cuda_ms(loss_backward, reps)
     stages["minsr_ms"] = cuda_ms(
         lambda: sr_transform(anqs, params, grads, words, weights, cfg.sr),
@@ -128,7 +207,7 @@ def main():
               f"x{ev.count // reps:<4d} {ev.key[:90]}")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "workload": workload,
-        "reps": reps,
+        "reps": reps, "overflow_escalations": vmc._overflow_escalations,
         "step_ms": step_ms, "step_wall_ms_profiled": wall_ms,
         "device_busy_ms": device_ms,
         "busy_share_profiled": device_ms / wall_ms,

@@ -6,10 +6,18 @@ name and layout of its counterpart there, and the tests
 package imports ``torch``, numpy and scipy only -- never JAX, nor anything of
 the JAX package.
 
-Slice 1 covers the main training path: N2/STO-3G, MADE ansatz, Gumbel top-k
-sampling of the whole (N_alpha, N_beta) sector, sector membership, MinSR and
-Adam (``experiments.vmc.VMC``). Its one hand-written kernel is
-``ops.matrix_elements.fused_matrix_elements`` (``csrc/fused_me.cu``).
+It trains on one card (``experiments.vmc.VMC`` and its ``run`` loop, with
+checkpoints, schedules and distillation cycles): the N2/STO-3G main path
+(MADE, Gumbel sampling of the whole sector, sector membership), the Li2O
+toy model (hash membership), the C2H4/6-31G transformer trainer and the
+Li2O NADE campaign (prefilter membership; CISD targets,
+``chem.fci.cisd_ground_state``, and supervised pretraining,
+``optim.pretrain``), with exact summation, multinomial sampling, MinSR and
+Adam. Its two hand-written kernels replace the JAX package's two Pallas
+kernels: ``ops.matrix_elements.fused_matrix_elements``
+(``csrc/fused_me.cu``) and ``ops.hash_lookup.hash_lookup``
+(``csrc/hash_lookup.cu``). The entry points are the modules of
+``experiments/``.
 
 Energy-critical float32 products must be exact float32, as the JAX package
 pins them to ``Precision.HIGHEST``: TF32 is switched off for the whole process

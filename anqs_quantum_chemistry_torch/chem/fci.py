@@ -5,7 +5,10 @@ sorted uint64 array. ``sector_hamiltonian`` builds the sparse Hamiltonian of
 the (N_alpha, N_beta) sector straight from the grouped Pauli terms, in
 float64 -- the oracle that ``chem/molecule.py`` uses to fill in an FCI
 energy a molecule file lacks, and ``chip_smoke.py`` uses as its Rayleigh
-quotient reference.
+quotient reference. ``cisd_ground_state`` diagonalises the same Hamiltonian
+over the HF determinant and its single and double excitations (JAX
+``fci.cisd_ground_state``): the target of supervised pretraining
+(``optim/pretrain.py``).
 """
 
 from __future__ import annotations
@@ -104,3 +107,66 @@ def sector_ground_energy(ham: PauliHamiltonian, n_alpha: int,
         return float(np.linalg.eigvalsh(h.toarray())[0])
     w = scipy.sparse.linalg.eigsh(h, k=1, which="SA", tol=1e-12)[0]
     return float(w[0])
+
+
+def excitations_in_sector(det: int, n_so: int) -> np.ndarray:
+    """All single and double excitations of ``det`` that keep its alpha
+    (even qubit) and beta (odd qubit) electron counts, as uint64, in the
+    order of JAX ``fci._excitations_in_sector``: singles of each spin,
+    then same-spin alpha, opposite-spin and same-spin beta doubles, each
+    occupied choice (lexicographic) major over each virtual choice."""
+    bits = (int(det) >> np.arange(n_so)) & 1
+    spin = np.arange(n_so) % 2
+    occ = [np.flatnonzero((bits == 1) & (spin == s)) for s in (0, 1)]
+    virt = [np.flatnonzero((bits == 0) & (spin == s)) for s in (0, 1)]
+    one = _U(1)
+    d = _U(det)
+
+    def masks(orbs):
+        return one << orbs.astype(_U)
+
+    def pair_masks(orbs):
+        i, j = np.triu_indices(len(orbs), 1)
+        return masks(orbs[i]) | masks(orbs[j])
+
+    def cross_masks(a, b):
+        return (masks(a)[:, None] | masks(b)[None, :]).reshape(-1)
+
+    out = []
+    for s in (0, 1):
+        out.append(((d ^ masks(occ[s]))[:, None]
+                    | masks(virt[s])[None, :]).reshape(-1))
+    for occ_m, virt_m in (
+            (pair_masks(occ[0]), pair_masks(virt[0])),
+            (cross_masks(occ[0], occ[1]), cross_masks(virt[0], virt[1])),
+            (pair_masks(occ[1]), pair_masks(virt[1]))):
+        out.append(((d ^ occ_m)[:, None] | virt_m[None, :]).reshape(-1))
+    return np.concatenate(out)
+
+
+def _ground_state(h):
+    """(lowest eigenvalue, its eigenvector) of a sparse symmetric ``h``, as
+    JAX ``fci._ground_state`` solves it: dense ``eigh`` up to 256 rows,
+    ``eigsh(k=1, which='SA')`` above."""
+    if h.shape[0] == 1:
+        return float(h[0, 0]), np.ones(1)
+    if h.shape[0] <= 256:
+        w, u = np.linalg.eigh(h.toarray())
+        return float(w[0]), u[:, 0]
+    w, u = scipy.sparse.linalg.eigsh(h, k=1, which="SA")
+    return float(w[0]), u[:, 0]
+
+
+def cisd_ground_state(ham: PauliHamiltonian, hf_det: int):
+    """CISD from ``hf_det``: (energy, sorted uint64 determinants, float64
+    coefficients) of the lowest state of H over the determinant and its
+    in-sector single and double excitations (JAX
+    ``fci.cisd_ground_state``). H is built from the Pauli form
+    (``sector_hamiltonian``); its constant plays the part of JAX's
+    ``e_nuc``."""
+    dets = np.unique(np.concatenate([
+        np.asarray([hf_det], _U),
+        excitations_in_sector(hf_det, ham.qubit_num),
+    ]))
+    energy, coef = _ground_state(sector_hamiltonian(ham, dets))
+    return energy, dets, coef

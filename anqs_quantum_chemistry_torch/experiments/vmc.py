@@ -10,7 +10,8 @@ partner tables built once where the basis is fixed (exact summation,
 ``local_energy_static``) or the (N_alpha, N_beta) sector is small enough
 (the N2 main path, ``main_path_vmc``), and otherwise through the engine's
 dynamic membership over the canonically sorted sample set (the Li2O toy
-model, ``li2o_vmc``: hash membership at 30 qubits). The surrogate loss is
+model, ``li2o_vmc``: hash membership at 30 qubits; the Li2O NADE campaign,
+``li2o_nade_vmc``: prefilter membership). The surrogate loss is
 
     loss = 2 sum_x f(x) [ log|psi(x)| Re(dE) + phase(x) Im(dE) ],
 
@@ -21,7 +22,10 @@ Entry points: ``VMC(mol, VMCConfig(...), AnqsConfig(...), run_dir=...)``,
 then ``run(iter_num, ...)``, the driver loop: iteration-keyed schedules,
 the adaptive multinomial budget, the periodic unbiased full energy, the
 overflow policy, ``result.csv``, ``best_energy.npy``, checkpoints and
-resume. ``init_state()`` and ``step(state)`` take single steps.
+resume, and every ``distill_period`` iterations a distillation cycle
+(``distill_cycle``: supervised Adam steps toward the imaginary-time target
+the step's own local energies define). ``init_state()`` and
+``step(state)`` take single steps.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from ..models.anqs import ANQS, AnqsConfig
 from ..observables.pauli import PauliEngine, mc_estimate
 from ..ops import bits as bitops
 from ..ops import keys
+from ..optim.adam import FlatAdam
+from ..optim.pretrain import pack_dets
 from ..optim.sr import SRConfig, clip_grad_norm, sr_transform
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
@@ -61,6 +67,15 @@ OVERFLOW_POLICIES = ("escalate", "raise", "ignore")
 CHECKPOINT_FILE = "checkpoint.pt"
 # The best-model cascade saves at most once in this many seconds.
 BEST_SAVE_INTERVAL_S = 10.0
+# The JAX engine's keyword arguments that the port's ``PauliEngine`` takes,
+# and so the keys ``VMCConfig.engine_overrides`` may hold.
+ENGINE_OVERRIDE_KEYS = ("prefilter_row_capacity", "prefilter_dense_rows",
+                        "pf_row_chunk", "hash_extra_bits", "membership",
+                        "weights_matmul")
+DISTILL_LOSSES = ("ce", "logmse")
+# The cycle's metrics, in the order JAX's ``run`` appends them to a row.
+DISTILL_COLUMNS = ("distill_loss_first", "distill_loss_last",
+                   "distill_energy")
 
 
 @dataclasses.dataclass
@@ -68,7 +83,7 @@ class VMCConfig(Config):
     """The fields of the JAX ``VMCConfig`` that the port reads, with JAX's
     names and defaults, and the engine's membership and matrix-element
     form (JAX ``engine_overrides["membership"]`` and
-    ``["weights_matmul"]``)."""
+    ``["weights_matmul"]``, which ``engine_overrides`` may also name)."""
 
     sample_num: int = 2000
     # 'gumbel' | 'multinomial' | 'exact' ('exact' enumerates the whole
@@ -138,6 +153,13 @@ class VMCConfig(Config):
     # The engine's group order ('auto' | 'split' | 'grouped'; the JAX
     # engine's ``weights_matmul``).
     weights_matmul: str = "auto"
+    # Extra ``PauliEngine`` keywords (JAX's field): any of
+    # ``ENGINE_OVERRIDE_KEYS`` (another key raises); a ``membership`` or
+    # ``weights_matmul`` here must agree with the field of that name unless
+    # the field is 'auto', and a ``membership`` key turns sector membership
+    # off (JAX ``vmc.py:436``). The overflow policy escalates from these
+    # capacities.
+    engine_overrides: Optional[dict] = None
     # Membership overflow (table_overflow + pf_dropped_rows above the
     # threshold): 'escalate' doubles the hash bucket count (and, under
     # prefilter membership, both prefilter capacities) and rebuilds the
@@ -146,6 +168,41 @@ class VMCConfig(Config):
     overflow_policy: str = "escalate"
     overflow_threshold: int = 0
     max_overflow_escalations: int = 6
+    # Distillation-interleaved VMC (JAX ``vmc.py:168-191``): every
+    # ``distill_period`` iterations (0 = off) one cycle of
+    # ``distill_steps`` Adam steps at ``distill_lr`` toward the
+    # imaginary-time target (1 - distill_tau (H - E)) |psi> on the step's
+    # own support, with the cross-entropy ('ce') or the offset-free
+    # weighted log|psi| regression ('logmse', weights |phi|^(2 /
+    # distill_temperature)), plus ``distill_phase_weight`` times the phase
+    # MSE.
+    distill_period: int = 0
+    distill_steps: int = 100
+    distill_tau: float = 0.05
+    distill_lr: float = 1e-3
+    distill_loss: str = "ce"
+    distill_temperature: float = 1.0
+    distill_phase_weight: float = 1.0
+
+
+def _engine_kwargs(cfg: VMCConfig) -> dict:
+    """The ``PauliEngine`` keywords of ``cfg``: its ``membership`` and
+    ``weights_matmul`` under ``engine_overrides`` (JAX ``vmc.py:245-251``).
+    Raises ``ValueError`` on a key the port's engine lacks or one that
+    contradicts the field of its name."""
+    overrides = dict(cfg.engine_overrides or {})
+    unknown = sorted(set(overrides) - set(ENGINE_OVERRIDE_KEYS))
+    if unknown:
+        raise ValueError(f"engine_overrides {unknown}: the port's "
+                         f"PauliEngine takes only {ENGINE_OVERRIDE_KEYS}")
+    kwargs = {"membership": cfg.membership,
+              "weights_matmul": cfg.weights_matmul}
+    for name, field in kwargs.items():
+        if name in overrides and field not in ("auto", overrides[name]):
+            raise ValueError(f"engine_overrides[{name!r}] = "
+                             f"{overrides[name]!r} contradicts VMCConfig."
+                             f"{name} = {field!r}")
+    return {**kwargs, **overrides}
 
 
 def _lr_at(cfg: VMCConfig, count: int) -> float:
@@ -248,6 +305,9 @@ class VMC:
             raise ValueError(f"overflow_policy="
                              f"{self.config.overflow_policy!r}: expected one "
                              f"of {OVERFLOW_POLICIES}")
+        if self.config.distill_loss not in DISTILL_LOSSES:
+            raise ValueError(f"distill_loss={self.config.distill_loss!r}: "
+                             f"expected one of {DISTILL_LOSSES}")
         self.ham = mol.qubit_ham
         n = self.ham.qubit_num
         self.masker = create_masker(mol, self.config.symmetry_level)
@@ -261,8 +321,7 @@ class VMC:
         self._overflow_escalations = 0
         self._mult_budget = None
         self.engine = PauliEngine(self.ham, device=self.device,
-                                  membership=self.config.membership,
-                                  weights_matmul=self.config.weights_matmul)
+                                  **_engine_kwargs(self.config))
         self.sampling_config = self._step_configs()[1]
         self._schedules = tuple(
             Schedule([(int(s), dict(d)) for s, d in sched])
@@ -353,10 +412,7 @@ class VMC:
                 dets = dets[np.argsort(-np.abs(np.asarray(data["coef"])))[:k]]
             else:
                 dets = dets[:k]
-        n = self.ham.qubit_num
-        bits = ((dets[:, None] >> np.arange(n, dtype=np.uint64)[None])
-                & np.uint64(1)).astype(np.int64)
-        return bitops.pack(torch.from_numpy(bits)).to(self.device)
+        return pack_dets(dets, self.ham.qubit_num).to(self.device)
 
     def _augment(self, cfg: VMCConfig, words, weights, valid):
         """Append each coupling's rows (JAX ``vmc.py:901-931``): zero
@@ -380,7 +436,9 @@ class VMC:
     def _want_sector_membership(self, mol) -> bool:
         """JAX ``vmc.py:425-443`` in its 'auto' mode, whatever the engine's
         dynamic membership resolved to."""
-        if self.config.membership != "auto" or self.ham.qubit_num > 64:
+        if (self.config.membership != "auto"
+                or "membership" in (self.config.engine_overrides or {})
+                or self.ham.qubit_num > 64):
             return False  # a named dynamic membership is used as named
         ndet = int(mol.fci_ndet)
         return (ndet <= SECTOR_MAX_DETS
@@ -745,6 +803,78 @@ class VMC:
         return dict(zip(names, values))
 
     # ------------------------------------------------------------------
+    # Distillation-interleaved VMC (JAX ``vmc.py:1123-1230``)
+    # ------------------------------------------------------------------
+    def make_distill_opt(self) -> FlatAdam:
+        """The cycle's optimizer, ``optax.apply_if_finite(optax.adam,
+        max_consecutive_errors=100)``, on the ansatz's parameters; its
+        state persists across the cycles of one ``run`` and is not
+        checkpointed (JAX ``vmc.py:1527-1588``)."""
+        return FlatAdam(self.anqs.parameters(), max_consecutive_errors=100)
+
+    def distill_cycle(self, state: TrainState, dopt: FlatAdam,
+                      cfg: VMCConfig = None, samp: SamplingConfig = None,
+                      uniforms=None, draw=None) -> dict:
+        """One distillation cycle (JAX ``_distill_body``): the step's
+        support and local energies (``_support_and_eloc``, drawing from
+        ``state.generator`` as a step does), the imaginary-time targets
+        (``it_targets`` at ``distill_tau``), then ``distill_steps`` Adam
+        steps of ``dopt`` at ``distill_lr`` on the supervised loss, each
+        keeping the pre-update parameters of the lowest loss, and one
+        evaluation of the final parameters. The ansatz ends holding the
+        best of them. Returns ``distill_loss_first``, ``distill_loss_last``
+        (the lowest loss) and ``distill_energy`` (the support's Born energy)
+        as device scalars: the cycle reads nothing back to the host."""
+        cfg = cfg or self.config
+        words, _, valid, _, la, ph, e = self._support_and_eloc(
+            state, cfg, samp, uniforms, draw)
+        la_t, ph_t, m_re = it_targets(la, ph, e.e_re, e.e_im, valid,
+                                      cfg.distill_tau)
+
+        def soft(logits):
+            z = torch.where(valid, logits, -torch.inf)
+            u = torch.where(valid, torch.exp(z - torch.max(z)), 0.0)
+            return u / torch.clamp(torch.sum(u), min=1e-30)
+
+        use_ce = cfg.distill_loss == "ce"
+        p_t = soft(2.0 * la_t)
+        w_l = p_t if use_ce else soft(
+            2.0 * la_t / (cfg.distill_temperature or 1.0))
+        params = list(self.anqs.parameters())
+
+        def sup_loss():
+            la_g, ph_g = self.anqs.log_psi(words)
+            la_g = torch.where(valid, la_g, 0.0)
+            if use_ce:
+                amp = -2.0 * torch.sum(p_t * la_g)
+            else:
+                d = torch.where(valid, la_g - la_t, 0.0)
+                c = torch.sum(w_l * d)  # w_l sums to 1
+                amp = torch.sum(w_l * (d - c) ** 2)
+            dph = torch.where(valid, ph_g - ph_t, 0.0)
+            return amp + cfg.distill_phase_weight * torch.sum(w_l * dph * dph)
+
+        best_l = torch.full((), torch.inf, device=self.device)
+        best_p = dopt.flat_params()
+        first = None
+        for _ in range(cfg.distill_steps):
+            loss = sup_loss()
+            grads = torch.autograd.grad(loss, params)
+            loss = loss.detach()
+            first = loss if first is None else first
+            better = loss < best_l
+            best_l = torch.where(better, loss, best_l)
+            best_p = torch.where(better, dopt.flat_params(), best_p)
+            dopt.step(grads, cfg.distill_lr)
+        # The final parameters' own loss closes the snapshot.
+        with torch.no_grad():
+            loss_f = sup_loss()
+        dopt.load(torch.where(loss_f < best_l, dopt.flat_params(), best_p))
+        return {"distill_loss_first": first,
+                "distill_loss_last": torch.minimum(loss_f, best_l),
+                "distill_energy": m_re.to(torch.float32)}
+
+    # ------------------------------------------------------------------
     # Checkpoints (JAX ``vmc.py:1396-1468``), one ``torch.save`` file
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, state: TrainState, it: int):
@@ -809,8 +939,12 @@ class VMC:
         ``checkpoint_every`` iterations a checkpoint ``<run_dir>/ckpt_<it>``
         is written, ``resume_from`` one of them continues. Steps run in
         windows of up to ``steps_per_call``, split at schedule boundaries
-        and full-energy iterations; the budget adaptation and the overflow
-        policy act on each window's last row. ``log_every``: a log line
+        and full-energy iterations and distillation cycles; the budget
+        adaptation and the overflow policy act on each window's last row.
+        With ``distill_period``, a cycle (``distill_cycle``) runs before
+        the step of each iteration ``it > 0`` that the period divides; its
+        metrics ride on that row, NaN on every other (and, after JAX's
+        columns, in ``result.csv``). ``log_every``: a log line
         every that many iterations. ``profile_iters=(start, stop)``: a
         ``torch.profiler`` trace of those iterations in
         ``<run_dir>/profile``. ``init_params``: a state dict to start from
@@ -830,6 +964,9 @@ class VMC:
                     if self.run_dir else None)
         best = {"energy": np.inf, "iter": -1, "last_save": -np.inf}
         t0 = time.perf_counter()
+        distill_on = bool(self.config.distill_period)
+        dopt = None
+        dpend = {}
 
         def save_best_model(it):
             now = time.perf_counter()
@@ -850,6 +987,9 @@ class VMC:
             row["wall_time"] = time.perf_counter() - t0
             row.setdefault("full_energy", float("nan"))
             row.setdefault("full_energy_var", float("nan"))
+            if distill_on:
+                for k in DISTILL_COLUMNS:
+                    row.setdefault(k, dpend.pop(k, float("nan")))
             row = {k: row[k] for k in _csv_columns(row)}
             history.append(row)
             if row["energy"] < best["energy"]:
@@ -886,7 +1026,14 @@ class VMC:
                 profiler = _start_profiler(self.device)
             overrides = self._schedule_overrides(it)
             boundary = self._next_boundary(it)
-            eff = self._step_configs(overrides)[0]
+            eff, samp = self._step_configs(overrides)
+            dp = eff.distill_period or 0
+            if dp and it > 0 and it % dp == 0:
+                dopt = dopt or self.make_distill_opt()
+                dmet = self.distill_cycle(state, dopt, eff, samp)
+                # The cycle's one read-back.
+                dpend.update(zip(dmet, torch.stack(
+                    [v.to(torch.float64) for v in dmet.values()]).tolist()))
             fe_now = bool(period) and it > 0 and it % period == 0
             k_steps = 1
             if steps_per_call > 1 and not fe_now:
@@ -894,6 +1041,9 @@ class VMC:
                                   boundary - it))
                 if period:
                     k_steps = min(k_steps, (it // period + 1) * period - it)
+                if dp:
+                    # No window swallows a cycle's iteration.
+                    k_steps = min(k_steps, (it // dp + 1) * dp - it)
             for j in range(k_steps):
                 row = self.step(state, overrides=overrides,
                                 full_energy=fe_now)
@@ -918,8 +1068,10 @@ def _layout(state_dict) -> dict:
 
 def _csv_columns(row: dict):
     """JAX's result.csv columns: the step's metric names, sorted (the
-    order of a JAX dict pytree), then the driver's own four."""
-    tail = ("iter_idx", "wall_time", "full_energy", "full_energy_var")
+    order of a JAX dict pytree), then the driver's own four, then the
+    distillation cycle's three where the run has them."""
+    tail = ("iter_idx", "wall_time", "full_energy", "full_energy_var") + (
+        DISTILL_COLUMNS if DISTILL_COLUMNS[0] in row else ())
     return sorted(k for k in row if k not in tail) + list(tail)
 
 
@@ -1047,3 +1199,63 @@ def c2h4_vmc(device="cuda", net: str = "transformer", sample_num: int = 4096,
                sr=SRConfig(max_indices_num=50), couple_ref_dets=2048, seed=0)
     return VMC(load_c2h4(), VMCConfig(**{**cfg, **overrides}), anqs_config,
                device=device, run_dir=run_dir)
+
+
+# The Li2O NADE campaign (JAX ``examples/cisd_pretrain_vmc.py`` with Li2O
+# and 'nade', ``examples/li2o_closure.py``, ``li2o_distill_closure.py``):
+# NADE-(128, 128) nets and the prefilter capacities its densely
+# self-connected, CISD-pretrained sample sets need.
+LI2O_NADE = AnqsConfig(net_type="nade", hidden_widths=(128, 128),
+                       aux_hidden_widths=(128, 128))
+LI2O_PREFILTER = {"prefilter_row_capacity": 768, "prefilter_dense_rows": 4096}
+# JAX ``examples/cisd_pretrain_vmc.py``'s VMC settings for MADE and NADE
+# (the closure legs change only the learning rates and add distillation).
+CISD_VMC_CONFIG = dict(
+    sample_num=8192, sampling_mode="gumbel", lr=3e-4,
+    lr_schedule=((0, 3e-4), (1500, 1e-4), (3000, 3e-5)), grad_clip_norm=0.5,
+    sr=SRConfig(max_indices_num=50), engine_overrides=LI2O_PREFILTER, seed=0)
+# The examples' Li2O/STO-3G reference: the JAX package's in-tree direct-CI
+# energy (``runs/li2o_fci_summary.json``; the molecule file holds no FCI).
+LI2O_FCI_ENERGY = -88.705450
+
+
+def li2o_nade_vmc(device="cuda", run_dir: Optional[str] = None,
+                  **overrides) -> VMC:
+    """The trainer of the Li2O NADE campaign at the examples' full width:
+    Li2O/STO-3G, 30 qubits, NADE with hidden widths (128, 128) for both
+    nets, qubit_per_qudit 6 (5 qudits), 8192 Gumbel samples, prefilter
+    membership (the engine's 'auto' at 30 qubits) at capacities (768,
+    4096), MinSR top-50, clip 0.5, gradient weights |psi|^(2/2), seed 0,
+    and the first leg's Adam schedule (3e-4, 1e-4 from 1500, 3e-5 from
+    3000). ``overrides``: other ``VMCConfig`` fields (each leg's learning
+    rates, full-energy period and distillation)."""
+    from ..chem.molecule import load_li2o
+
+    cfg = dict(CISD_VMC_CONFIG, qubit_per_qudit=6,
+               grad_weight_temperature=2.0)
+    return VMC(load_li2o(), VMCConfig(**{**cfg, **overrides}), LI2O_NADE,
+               device=device, run_dir=run_dir)
+
+
+def li2o_nade_closure_params():
+    """The JAX package's NADE-(128, 128) Li2O state after the closure leg
+    (``runs/li2o_closure/ckpt_16000`` of ``examples/li2o_closure.py``,
+    written by ``tools/export_jax_params.py`` into the port's data), as a
+    state dict of ``li2o_nade_vmc``'s ansatz."""
+    from ..chem.molecule import DATA_DIR
+    from ..convert import params_from_jax
+
+    with np.load(os.path.join(DATA_DIR, "li2o_nade_closure.npz")) as data:
+        return params_from_jax(dict(data))
+
+
+def latest_checkpoint(run_dir: Optional[str]) -> Optional[str]:
+    """The ``ckpt_<it>`` directory of ``run_dir`` with the largest ``it``,
+    or None."""
+    if not run_dir or not os.path.isdir(run_dir):
+        return None
+    found = [d for d in os.listdir(run_dir)
+             if d.startswith("ckpt_") and d[5:].isdigit()]
+    if not found:
+        return None
+    return os.path.join(run_dir, max(found, key=lambda d: int(d[5:])))

@@ -1,7 +1,7 @@
 """Autoregressive neural quantum state over qudits.
 
-Counterpart of the JAX package's ``models/anqs.py`` for ``net_type`` 'made'
-and 'transformer' and the ``log_abs_phase`` head: amplitudes are real pairs
+Counterpart of the JAX package's ``models/anqs.py`` for ``net_type`` 'made',
+'transformer' and 'nade' and the ``log_abs_phase`` head: amplitudes are real pairs
 ``(log|psi|, phase)``; conditionals come from one forward of the main net
 per batch (optionally soft-capped, ``logit_cap``); symmetry masks
 are per-qudit table lookups on the packed memo index; masked slots get NEG,
@@ -25,20 +25,23 @@ from torch import nn
 from ..ops import bits as bitops
 from ..symmetries.grouping import QubitGrouping
 from .made import MADE, MadeSpec
+from .nade import NADE, NadeSpec
 from .transformer import Transformer, TransformerSpec
 
 NEG = -1e30
-NET_TYPES = ("made", "transformer")
+NET_TYPES = ("made", "transformer", "nade")
 
 
 @dataclasses.dataclass(frozen=True)
 class AnqsConfig:
     """The JAX ``AnqsConfig`` at its defaults (``log_abs_phase`` head, tanh
-    MADE with biases and residuals, mean-subtracted conditionals), with the
-    net type, the MADE widths, the transformer sizes and ``logit_cap``
-    free, under JAX's names and defaults."""
+    MADE and NADE layers with biases and residuals, mean-subtracted
+    conditionals), with the net type, the MADE and NADE widths, the
+    transformer sizes and ``logit_cap`` free, under JAX's names and
+    defaults."""
 
-    net_type: str = "made"  # 'made' | 'transformer' ('nade' is not ported)
+    net_type: str = "made"  # 'made' | 'transformer' | 'nade'
+    # MADE or NADE hidden widths of the main (log|psi|) and aux (phase) nets.
     hidden_widths: Tuple[int, ...] = (512,)
     aux_hidden_widths: Tuple[int, ...] = (512,)
     # Soft cap on the main net's raw conditionals, la -> cap tanh(la / cap),
@@ -112,8 +115,16 @@ class ANQS(nn.Module):
             self.main = Transformer(spec, generator)
             self.aux = Transformer(spec, generator)
         elif cfg.net_type == "nade":
-            raise NotImplementedError(
-                "net_type='nade' is not ported (ROADMAP §1 item 9)")
+            self.main = NADE(
+                NadeSpec(hidden_widths=tuple(cfg.hidden_widths),
+                         **spec_kwargs),
+                generator,
+            )
+            self.aux = NADE(
+                NadeSpec(hidden_widths=tuple(cfg.aux_hidden_widths),
+                         **spec_kwargs),
+                generator,
+            )
         else:
             raise ValueError(f"net_type={cfg.net_type!r}: expected one of "
                              f"{NET_TYPES}")

@@ -86,6 +86,35 @@ read after:
   #1 and #2 (and the tag build) launch twice a step: stage 3a and the dense
   fallback 3b.
 
+Last, the Li2O NADE campaign (``li2o_nade_vmc``: the JAX package's
+``examples/cisd_pretrain_vmc.py``, ``li2o_closure.py`` and
+``li2o_distill_closure.py`` at their full width: Li2O/STO-3G, NADE with
+hidden widths (128, 128), qubit_per_qudit 6, 8192 Gumbel samples,
+prefilter membership at capacities (768, 4096), MinSR top-50, clip 0.5,
+gradient weights |psi|^(2/2)), counts set to 0 before (b) and read after
+(d):
+
+- (a) The CISD vector of the packaged Li2O file (``cisd_ground_state``):
+  4425 determinants, its energy within 1e-6 Ha of the JAX campaign's
+  (``LI2O_CISD_ENERGY``).
+- (b) 200 full-batch pretraining steps on it at lr 1e-3 from fresh weights
+  (seed 0): the loss falls below 1.0, and the returned parameters are the
+  best-loss snapshot (their loss equals the history's best).
+- (c) The JAX package's closure state (``li2o_nade_closure_params``), one
+  step at lr 0: energy within 0.2 mHa of the JAX record's median
+  (``LI2O_CLOSURE_ENERGY``), ``found_pairs`` within 2% of its median
+  (``LI2O_CLOSURE_PAIRS``), no row dropped; ``found_pairs`` equal to a host
+  count over the step's own set and the energy within 1e-4 Ha of the
+  float64 Rayleigh quotient over it. Both kernels are timed at the
+  prefilter's two shapes (3a: all rows x 768 candidates; 3b: the dense
+  rows x every group) beside their bounds.
+- (d) ``run()`` from (b)'s weights for 12 steps in windows of 5 with a
+  distillation cycle every 5 iterations (100 Adam steps at 1e-4, tau
+  0.1): cycles on rows 5 and 10 only, each with ``distill_loss_last <
+  distill_loss_first``, every row finite, ``unique_num`` 8192.
+- (e) Kernels #1, #2 and the tag build launch twice for each local-energy
+  evaluation (stages 3a and 3b): 13 steps and 2 cycles.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -125,6 +154,18 @@ HASH_BIG_EXTRA_BITS = 6
 # 80GB HBM3, 700 W, torch 2.11.0+cu128): same weights, sampler and
 # arithmetic, so a run reproduces them to float32 rounding.
 N2_ENERGIES = (-78.008568, -78.132286, -78.260254, -78.394211, -78.530220)
+# The JAX Li2O NADE campaign's records: the CISD energy of its saved vector
+# (runs/li2o_cisd_vector.npz, 4425 determinants), and the closure leg at
+# the state the port ships (runs/li2o_closure/result.csv, last 100 rows:
+# energy -88.699219 to -88.699272 Ha, found_pairs 657750-667566,
+# pf_dropped_rows 0 at capacities (768, 4096)), medians.
+LI2O_CISD_ENERGY = -88.69115259556716
+LI2O_CISD_DETS = 4425
+LI2O_CLOSURE_ENERGY = -88.699265
+LI2O_CLOSURE_PAIRS = 662700
+NADE_PRETRAIN_STEPS = 200
+NADE_RUN_STEPS = 12
+NADE_DISTILL_PERIOD = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -1178,6 +1219,187 @@ def c2h4_trainer_phase(torch):
     return launches, figures
 
 
+def li2o_nade_kernel_figures(torch, vmc, snap):
+    """Kernels #1 and #2 at the two prefilter shapes of one Li2O NADE set
+    (``snap``): their device times (``tools/profile_torch_step.py``
+    ``prefilter_stages``) beside their bounds."""
+    eng = vmc.engine
+    words, valid, la, ph = snap
+    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
+                                                       valid)
+    tab = eng._hash_build(words, la, ph, valid)[0]
+    figures = {"rows_3a": int(words.shape[0]), **queries}
+    with torch.no_grad():
+        for key, rows, name in (("3a", words, "kernel1_me_ms"),
+                                ("3b", words[:queries["rows_3b"]],
+                                 "kernel1_me_3b_ms")):
+            ms = cuda_ms(stages[name], reps=10)
+            _, bytes_ms, ops_ms = me_bound(rows, eng.me_tables)
+            figures[f"kernel1_{key}"] = {
+                "B": int(rows.shape[0]), "ms": ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            ms = cuda_ms(stages[f"kernel2_{key}_ms"], reps=10)
+            _, bytes_ms, ops_ms = lookup_bound(queries[f"kernel2_{key}"], 1,
+                                               tab)
+            figures[f"kernel2_{key}"] = {
+                "Q": queries[f"kernel2_{key}"], "ms": ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    for key in ("kernel1_3a", "kernel1_3b", "kernel2_3a", "kernel2_3b"):
+        f = figures[key]
+        log(f"Li2O NADE {key}: {f['ms']:.4f} ms, bound "
+            f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}; "
+            f"{f['ms'] / f['bound_ms']:.2f}x), "
+            + (f"B {f['B']}" if "B" in f else f"Q {f['Q']}, nb "
+               f"{tab.shape[0]}"))
+    return figures
+
+
+def li2o_nade_phase(torch):
+    """The Li2O NADE campaign at full width: (a) the CISD vector, (b)
+    supervised pretraining on it, (c) one step of the JAX closure state
+    against the JAX record and the host, (d) ``run()`` with distillation
+    cycles from (b)'s weights, (e) the kernels' launches on (b)-(d).
+    Returns (launches, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import cisd_ground_state
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        li2o_nade_closure_params,
+        li2o_nade_vmc,
+    )
+    from anqs_quantum_chemistry_torch.optim.pretrain import (
+        amplitude_targets_from_coefs,
+        pack_dets,
+        pretrain,
+    )
+
+    t = time.perf_counter()
+    vmc = li2o_nade_vmc(device="cuda", distill_period=NADE_DISTILL_PERIOD,
+                        distill_steps=100, distill_lr=1e-4, distill_tau=0.1)
+    mol = vmc.mol
+    log(f"Li2O NADE trainer set-up: {time.perf_counter() - t:.2f} s "
+        f"(membership {vmc.engine.membership}, capacities (row "
+        f"{vmc.engine.prefilter_row_capacity}, dense "
+        f"{vmc.engine.prefilter_dense_rows}))")
+
+    # (a) The CISD vector.
+    t = time.perf_counter()
+    e_cisd, dets, coef = cisd_ground_state(mol.qubit_ham, mol.hf_det)
+    cisd_s = time.perf_counter() - t
+    log(f"Li2O CISD ({cisd_s:.1f} s on the host): {len(dets)} determinants,"
+        f" E {e_cisd:.9f} (JAX {LI2O_CISD_ENERGY:.9f}, |diff| "
+        f"{abs(e_cisd - LI2O_CISD_ENERGY):.2e} Ha)")
+    check(len(dets) == LI2O_CISD_DETS, "Li2O CISD: determinant count")
+    check(abs(e_cisd - LI2O_CISD_ENERGY) <= 1e-6, "Li2O CISD: energy")
+
+    # (b) Pretraining from fresh weights.
+    probs, phases = amplitude_targets_from_coefs(coef)
+    words = pack_dets(dets, mol.qubit_num).cuda()
+    vmc.init_state()
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, hist = pretrain(vmc.anqs, words, probs, phases,
+                            iters=NADE_PRETRAIN_STEPS, lr=1e-3,
+                            log_every=50)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(words)
+        tp = torch.from_numpy(probs).cuda()
+        dph = ph - torch.from_numpy(phases).cuda()
+        returned = float(-2.0 * torch.sum(tp * la) + torch.sum(tp * dph * dph))
+    best = hist[-1]["best_loss"]
+    log(f"Li2O NADE pretraining: {NADE_PRETRAIN_STEPS} full-batch steps in "
+        f"{pretrain_s:.2f} s ({pretrain_s / NADE_PRETRAIN_STEPS * 1e3:.2f} "
+        "ms a step); loss " + ", ".join(
+            f"{r['iter']}: {r['loss']:.5f}" for r in hist)
+        + f"; best {best:.5f}, returned parameters' loss {returned:.5f}")
+    check(best < 1.0, f"Li2O NADE pretraining: best loss {best}")
+    check(abs(returned - best) <= 1e-4 * abs(best),
+          "Li2O NADE pretraining: the returned parameters are not the best")
+
+    # (c) The JAX closure state, one step at lr 0.
+    state = vmc.init_state()
+    vmc.anqs.load_state_dict(li2o_nade_closure_params())
+    snap = c2h4_set(torch, vmc, state.generator)
+    t = time.perf_counter()
+    row = vmc.step(state, overrides={"lr": 0.0, "lr_schedule": None})
+    closure_step_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host_pairs, e_ref = host_pairs_and_rayleigh(vmc.ham, *snap)
+    log(f"Li2O NADE closure state, one step at lr 0 "
+        f"({closure_step_s * 1e3:.1f} ms): energy {row['energy']:.6f} (JAX "
+        f"record {LI2O_CLOSURE_ENERGY:.6f}, diff "
+        f"{(row['energy'] - LI2O_CLOSURE_ENERGY) * 1e3:+.4f} mHa), "
+        f"found_pairs {int(row['found_pairs'])} (JAX {LI2O_CLOSURE_PAIRS}, "
+        f"{100 * (row['found_pairs'] / LI2O_CLOSURE_PAIRS - 1):+.2f}%), "
+        f"pf_dropped_rows {int(row['pf_dropped_rows'])}, unique_num "
+        f"{int(row['unique_num'])}; host ({time.perf_counter() - t:.1f} s): "
+        f"found_pairs {host_pairs}, Rayleigh quotient {e_ref:.6f} "
+        f"(|step - ref| = {abs(row['energy'] - e_ref):.2e} Ha)")
+    check(abs(row["energy"] - LI2O_CLOSURE_ENERGY) <= 2e-4,
+          "Li2O NADE closure state: energy off the JAX record")
+    check(abs(row["found_pairs"] - LI2O_CLOSURE_PAIRS)
+          <= 0.02 * LI2O_CLOSURE_PAIRS,
+          "Li2O NADE closure state: found_pairs off the JAX record")
+    check(int(row["pf_dropped_rows"]) == 0 == int(row["table_overflow"]),
+          "Li2O NADE closure state: rows dropped")
+    check(int(row["found_pairs"]) == host_pairs,
+          "Li2O NADE: found_pairs disagrees with the host count")
+    check(abs(row["energy"] - e_ref) <= 1e-4,
+          "Li2O NADE: energy disagrees with the Rayleigh quotient")
+
+    # (d) run() from the pretrained weights, with distillation cycles.
+    t = time.perf_counter()
+    _, history, _ = vmc.run(NADE_RUN_STEPS, init_params=params,
+                            steps_per_call=NADE_DISTILL_PERIOD,
+                            checkpoint_every=None, log_every=0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = read_launches()
+    for i, r in enumerate(history):
+        log(f"Li2O NADE run row {i}: energy {r['energy']:.6f} unique_num "
+            f"{int(r['unique_num'])} found_pairs {int(r['found_pairs'])} "
+            f"pf_dropped_rows {int(r['pf_dropped_rows'])} distill_loss "
+            f"{r['distill_loss_first']:.5f} -> {r['distill_loss_last']:.5f} "
+            f"distill_energy {r['distill_energy']:.6f} wall "
+            f"{r['wall_time']:.3f} s")
+    cycles = [i for i, r in enumerate(history)
+              if np.isfinite(r["distill_loss_first"])]
+    check(len(history) == NADE_RUN_STEPS, "Li2O NADE run: row count")
+    check(cycles == [5, 10], f"Li2O NADE run: cycles on rows {cycles}")
+    for i in cycles:
+        check(history[i]["distill_loss_last"]
+              < history[i]["distill_loss_first"],
+              f"Li2O NADE run: cycle {i} did not lower its loss")
+        check(np.isfinite(history[i]["distill_energy"]),
+              f"Li2O NADE run: cycle {i} energy")
+    for i, r in enumerate(history):
+        check(all(np.isfinite(v) for k, v in r.items()
+                  if not k.startswith(("distill", "full_energy"))),
+              f"Li2O NADE run: row {i} not finite")
+        check(int(r["unique_num"]) == 8192,
+              f"Li2O NADE run: row {i} unique_num {r['unique_num']}")
+    evaluations = 1 + NADE_RUN_STEPS + len(cycles)
+    log(f"Li2O NADE path ({run_s:.2f} s for the run) launches {launches}")
+    check(launches == {"fused_matrix_elements": 2 * evaluations,
+                       "hash_lookup": 2 * evaluations,
+                       "hash_tags": 2 * evaluations},
+          f"Li2O NADE path launched {launches} in {evaluations} "
+          "local-energy evaluations")
+
+    # The kernels at this path's shapes, on the closure step's set.
+    figures = li2o_nade_kernel_figures(torch, vmc, snap)
+    figures.update(cisd_s=cisd_s, pretrain_ms_per_step=pretrain_s * 1e3
+                   / NADE_PRETRAIN_STEPS, closure_step_s=closure_step_s,
+                   closure_energy=row["energy"],
+                   closure_found_pairs=row["found_pairs"], run_s=run_s)
+    return launches, figures
+
+
 def main():
     try:
         import torch
@@ -1265,6 +1487,7 @@ def main():
 
     c2h4_phase(torch, me_entry)
     c2h4_launches, c2h4_figures = c2h4_trainer_phase(torch)
+    nade_launches, nade_figures = li2o_nade_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -1274,7 +1497,8 @@ def main():
     by_path = {"n2": n2_launches, "li2o": li2o_launches,
                "n2_exact": exact_launches, "n2_driver": driver_launches,
                "li2o_multinomial": multinomial_launches,
-               "c2h4_transformer": c2h4_launches}
+               "c2h4_transformer": c2h4_launches,
+               "li2o_nade": nade_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -1289,6 +1513,10 @@ def main():
             ("ms", stage_ms[f"kernel2_{stage}_ms"]),
             ("bound_ms", c2h4_figures["lookup_bound_ms"][
                 f"kernel2_{stage}"]))}
+    me_entry["li2o_nade_prefilter"] = {
+        stage: nade_figures[f"kernel1_{stage}"] for stage in ("3a", "3b")}
+    hash_entry["li2o_nade_prefilter"] = {
+        stage: nade_figures[f"kernel2_{stage}"] for stage in ("3a", "3b")}
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

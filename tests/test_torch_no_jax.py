@@ -1,6 +1,7 @@
 """The PyTorch port imports no JAX: every module of
-``anqs_quantum_chemistry_torch`` (the transformer ansatz and the C2H4
-trainer's entry point among them), ``chip_smoke.py`` and
+``anqs_quantum_chemistry_torch`` (the transformer and NADE ansatzes, the
+pretraining and the C2H4 and Li2O campaigns' entry points among them),
+``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX)."""
 
@@ -12,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "jaxlib", "anqs_quantum_chemistry_tpu"):
+for name in ("jax", "jaxlib", "orbax", "anqs_quantum_chemistry_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import anqs_quantum_chemistry_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -24,7 +25,7 @@ spec = importlib.util.spec_from_file_location(
     "profile_torch_step", "tools/profile_torch_step.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m, v in sys.modules.items()
-          if v is not None and m.split(".")[0] in ("jax", "jaxlib")]
+          if v is not None and m.split(".")[0] in ("jax", "jaxlib", "orbax")]
 assert not loaded, loaded
 print(" ".join(names))
 """
@@ -32,6 +33,12 @@ print(" ".join(names))
 # Modules that must be among those walked.
 REQUIRED = (
     "anqs_quantum_chemistry_torch.models.transformer",
+    "anqs_quantum_chemistry_torch.models.nade",
+    "anqs_quantum_chemistry_torch.optim.adam",
+    "anqs_quantum_chemistry_torch.optim.pretrain",
+    "anqs_quantum_chemistry_torch.experiments.cisd_pretrain_vmc",
+    "anqs_quantum_chemistry_torch.experiments.li2o_closure",
+    "anqs_quantum_chemistry_torch.experiments.li2o_distill_closure",
     "anqs_quantum_chemistry_torch.experiments.c2h4_transformer",
     "anqs_quantum_chemistry_torch.observables.pauli",
     "anqs_quantum_chemistry_torch.experiments.vmc",
@@ -44,5 +51,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = out.stdout.split()
-    assert len(walked) >= 22  # every module was walked
+    assert len(walked) >= 28  # every module was walked
     assert set(REQUIRED) <= set(walked)

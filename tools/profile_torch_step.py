@@ -1,6 +1,6 @@
 """Where the time of one training step of the PyTorch port goes, on one card.
 
-Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4]
+Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4|li2o_nade]
 
 Builds a training workload -- ``n2`` (default): the main path,
 ``experiments.vmc.main_path_vmc`` (N2, MADE 512, 14464 Gumbel samples,
@@ -8,7 +8,11 @@ sector membership, MinSR top-50); ``li2o``: the toy model,
 ``experiments.vmc.li2o_vmc`` (Li2O, MADE 512, 8192 Gumbel samples, hash
 membership, MinSR top-50); ``c2h4``: ``experiments.vmc.c2h4_vmc`` (C2H4/
 6-31G, the transformer, 4096 Gumbel samples and 2048 pinned HF
-neighbours, prefilter membership, MinSR top-50) -- warms it up with 3
+neighbours, prefilter membership, MinSR top-50); ``li2o_nade``:
+``experiments.vmc.li2o_nade_vmc`` (Li2O, NADE (128, 128), 8192 Gumbel
+samples, prefilter membership at capacities (768, 4096), MinSR top-50)
+from the JAX package's closure state, which also times one distillation
+cycle (100 supervised Adam steps) alone -- warms it up with 3
 steps (and on until a step drops no rows, the overflow policy acting after
 each step, as ``run`` does), then
 times ``reps`` whole steps on the host clock, and each stage of the step
@@ -52,8 +56,9 @@ def prefilter_stages(eng, words, la, ph, valid):
     (query build, ``hash_lookup`` and the row sums of the B x c_row
     candidates), stage 3b (the dense rows' lookups, matrix elements and
     sums), and the two kernels alone at their shapes on this path: kernel
-    #1 on the whole batch and kernel #2 on stage 3a's and stage 3b's
-    queries. Also returns {stage: query count} of the two lookups."""
+    #1 on the whole batch (3a) and on the dense rows (3b), and kernel #2
+    on stage 3a's and stage 3b's queries. Also returns {stage: query
+    count} of the two lookups and the dense rows' count."""
     import torch
 
     from anqs_quantum_chemistry_torch.ops.hash_lookup import (
@@ -100,11 +105,12 @@ def prefilter_stages(eng, words, la, ph, valid):
         "stage3a_verify_ms": stage3a,
         "stage3b_dense_ms": stage3b,
         "kernel1_me_ms": lambda: eng.matrix_elements(words),
+        "kernel1_me_3b_ms": lambda: eng.matrix_elements(rw),
         "kernel2_3a_ms": lambda: hash_lookup(tab, *q3a),
         "kernel2_3b_ms": lambda: hash_lookup(tab, *q3b),
     }
     return stages, {"kernel2_3a": q3a[0].numel(),
-                    "kernel2_3b": q3b[0].numel()}
+                    "kernel2_3b": q3b[0].numel(), "rows_3b": rw.shape[0]}
 
 
 def main():
@@ -114,6 +120,8 @@ def main():
 
     from anqs_quantum_chemistry_torch.experiments.vmc import (
         c2h4_vmc,
+        li2o_nade_closure_params,
+        li2o_nade_vmc,
         li2o_vmc,
         main_path_vmc,
     )
@@ -125,9 +133,11 @@ def main():
         sys.exit("profile_torch_step: needs a CUDA device")
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     workload = sys.argv[2] if len(sys.argv) > 2 else "n2"
-    vmc = {"n2": main_path_vmc, "li2o": li2o_vmc,
-           "c2h4": c2h4_vmc}[workload]("cuda")
+    vmc = {"n2": main_path_vmc, "li2o": li2o_vmc, "c2h4": c2h4_vmc,
+           "li2o_nade": li2o_nade_vmc}[workload]("cuda")
     state = vmc.init_state()
+    if workload == "li2o_nade":
+        vmc.anqs.load_state_dict(li2o_nade_closure_params())
     for i in range(3 + vmc.config.max_overflow_escalations):
         row = vmc.step(state)
         if i >= 2 and row["pf_dropped_rows"] + row["table_overflow"] == 0:
@@ -176,6 +186,10 @@ def main():
     stages["minsr_ms"] = cuda_ms(
         lambda: sr_transform(anqs, params, grads, words, weights, cfg.sr),
         reps)
+    if workload == "li2o_nade":
+        dopt = vmc.make_distill_opt()
+        stages["distill_cycle_ms"] = cuda_ms(
+            lambda: vmc.distill_cycle(state, dopt), max(1, reps // 5))
 
     t0 = time.perf_counter()
     for _ in range(reps):

@@ -13,7 +13,10 @@ toy model (hash membership), the C2H4/6-31G transformer trainer and the
 Li2O NADE campaign (prefilter membership; CISD targets,
 ``chem.fci.cisd_ground_state``, and supervised pretraining,
 ``optim.pretrain``), with exact summation, multinomial sampling, MinSR and
-Adam. Its two hand-written kernels replace the JAX package's two Pallas
+Adam; and the Li2O support-CI closure (selected CI on the host,
+``chem.selected_ci`` with the C++ Slater-Condon builder ``chem.native``;
+distillation, the full-support polish and support-restricted VMC,
+``experiments.support_ci``). Its two hand-written kernels replace the JAX package's two Pallas
 kernels: ``ops.matrix_elements.fused_matrix_elements``
 (``csrc/fused_me.cu``) and ``ops.hash_lookup.hash_lookup``
 (``csrc/hash_lookup.cu``). The entry points are the modules of

@@ -24,8 +24,12 @@ download), N2 in ``mols/`` by the JAX package's tests and Li2O with
 
 (SCF and Jordan-Wigner, under a minute on one CPU core), then
 
-    python -m anqs_quantum_chemistry_torch.chem.molecule \
+    python -m anqs_quantum_chemistry_torch.chem.molecule --integrals \
         mols/Li2O/<hash>.npz anqs_quantum_chemistry_torch/data/li2o_sto3g.npz
+
+``--integrals`` also copies the spin-orbital integrals ``h1`` and ``v``
+(``INTEGRAL_KEYS``), which the integral-form Hamiltonian of selected CI
+reads (``chem/fci.py`` ``sparse_hamiltonian``); Li2O's file carries them.
 
 C2H4's file ships in the repository's ``mols/`` (the flagship of the JAX
 package's README):
@@ -61,6 +65,9 @@ PACKAGED_KEYS = (
     "multiplicity", "hf_det", "e_nuc", "hf_energy", "fci_energy",
     "z2_generators",
 )
+# The spin-orbital integrals (physicist's <pq|rs> in ``v``), copied only on
+# request: C2H4/6-31G's ``v`` alone is 58 MB.
+INTEGRAL_KEYS = ("h1", "v")
 
 
 @dataclasses.dataclass
@@ -77,6 +84,10 @@ class Molecule:
     fci_energy: Optional[float]
     z2_generators: np.ndarray
     qubit_ham: PauliHamiltonian
+    # Spin-orbital integrals, where the file holds them (JAX
+    # ``Molecule._from_cache`` reads them always).
+    h1: Optional[np.ndarray] = None
+    v: Optional[np.ndarray] = None
 
     @property
     def n_orbitals(self) -> int:
@@ -114,6 +125,7 @@ class Molecule:
                     weights=data["ham_weights"],
                     group_starts=data["ham_group_starts"],
                 ),
+                **{k: data[k] for k in INTEGRAL_KEYS if k in data.files},
             )
 
 
@@ -126,7 +138,8 @@ def load_n2() -> Molecule:
 def load_li2o() -> Molecule:
     """Li2O/STO-3G, the reference's toy-model molecule: 30 qubits, 16169
     Pauli terms in 3072 groups, a 41,409,225-determinant (7, 7) sector (no
-    FCI energy: too large to diagonalise here)."""
+    FCI energy: too large to diagonalise here), with its spin-orbital
+    integrals (selected CI)."""
     return Molecule.from_npz(LI2O_STO3G, name="Li2O")
 
 
@@ -136,12 +149,14 @@ def load_c2h4() -> Molecule:
     return Molecule.from_npz(C2H4_631G, name="C2H4")
 
 
-def write_packaged(src: str, dst: str) -> float:
-    """Copy ``PACKAGED_KEYS`` of molecule file ``src`` into ``dst``; returns
-    the FCI energy written (computed when ``src`` has none and its sector
-    has at most ``SECTOR_MAX_DETS`` determinants, else NaN)."""
+def write_packaged(src: str, dst: str, integrals: bool = False) -> float:
+    """Copy ``PACKAGED_KEYS`` of molecule file ``src`` (with ``integrals``,
+    also ``INTEGRAL_KEYS``) into ``dst``; returns the FCI energy written
+    (computed when ``src`` has none and its sector has at most
+    ``SECTOR_MAX_DETS`` determinants, else NaN)."""
+    keys = PACKAGED_KEYS + (INTEGRAL_KEYS if integrals else ())
     with np.load(src) as data:
-        arrays = {k: data[k] for k in PACKAGED_KEYS}
+        arrays = {k: data[k] for k in keys}
     mol_fci = float(np.asarray(arrays["fci_energy"]).reshape(-1)[0])
     if np.isnan(mol_fci):
         mol = Molecule.from_npz(src)
@@ -154,6 +169,8 @@ def write_packaged(src: str, dst: str) -> float:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 3:
+    args = [a for a in sys.argv[1:] if a != "--integrals"]
+    if len(args) != 2:
         sys.exit(__doc__)
-    print(write_packaged(sys.argv[1], sys.argv[2]))
+    print(write_packaged(args[0], args[1],
+                         integrals="--integrals" in sys.argv))

@@ -26,3 +26,10 @@ def params_from_jax(tree: Mapping,
         else:
             out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return out
+
+
+def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A flat npz of dotted names (``tools/export_jax_params.py``'s output)
+    -> the port's state dict."""
+    with np.load(path) as data:
+        return params_from_jax(dict(data))

@@ -8,11 +8,11 @@ Usage:
 ``molecule`` 'li2o' (default) or 'n2', the port's packaged files;
 ``iters`` VMC iterations (default 4000), ``sample_num`` Gumbel samples
 (8192), ``net`` 'nade' (default; hidden widths (128, 128)) or 'made'
-(2048 hidden) -- 'transformer' raises until its ``matmul_precision`` is
-ported --, ``qpq`` qubits a qudit (6), ``theor`` 1 for Born weights or 0
-for the sampler's own (1), ``grad_temp`` the gradient weights'
-temperature (2). The defaults are the Li2O NADE campaign's first leg (JAX
-run ``runs/li2o_cisd_nade_t2``).
+(2048 hidden, a 512-wide phase net) -- 'transformer' raises until its
+``matmul_precision`` is ported --, ``qpq`` qubits a qudit (6), ``theor``
+1 for Born weights or 0 for the sampler's own (1), ``grad_temp`` the
+gradient weights' temperature (2). The defaults are the Li2O NADE
+campaign's first leg (JAX run ``runs/li2o_cisd_nade_t2``).
 
 Builds the CISD vector from the HF determinant (``chem.fci.
 cisd_ground_state``), pretrains the ansatz on it in the example's three
@@ -49,8 +49,9 @@ from .vmc import (
 )
 
 MOLECULES = {"li2o": load_li2o, "n2": load_n2}
-NETS = {"nade": LI2O_NADE, "made": AnqsConfig(hidden_widths=(2048,),
-                                              aux_hidden_widths=(2048,))}
+# JAX's example passes only ``hidden_widths`` for MADE, so its phase net
+# keeps the (512,) default.
+NETS = {"nade": LI2O_NADE, "made": AnqsConfig(hidden_widths=(2048,))}
 # The example's pretraining stages: (steps, learning rate).
 PRETRAIN_STAGES = ((2500, 1e-3), (2500, 3e-4), (2000, 1e-4))
 
@@ -68,7 +69,7 @@ def main(argv=None, device="cuda", run_root="runs",
     if net == "transformer":
         raise NotImplementedError(
             "net='transformer' needs AnqsConfig.matmul_precision, which is "
-            "not ported (ROADMAP §1 item 9)")
+            "not ported (ROADMAP §1 'Next slices' item 1)")
 
     mol = MOLECULES[name]()
     hf = mol.hf_energy

@@ -1243,10 +1243,9 @@ def li2o_nade_closure_params():
     written by ``tools/export_jax_params.py`` into the port's data), as a
     state dict of ``li2o_nade_vmc``'s ansatz."""
     from ..chem.molecule import DATA_DIR
-    from ..convert import params_from_jax
+    from ..convert import load_params_npz
 
-    with np.load(os.path.join(DATA_DIR, "li2o_nade_closure.npz")) as data:
-        return params_from_jax(dict(data))
+    return load_params_npz(os.path.join(DATA_DIR, "li2o_nade_closure.npz"))
 
 
 def latest_checkpoint(run_dir: Optional[str]) -> Optional[str]:

@@ -115,6 +115,38 @@ gradient weights |psi|^(2/2)), counts set to 0 before (b) and read after
 - (e) Kernels #1, #2 and the tag build launch twice for each local-energy
   evaluation (stages 3a and 3b): 13 steps and 2 cycles.
 
+Last, the Li2O support-CI closure (the JAX package's ``runs/li2o_sci``
+chain at full width: NADE (128, 128), qubit_per_qudit 6, 16,384 Gumbel
+samples, prefilter at (768, 4096), its 131,072-determinant selected-CI
+target and its states ckpt_4, ckpt_13 and ckpt_26, all packaged), counts
+set to 0 before (b) and read after (f):
+
+- (a) H over the target's top 8192 by |coef| from the packaged integrals
+  (the C++ builder on the host: time, nnz 848,626) and its ground state
+  (``restricted_ground_state``) within 1e-8 Ha of the JAX package's.
+- (b) ckpt_26: ``support_rayleigh`` over those 8192 within 2e-6 Ha, and
+  ``support_ci.polish``'s loss and mass (temperature 2, linear lam 30) over
+  all 131,072 rows within 1e-5 relative, of the JAX package's float32
+  values on the CPU (the TPU's records printed beside them); two sampled
+  full energies at 16,384 (seeds 1 and 2) within 0.05 mHa of the TPU's
+  confirmations (mean -88.705147) and within chemical accuracy of FCI.
+- (c) ckpt_13: the loss of ``examples/li2o_sci_polish.py`` (temperature 4,
+  quadratic lam 1000) within 1e-5 relative of JAX's, then 20 full-batch
+  steps of that polish at lr 1e-4: the loss falls; ms a step and the peak
+  memory.
+- (d) 50 distillation steps (batch 8192, lr 3e-4) from the packaged
+  closure state: finite, falling, ms a step.
+- (e) 3 steps of the pinned-support VMC (``li2o_pin_vmc``, 8192 pinned
+  target determinants) from ckpt_13: step 0 within 0.2 mHa of the JAX
+  run's iteration 0, no row dropped, ``found_pairs`` equal to a host
+  count and the energy within 1e-4 Ha of the float64 Rayleigh quotient
+  over its own set.
+- (f) 5 ``support_vmc`` steps (rq) and 10 L-BFGS iterations on the 8192
+  support from ckpt_26: the first rq within 1e-6 Ha of JAX's, nothing
+  NaN. Kernel #1 launches once for each full energy, both kernels twice
+  for each pinned step; kernel #1 is timed at the full energy's 16,384
+  rows and both at the pinned step's prefilter shapes.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -166,6 +198,43 @@ LI2O_CLOSURE_PAIRS = 662700
 NADE_PRETRAIN_STEPS = 200
 NADE_RUN_STEPS = 12
 NADE_DISTILL_PERIOD = 5
+POLISH_STEPS = 20
+DISTILL_STEPS = 50
+PIN_STEPS = 3
+SUPPORT_VMC_STEPS = 5
+LBFGS_EVALS = 10
+# The Li2O support-CI closure (the JAX package's runs/li2o_sci): the
+# restricted ground energy of the target's top 8192 determinants by |coef|
+# (tests/test_torch_native.py::test_li2o_top8192_energy), and the JAX
+# package's float32 values on the CPU for the packaged states, each computed
+# by the test named beside it in tests/test_torch_li2o_sci.py: ckpt_26's
+# Rayleigh quotient over that support (test_ckpt26_rayleigh_matches_jax),
+# its ``support_ci.polish`` loss and mass over the whole target at
+# temperature 2, linear lam 30 (test_ckpt26_polish_loss_matches_jax), and
+# ckpt_13's loss of ``examples/li2o_sci_polish.py`` at temperature 4,
+# quadratic lam 1000 (test_ckpt13_example_loss_matches_jax).
+LI2O_SCI_TOP = 8192
+LI2O_SCI_TOP_E0 = -88.7053389233
+LI2O_SCI_CKPT26_RAYLEIGH = -88.705312172438
+LI2O_SCI_CKPT26_LOSS = 0.7433463931
+LI2O_SCI_CKPT26_MASS = 0.9999099970
+LI2O_SCI_CKPT13_LOSS = 1.5286744833
+# ckpt_26's exact restricted quotient of the complex amplitudes exp(la + i
+# ph) over the top 8192, as ``support_vmc`` reports it at its first step
+# (test_ckpt26_support_vmc_rq_matches_jax); it differs from the real
+# projection's above because ckpt_26's phases are not all 0 or pi.
+LI2O_SCI_CKPT26_RQ = -88.705280948815
+# The TPU's records of the same quantities (its default-precision matmuls;
+# runs/li2o_sci/polish_summary_lam30_lin.json, runs/logs/
+# li2o_sci_polish2.log), printed beside the port's, not gated.
+TPU_CKPT26_LOSS = 0.7428562641
+TPU_CKPT26_MASS = 0.999917209
+TPU_CKPT13_LOSS = 1.528461
+# Five sampled full energies of ckpt_26 at 16,384 on the TPU
+# (runs/li2o_sci/confirm_energies.npy), their mean; the pinned-VMC leg's
+# iteration 0 from ckpt_13 (runs/logs/li2o_pin.log).
+LI2O_SCI_CONFIRM_ENERGY = -88.705147
+LI2O_PIN_STEP0_ENERGY = -88.702309
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -1219,7 +1288,7 @@ def c2h4_trainer_phase(torch):
     return launches, figures
 
 
-def li2o_nade_kernel_figures(torch, vmc, snap):
+def li2o_nade_kernel_figures(torch, vmc, snap, label="Li2O NADE"):
     """Kernels #1 and #2 at the two prefilter shapes of one Li2O NADE set
     (``snap``): their device times (``tools/profile_torch_step.py``
     ``prefilter_stages``) beside their bounds."""
@@ -1248,7 +1317,7 @@ def li2o_nade_kernel_figures(torch, vmc, snap):
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     for key in ("kernel1_3a", "kernel1_3b", "kernel2_3a", "kernel2_3b"):
         f = figures[key]
-        log(f"Li2O NADE {key}: {f['ms']:.4f} ms, bound "
+        log(f"{label} {key}: {f['ms']:.4f} ms, bound "
             f"{f['bound_ms'] * 1e3:.2f} us ({f['bound_by']}; "
             f"{f['ms'] / f['bound_ms']:.2f}x), "
             + (f"B {f['B']}" if "B" in f else f"Q {f['Q']}, nb "
@@ -1400,6 +1469,260 @@ def li2o_nade_phase(torch):
     return launches, figures
 
 
+def li2o_support_ci_phase(torch):
+    """The Li2O support-CI closure at full width (the JAX package's
+    ``runs/li2o_sci`` chain, its packaged target and states): (a) the
+    host's restricted H and ground state over the target's top 8192; (b)
+    ckpt_26's Rayleigh quotient, polish loss, mass and two sampled full
+    energies; (c) ckpt_13's example polish loss and 20 full-batch polish
+    steps; (d) 50 distillation steps; (e) 3 pinned-VMC steps; (f)
+    ``support_vmc`` and L-BFGS on the 8192 support. Counts are set to 0
+    before (b) and read after (f). Returns (launches, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem import fci
+    from anqs_quantum_chemistry_torch.chem import selected_ci as sci
+    from anqs_quantum_chemistry_torch.experiments import support_ci as scp
+    from anqs_quantum_chemistry_torch.experiments.li2o_pin_vmc import (
+        li2o_pin_vmc,
+    )
+    from anqs_quantum_chemistry_torch.experiments.li2o_sci_polish import (
+        example_polish_loss,
+    )
+    from anqs_quantum_chemistry_torch.experiments.li2o_support_ci import (
+        li2o_sci_params,
+        li2o_sci_vmc,
+        load_target,
+    )
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        LI2O_FCI_ENERGY,
+        li2o_nade_closure_params,
+    )
+    from anqs_quantum_chemistry_torch.ops.keys import sort_words
+    from anqs_quantum_chemistry_torch.optim.pretrain import pretrain
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        gumbel_top_k_sample,
+    )
+
+    figures = {}
+    t_phase = time.perf_counter()
+    vmc = li2o_sci_vmc(device="cuda")
+    mol = vmc.mol
+
+    # (a) The target, the integrals and the host's restricted H.
+    td, tc, e_target = load_target()
+    d8, c8 = sci.truncate_by_weight(td, tc, LI2O_SCI_TOP)
+    t = time.perf_counter()
+    h8 = fci.sparse_hamiltonian(d8, mol.h1, mol.v)
+    figures["h_build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    e8, _ = sci.restricted_ground_state(d8, mol.h1, mol.v, mol.e_nuc)
+    figures["ground_state_s"] = time.perf_counter() - t
+    log(f"Li2O support CI: target {len(td)} determinants (E0 "
+        f"{e_target:.6f}), integrals h1 {mol.h1.shape} v {mol.v.shape}; H "
+        f"over its top {LI2O_SCI_TOP} built on the host in "
+        f"{figures['h_build_s']:.2f} s (nnz {h8.nnz}); "
+        f"restricted_ground_state {figures['ground_state_s']:.2f} s: E0 "
+        f"{e8:.10f} (JAX {LI2O_SCI_TOP_E0:.10f}, |diff| "
+        f"{abs(e8 - LI2O_SCI_TOP_E0):.1e} Ha)")
+    check(len(td) == 131_072, "Li2O support CI: target size")
+    check(h8.nnz == 848_626, f"Li2O support CI: nnz {h8.nnz}")
+    check(abs(e8 - LI2O_SCI_TOP_E0) <= 1e-8, "Li2O support CI: top-8192 E0")
+
+    # (b) ckpt_26: Rayleigh quotient, polish loss and mass, full energies.
+    reset_launches()
+    vmc.anqs.load_state_dict(li2o_sci_params(26))
+    t8 = scp.make_target(d8, c8, mol.qubit_num, "cuda")
+    target = scp.make_target(td, tc, mol.qubit_num, "cuda")
+    rq26 = scp.support_rayleigh(mol, t8, vmc.anqs, h=h8)
+    with torch.no_grad():
+        loss26, mass26 = (float(x) for x in scp.polish_loss(
+            vmc.anqs, target, 2.0, 30.0, "lin"))
+    rel_loss = abs(loss26 / LI2O_SCI_CKPT26_LOSS - 1.0)
+    rel_mass = abs(mass26 / LI2O_SCI_CKPT26_MASS - 1.0)
+    log(f"Li2O ckpt_26: Rayleigh quotient over the top {LI2O_SCI_TOP} "
+        f"{rq26:.9f} (JAX float32 {LI2O_SCI_CKPT26_RAYLEIGH:.9f}, |diff| "
+        f"{abs(rq26 - LI2O_SCI_CKPT26_RAYLEIGH):.1e} Ha); polish loss "
+        f"(T 2, linear lam 30) over {len(td)} rows {loss26:.10f} (JAX float32"
+        f" {LI2O_SCI_CKPT26_LOSS:.10f}, rel {rel_loss:.1e}; TPU record "
+        f"{TPU_CKPT26_LOSS}), mass {mass26:.10f} (JAX float32 "
+        f"{LI2O_SCI_CKPT26_MASS:.10f}, rel {rel_mass:.1e}; TPU record "
+        f"{TPU_CKPT26_MASS})")
+    check(abs(rq26 - LI2O_SCI_CKPT26_RAYLEIGH) <= 2e-6,
+          "Li2O ckpt_26: Rayleigh quotient")
+    check(rel_loss <= 1e-5 and rel_mass <= 1e-5,
+          "Li2O ckpt_26: polish loss or mass")
+    fulls = []
+    for seed in (1, 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e, var = scp.sampled_full_energy(
+            vmc, torch.Generator(device="cuda").manual_seed(seed), 16384)
+        torch.cuda.synchronize()
+        fulls.append({"seed": seed, "energy": e, "var": var,
+                      "s": time.perf_counter() - t})
+        log(f"Li2O ckpt_26 sampled full energy (16384, seed {seed}, "
+            f"{fulls[-1]['s']:.2f} s): {e:.7f} var {var:.3e} (TPU "
+            f"confirmations' mean {LI2O_SCI_CONFIRM_ENERGY:.6f}, diff "
+            f"{(e - LI2O_SCI_CONFIRM_ENERGY) * 1e3:+.4f} mHa; FCI "
+            f"{LI2O_FCI_ENERGY:.6f}, gap "
+            f"{(e - LI2O_FCI_ENERGY) * 1e3:+.3f} mHa)")
+        check(abs(e - LI2O_SCI_CONFIRM_ENERGY) <= 5e-5,
+              "Li2O ckpt_26: sampled full energy off the confirmations")
+        check(e - LI2O_FCI_ENERGY < 1.6e-3,
+              "Li2O ckpt_26: not within chemical accuracy")
+    figures["full_energies"] = fulls
+
+    # (c) ckpt_13: the example's polish loss, then 20 full-batch steps.
+    vmc.anqs.load_state_dict(li2o_sci_params(13))
+    with torch.no_grad():
+        loss13 = float(example_polish_loss(vmc.anqs, target, 4.0, 1000.0)[0])
+    rel13 = abs(loss13 / LI2O_SCI_CKPT13_LOSS - 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    best13, first13 = scp.fit_stage(
+        vmc.anqs, lambda: example_polish_loss(vmc.anqs, target, 4.0,
+                                              1000.0)[0], 1e-4, POLISH_STEPS)
+    torch.cuda.synchronize()
+    figures["polish_ms_per_step"] = (time.perf_counter() - t) * 1e3 / (
+        POLISH_STEPS + 1)
+    figures["polish_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                 - base) / 1e9
+    log(f"Li2O ckpt_13: example polish loss (T 4, quadratic lam 1000) "
+        f"{loss13:.10f} (JAX float32 {LI2O_SCI_CKPT13_LOSS:.10f}, rel "
+        f"{rel13:.1e}; TPU record {TPU_CKPT13_LOSS}); {POLISH_STEPS} "
+        f"full-batch steps at lr 1e-4 over {len(td)} rows: loss "
+        f"{first13:.6f} -> best {best13:.6f}, "
+        f"{figures['polish_ms_per_step']:.1f} ms a step, peak "
+        f"{figures['polish_peak_gb']:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held before")
+    check(rel13 <= 1e-5, "Li2O ckpt_13: example polish loss")
+    check(first13 == loss13 or abs(first13 / loss13 - 1.0) <= 1e-6,
+          "Li2O ckpt_13: the stage's first loss")
+    check(best13 < first13, "Li2O ckpt_13: the polish loss did not fall")
+
+    # (d) Distillation from the packaged closure state.
+    vmc.anqs.load_state_dict(li2o_nade_closure_params())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, hist = pretrain(vmc.anqs, target["words"], target["p"], target["ph"],
+                       torch.Generator(device="cuda").manual_seed(100),
+                       iters=DISTILL_STEPS, lr=3e-4, batch=8192,
+                       log_every=10)
+    torch.cuda.synchronize()
+    figures["distill_ms_per_step"] = (time.perf_counter() - t) * 1e3 / (
+        DISTILL_STEPS)
+    log(f"Li2O distillation from the closure state: {DISTILL_STEPS} steps "
+        f"(batch 8192, lr 3e-4), {figures['distill_ms_per_step']:.2f} ms a "
+        f"step; loss " + ", ".join(f"{r['iter']}: {r['loss']:.5f}"
+                                   for r in hist)
+        + f"; best {hist[-1]['best_loss']:.5f}")
+    check(all(np.isfinite(r["loss"]) for r in hist),
+          "Li2O distillation: non-finite loss")
+    check(hist[-1]["best_loss"] < hist[0]["loss"],
+          "Li2O distillation: the loss did not fall")
+
+    # (e) Pinned-support VMC from ckpt_13.
+    t = time.perf_counter()
+    pin = li2o_pin_vmc(device="cuda")
+    state = pin.init_state()
+    pin.anqs.load_state_dict(li2o_sci_params(13))
+    log(f"Li2O pinned VMC set-up: {time.perf_counter() - t:.2f} s "
+        f"({pin.coupled_words.shape[0]} pinned determinants)")
+    snap = c2h4_set(torch, pin, state.generator)
+    pin_rows = []
+    for i in range(PIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        row = pin.step(state)
+        row["step_s"] = time.perf_counter() - t
+        pin._handle_overflow({**row, "iter_idx": i})
+        pin_rows.append(row)
+        log(f"Li2O pinned VMC step {i}: energy {row['energy']:.6f} "
+            f"unique_num {int(row['unique_num'])} found_pairs "
+            f"{int(row['found_pairs'])} pf_dropped_rows "
+            f"{int(row['pf_dropped_rows'])} step_s {row['step_s']:.4f}")
+        check(np.isfinite(row["energy"]), "Li2O pinned VMC: energy")
+    row0 = pin_rows[0]
+    t = time.perf_counter()
+    host_pairs, e_ref = host_pairs_and_rayleigh(pin.ham, *snap)
+    log(f"Li2O pinned VMC step 0 against the JAX run's iteration 0 "
+        f"{LI2O_PIN_STEP0_ENERGY:.6f}: diff "
+        f"{(row0['energy'] - LI2O_PIN_STEP0_ENERGY) * 1e3:+.4f} mHa; host "
+        f"({time.perf_counter() - t:.1f} s): found_pairs {host_pairs}, "
+        f"Rayleigh quotient {e_ref:.6f} (|step - ref| = "
+        f"{abs(row0['energy'] - e_ref):.2e} Ha)")
+    check(abs(row0["energy"] - LI2O_PIN_STEP0_ENERGY) <= 2e-4,
+          "Li2O pinned VMC: step 0 off the JAX record")
+    check(int(row0["pf_dropped_rows"]) == 0, "Li2O pinned VMC: rows dropped")
+    check(int(row0["found_pairs"]) == host_pairs,
+          "Li2O pinned VMC: found_pairs disagrees with the host count")
+    check(abs(row0["energy"] - e_ref) <= 1e-4,
+          "Li2O pinned VMC: energy disagrees with the Rayleigh quotient")
+    figures["pin_step_ms"] = [r["step_s"] * 1e3 for r in pin_rows]
+
+    # (f) support_vmc and L-BFGS on the 8192 support from ckpt_26.
+    vmc.anqs.load_state_dict(li2o_sci_params(26))
+    rows = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scp.support_vmc(vmc.anqs, t8, h8, mol.e_nuc, lrs=(1e-4,),
+                    steps_per_stage=SUPPORT_VMC_STEPS, log_every=1,
+                    on_log=rows.append)
+    figures["support_vmc_ms_per_step"] = (time.perf_counter() - t) * 1e3 / (
+        SUPPORT_VMC_STEPS)
+    vmc.anqs.load_state_dict(li2o_sci_params(26))
+    lrows = []
+    t = time.perf_counter()
+    _, linfo = scp.support_vmc_lbfgs(vmc.anqs, t8, h8, mol.e_nuc,
+                                     maxiter=LBFGS_EVALS,
+                                     segment=LBFGS_EVALS, log_every=1,
+                                     on_log=lrows.append)
+    figures["lbfgs_ms_per_eval"] = (time.perf_counter() - t) * 1e3 / max(
+        1, len(lrows))
+    launches = read_launches()
+    log(f"Li2O support_vmc (rq, lr 1e-4) over {LI2O_SCI_TOP} rows: rq "
+        + ", ".join(f"{r['rq']:.7f}" for r in rows)
+        + f" ({figures['support_vmc_ms_per_step']:.1f} ms a step); first "
+        f"rq {rows[0]['rq']:.9f} (JAX float32 {LI2O_SCI_CKPT26_RQ:.9f}, "
+        f"|diff| {abs(rows[0]['rq'] - LI2O_SCI_CKPT26_RQ):.1e} Ha; the real"
+        f" projection's quotient (b) {rq26:.9f}); L-BFGS "
+        f"{len(lrows)} evaluations ({figures['lbfgs_ms_per_eval']:.1f} ms "
+        f"each): rq {lrows[0]['rq']:.7f} -> {lrows[-1]['rq']:.7f}, best "
+        f"{linfo[-1]['best_rq']:.7f}, mass {lrows[-1]['mass']:.7f}")
+    check(len(rows) == SUPPORT_VMC_STEPS, "Li2O support_vmc: rows")
+    check(abs(rows[0]["rq"] - LI2O_SCI_CKPT26_RQ) <= 1e-6,
+          "Li2O support_vmc: first rq")
+    check(all(np.isfinite(r["rq"]) and np.isfinite(r["mass"])
+              for r in rows + lrows), "Li2O support_vmc: NaN")
+    check(len(lrows) >= LBFGS_EVALS, f"Li2O L-BFGS: {len(lrows)} evaluations")
+    full_evals = 2
+    check(launches == {"fused_matrix_elements": full_evals + 2 * PIN_STEPS,
+                       "hash_lookup": 2 * PIN_STEPS,
+                       "hash_tags": 2 * PIN_STEPS},
+          f"Li2O support-CI path launched {launches}")
+    log(f"Li2O support-CI path launches {launches} (the 2 full energies "
+        f"launch kernel #1 once each; each pinned step launches each kernel "
+        f"twice, stages 3a and 3b)")
+
+    # The kernels at this path's shapes: kernel #1 at the full energy's
+    # 16,384 rows, both at the pinned step's prefilter stages.
+    with torch.no_grad():
+        s = gumbel_top_k_sample(
+            vmc.anqs, 16384, torch.Generator(device="cuda").manual_seed(1))
+        fe_words = sort_words(s.words)[0]
+    figures["kernel1_full_energy"] = me_figures(
+        torch, "Li2O full energy", fe_words, vmc.engine.me_tables, reps=10,
+        plain_reps=2)
+    figures.update(li2o_nade_kernel_figures(torch, pin, snap,
+                                            "Li2O pinned VMC"))
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"Li2O support-CI phase: {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def main():
     try:
         import torch
@@ -1488,6 +1811,7 @@ def main():
     c2h4_phase(torch, me_entry)
     c2h4_launches, c2h4_figures = c2h4_trainer_phase(torch)
     nade_launches, nade_figures = li2o_nade_phase(torch)
+    sci_launches, sci_figures = li2o_support_ci_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -1498,7 +1822,8 @@ def main():
                "n2_exact": exact_launches, "n2_driver": driver_launches,
                "li2o_multinomial": multinomial_launches,
                "c2h4_transformer": c2h4_launches,
-               "li2o_nade": nade_launches}
+               "li2o_nade": nade_launches,
+               "li2o_support_ci": sci_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -1517,6 +1842,17 @@ def main():
         stage: nade_figures[f"kernel1_{stage}"] for stage in ("3a", "3b")}
     hash_entry["li2o_nade_prefilter"] = {
         stage: nade_figures[f"kernel2_{stage}"] for stage in ("3a", "3b")}
+    me_entry["li2o_full_energy"] = sci_figures["kernel1_full_energy"]
+    me_entry["li2o_pin_prefilter"] = {
+        stage: sci_figures[f"kernel1_{stage}"] for stage in ("3a", "3b")}
+    hash_entry["li2o_pin_prefilter"] = {
+        stage: sci_figures[f"kernel2_{stage}"] for stage in ("3a", "3b")}
+    me_entry["li2o_support_ci"] = {
+        k: sci_figures[k] for k in (
+            "h_build_s", "ground_state_s", "full_energies",
+            "polish_ms_per_step", "polish_peak_gb", "distill_ms_per_step",
+            "pin_step_ms", "support_vmc_ms_per_step", "lbfgs_ms_per_eval",
+            "phase_s")}
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

@@ -9,8 +9,10 @@ the JAX package's Li2O closure leg, ``examples/li2o_closure.py``) ->
 is an orbax tree ``{params, opt_state, key, iter}``; only ``params`` is
 written, one float32 array per leaf under its dotted path
 (``main.qudit0.w0``, ...), which ``convert.params_from_jax`` reads as the
-port's state dict. Needs ``orbax`` (and so JAX) on the machine that runs
-it; the port itself reads the npz with numpy only. ``--init`` writes
+port's state dict. The support-CI chain's states ship the same way:
+``python tools/export_jax_params.py runs/li2o_sci/ckpt_N
+anqs_quantum_chemistry_torch/data/li2o_sci_ckptN.npz`` for N = 4, 13, 26.
+Needs ``orbax`` (and so JAX) on the machine that runs it; the port itself reads the npz with numpy only. ``--init`` writes
 instead the JAX package's initial weights of the Li2O NADE campaign
 (``VMC.init_state`` at seed 0: NADE (128, 128), qubit_per_qudit 6), the
 start of its CISD pretraining (``tools/li2o_nade_diagnostics.py cisd

@@ -16,7 +16,12 @@ Li2O NADE campaign (prefilter membership; CISD targets,
 Adam; and the Li2O support-CI closure (selected CI on the host,
 ``chem.selected_ci`` with the C++ Slater-Condon builder ``chem.native``;
 distillation, the full-support polish and support-restricted VMC,
-``experiments.support_ci``). Its two hand-written kernels replace the JAX package's two Pallas
+``experiments.support_ci``); and the C2H4/6-31G CISD -> support-CI chain
+(CISD from the packaged integrals, the CISD-pretrained MADE-2048 and
+transformer, ``experiments.cisd_pretrain_vmc``; the closure and its
+transformer leg, ``experiments.c2h4_support_ci`` and
+``c2h4_support_transformer``). The nets' matmul precision is
+``AnqsConfig.matmul_precision`` (``models.precision``). Its two hand-written kernels replace the JAX package's two Pallas
 kernels: ``ops.matrix_elements.fused_matrix_elements``
 (``csrc/fused_me.cu``) and ``ops.hash_lookup.hash_lookup``
 (``csrc/hash_lookup.cu``). The entry points are the modules of

@@ -6,10 +6,10 @@ sorted uint64 array. ``sector_hamiltonian`` builds the sparse Hamiltonian of
 the (N_alpha, N_beta) sector straight from the grouped Pauli terms, in
 float64 -- the oracle that ``chem/molecule.py`` uses to fill in an FCI
 energy a molecule file lacks, and ``chip_smoke.py`` uses as its Rayleigh
-quotient reference. ``cisd_ground_state`` diagonalises the same Hamiltonian
-over the HF determinant and its single and double excitations (JAX
-``fci.cisd_ground_state``): the target of supervised pretraining
-(``optim/pretrain.py``).
+quotient reference. ``cisd_ground_state`` diagonalises H over the HF
+determinant and its single and double excitations (JAX
+``fci.cisd_ground_state``), from the integrals or from the Pauli form: the
+target of supervised pretraining (``optim/pretrain.py``).
 
 ``sparse_hamiltonian(dets, h1, v)`` builds H over any determinant list from
 the spin-orbital integrals by the Slater-Condon rules (JAX
@@ -280,16 +280,35 @@ def _ground_state(h):
     return float(w[0]), u[:, 0]
 
 
-def cisd_ground_state(ham: PauliHamiltonian, hf_det: int):
-    """CISD from ``hf_det``: (energy, sorted uint64 determinants, float64
-    coefficients) of the lowest state of H over the determinant and its
-    in-sector single and double excitations (JAX
-    ``fci.cisd_ground_state``). H is built from the Pauli form
-    (``sector_hamiltonian``); its constant plays the part of JAX's
-    ``e_nuc``."""
+def cisd_ground_state(ham_or_h1, *args):
+    """CISD from the HF determinant: (energy, sorted uint64 determinants,
+    float64 coefficients) of the lowest state of H over the determinant
+    and its in-sector single and double excitations (JAX
+    ``fci.cisd_ground_state``). Two forms:
+
+    - ``cisd_ground_state(h1, v, hf_det, e_nuc=0.0)``, JAX's: H from the
+      spin-orbital integrals (``sparse_hamiltonian``: the C++ builder above
+      512 determinants), plus ``e_nuc``. The entry points use it wherever
+      the molecule carries its integrals (C2H4's 29,593 determinants).
+    - ``cisd_ground_state(ham, hf_det)`` with a ``PauliHamiltonian``: H
+      from the Pauli form (``sector_hamiltonian``), whose constant plays
+      the part of ``e_nuc``; for a molecule packaged without integrals
+      (N2). Its dense (N, M) tables grow with the group count, so it does
+      not reach C2H4.
+    """
+    pauli = isinstance(ham_or_h1, PauliHamiltonian)
+    if pauli:
+        (hf_det,), e_nuc = args, 0.0
+        n_so = ham_or_h1.qubit_num
+    else:
+        v, hf_det, *rest = args
+        e_nuc = float(rest[0]) if rest else 0.0
+        n_so = ham_or_h1.shape[0]
     dets = np.unique(np.concatenate([
         np.asarray([hf_det], _U),
-        excitations_in_sector(hf_det, ham.qubit_num),
+        excitations_in_sector(int(hf_det), n_so),
     ]))
-    energy, coef = _ground_state(sector_hamiltonian(ham, dets))
-    return energy, dets, coef
+    h = (sector_hamiltonian(ham_or_h1, dets) if pauli
+         else sparse_hamiltonian(dets, ham_or_h1, v))
+    energy, coef = _ground_state(h)
+    return energy + e_nuc, dets, coef

@@ -338,8 +338,12 @@ class VMC:
         self.run_dir = run_dir
         if run_dir:
             os.makedirs(run_dir, exist_ok=True)
+            # JAX's keys, and the ansatz's config (``matmul_precision``
+            # with it) under "anqs".
             with open(os.path.join(run_dir, "config.json"), "w") as f:
-                f.write(self.config.to_json())
+                json.dump({**self.config.to_dict(),
+                           "anqs": dataclasses.asdict(self.anqs.config)},
+                          f, indent=2, sort_keys=True, default=str)
 
         self.exact_words = None
         self.exact_valid = None
@@ -878,12 +882,14 @@ class VMC:
     # Checkpoints (JAX ``vmc.py:1396-1468``), one ``torch.save`` file
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str, state: TrainState, it: int):
-        """Write (parameters, optimizer and guard state, sampler generator,
-        iteration, multinomial budget) to ``path/checkpoint.pt``."""
+        """Write (parameters, the ansatz's config, optimizer and guard
+        state, sampler generator, iteration, multinomial budget) to
+        ``path/checkpoint.pt``."""
         os.makedirs(path, exist_ok=True)
         payload = {
             "params": {k: v.detach().cpu()
                        for k, v in self.anqs.state_dict().items()},
+            "anqs_config": dataclasses.asdict(self.anqs.config),
             "opt": state.opt.state_dict(),
             "generator": state.generator.get_state(),
             "iter": int(it),

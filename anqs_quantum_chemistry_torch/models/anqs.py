@@ -26,6 +26,7 @@ from ..ops import bits as bitops
 from ..symmetries.grouping import QubitGrouping
 from .made import MADE, MadeSpec
 from .nade import NADE, NadeSpec
+from .precision import check_precision
 from .transformer import Transformer, TransformerSpec
 
 NEG = -1e30
@@ -37,8 +38,8 @@ class AnqsConfig:
     """The JAX ``AnqsConfig`` at its defaults (``log_abs_phase`` head, tanh
     MADE and NADE layers with biases and residuals, mean-subtracted
     conditionals), with the net type, the MADE and NADE widths, the
-    transformer sizes and ``logit_cap`` free, under JAX's names and
-    defaults."""
+    transformer sizes, ``logit_cap`` and ``matmul_precision`` free, under
+    JAX's names and defaults."""
 
     net_type: str = "made"  # 'made' | 'transformer' | 'nade'
     # MADE or NADE hidden widths of the main (log|psi|) and aux (phase) nets.
@@ -47,11 +48,20 @@ class AnqsConfig:
     # Soft cap on the main net's raw conditionals, la -> cap tanh(la / cap),
     # before masking and normalization (None: off).
     logit_cap: Optional[float] = None
+    # Multiply precision of every matmul of both nets (``precision.py``):
+    # None, 'default', 'float32' and 'highest' are strict float32, on the
+    # card and on the CPU alike; 'bfloat16' rounds each operand to bfloat16
+    # and sums in float32. (JAX's None is the backend default: on the TPU,
+    # bf16 multiplies.) Other values raise ValueError.
+    matmul_precision: Optional[str] = None
     # Transformer sizes (net_type='transformer').
     d_model: int = 64
     n_heads: int = 4
     n_layers: int = 2
     d_ff: int = 256
+
+    def __post_init__(self):
+        check_precision(self.matmul_precision)
 
 
 class ANQS(nn.Module):
@@ -95,6 +105,7 @@ class ANQS(nn.Module):
             qudit_starts=grouping.qudit_starts,
             qudit_ends=grouping.qudit_ends,
             max_qudit_dim=self.max_dim,
+            matmul_precision=check_precision(self.config.matmul_precision),
         )
         cfg = self.config
         if cfg.net_type == "made":

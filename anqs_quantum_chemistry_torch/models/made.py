@@ -4,18 +4,21 @@ Counterpart of the JAX package's ``models/made.py``: static 0/1 causal masks
 multiply the weights (``w_eff = w * mask``), so one forward pass yields the
 conditional outputs of every qudit at once, output q depending only on the
 inputs of qudits < q. Weights keep the JAX layout ``(fan_in, fan_out)`` so
-``convert.params_from_jax`` copies them as they are. Float32 throughout.
+``convert.params_from_jax`` copies them as they are. Float32 throughout;
+the matmuls multiply at ``spec.matmul_precision`` (``precision.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from .precision import matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +29,8 @@ class MadeSpec:
     max_qudit_dim: int  # D: outputs per qudit (2**max width)
     hidden_widths: Tuple[int, ...] = (512,)
     n_channels: int = 1
+    # 'bfloat16' or None (float32): ``precision.check_precision``'s value.
+    matmul_precision: Optional[str] = None
 
     @property
     def qudit_num(self) -> int:
@@ -91,13 +96,15 @@ def made_apply(spec: MadeSpec, params: Dict, masks, bits) -> torch.Tensor:
     match -- the JAX package's default MADE.
     """
     n_layers = len(spec.hidden_widths)
+    prec = spec.matmul_precision
     h = 1.0 - 2.0 * bits.to(torch.float32)
     for i in range(n_layers):
-        z = torch.tanh(h @ (params[f"w{i}"] * masks[i]) + params[f"b{i}"])
+        z = torch.tanh(matmul(h, params[f"w{i}"] * masks[i], prec)
+                       + params[f"b{i}"])
         if i > 0 and z.shape == h.shape:
             z = z + h
         h = z
-    out = h @ (params[f"w{n_layers}"] * masks[n_layers])
+    out = matmul(h, params[f"w{n_layers}"] * masks[n_layers], prec)
     out = out + params[f"b{n_layers}"]
     return out.reshape(
         *bits.shape[:-1], spec.qudit_num, spec.max_qudit_dim, spec.n_channels

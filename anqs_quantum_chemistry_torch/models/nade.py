@@ -9,18 +9,21 @@ match -- the JAX package's default pattern. The Q subnets run as a loop of
 small GEMMs. Parameters keep JAX's names (``qudit{q}.w{i}``, ``b{i}``) and
 ``(fan_in, fan_out)`` layout, so ``convert.params_from_jax`` carries a JAX
 tree across unchanged. Interface-compatible with ``made.MADE``: bits (B, n)
--> (B, Q, D, C). Float32 throughout.
+-> (B, Q, D, C). Float32 throughout; the matmuls multiply at
+``spec.matmul_precision`` (``precision.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from .precision import matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,8 @@ class NadeSpec:
     max_qudit_dim: int
     hidden_widths: Tuple[int, ...] = (64,)
     n_channels: int = 1
+    # 'bfloat16' or None (float32): ``precision.check_precision``'s value.
+    matmul_precision: Optional[str] = None
 
     @property
     def qudit_num(self) -> int:
@@ -73,17 +78,19 @@ def nade_apply(spec: NadeSpec, params: Dict, vis, bits) -> torch.Tensor:
     """bits (B, n) in {0,1} -> (B, Q, D, C) raw conditional outputs (JAX
     ``nade_apply``); ``vis`` is ``visibility(spec)`` as a tensor."""
     n_layers = len(spec.hidden_widths)
+    prec = spec.matmul_precision
     x = 1.0 - 2.0 * bits.to(torch.float32)
     outs = []
     for q in range(spec.qudit_num):
         sub = params[f"qudit{q}"]
         h = x * vis[q]
         for i in range(n_layers):
-            z = torch.tanh(h @ sub[f"w{i}"] + sub[f"b{i}"])
+            z = torch.tanh(matmul(h, sub[f"w{i}"], prec) + sub[f"b{i}"])
             if i > 0 and z.shape == h.shape:
                 z = z + h
             h = z
-        outs.append(h @ sub[f"w{n_layers}"] + sub[f"b{n_layers}"])
+        outs.append(matmul(h, sub[f"w{n_layers}"], prec)
+                    + sub[f"b{n_layers}"])
     out = torch.stack(outs, dim=-2)
     return out.reshape(*bits.shape[:-1], spec.qudit_num, spec.max_qudit_dim,
                        spec.n_channels)

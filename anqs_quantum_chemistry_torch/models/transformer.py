@@ -10,7 +10,8 @@ names and layouts -- ``embed`` (Q, D, d), ``pos`` (Q, d), ``start`` (d),
 ``layer{i}.{wq,wk,wv,wo,ln1_*,ln2_*,ff1,ff1_b,ff2,ff2_b}`` with weights as
 (fan_in, fan_out), ``head`` (d, D*C) and ``head_b`` -- so
 ``convert.params_from_jax`` loads a JAX parameter tree as it is. Float32
-throughout (TF32 is off for the process, ``anqs_quantum_chemistry_torch``).
+throughout (TF32 is off for the process, ``anqs_quantum_chemistry_torch``);
+the matmuls multiply at ``spec.matmul_precision`` (``precision.py``).
 
 Interface of ``made.MADE``: ``forward(bits (B, n)) -> (B, Q, D, C)``.
 """
@@ -19,11 +20,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .precision import einsum, matmul
 
 LN_EPS = 1e-5
 MASKED_LOGIT = -1e30  # causal fill: finite, as in the JAX package
@@ -40,6 +43,8 @@ class TransformerSpec:
     n_heads: int = 4
     n_layers: int = 2
     d_ff: int = 256
+    # 'bfloat16' or None (float32): ``precision.check_precision``'s value.
+    matmul_precision: Optional[str] = None
 
     @property
     def qudit_num(self) -> int:
@@ -150,23 +155,24 @@ class Transformer(nn.Module):
         h = h + self.pos[None]
         causal = torch.tril(torch.ones(q_num, q_num, dtype=torch.bool,
                                        device=bits.device))
+        prec = spec.matmul_precision
         for layer in range(spec.n_layers):
             p = getattr(self, f"layer{layer}")
             x = _layer_norm(h, p.ln1_scale, p.ln1_bias)
 
             def proj(w):
-                return (x @ w).reshape(b, q_num, n_heads, d_head)
+                return matmul(x, w, prec).reshape(b, q_num, n_heads, d_head)
 
             qh, kh, vh = proj(p.wq), proj(p.wk), proj(p.wv)
-            logits = torch.einsum("bqhe,bkhe->bhqk", qh, kh) / math.sqrt(
+            logits = einsum("bqhe,bkhe->bhqk", qh, kh, prec) / math.sqrt(
                 d_head)
             logits = torch.where(causal, logits, MASKED_LOGIT)
             attn = torch.softmax(logits, dim=-1)
-            ctx = torch.einsum("bhqk,bkhe->bqhe", attn, vh).reshape(
+            ctx = einsum("bhqk,bkhe->bqhe", attn, vh, prec).reshape(
                 b, q_num, d)
-            h = h + ctx @ p.wo
+            h = h + matmul(ctx, p.wo, prec)
             x = _layer_norm(h, p.ln2_scale, p.ln2_bias)
-            ff = F.gelu(x @ p.ff1 + p.ff1_b, approximate="tanh")
-            h = h + ff @ p.ff2 + p.ff2_b
-        out = h @ self.head + self.head_b
+            ff = F.gelu(matmul(x, p.ff1, prec) + p.ff1_b, approximate="tanh")
+            h = h + matmul(ff, p.ff2, prec) + p.ff2_b
+        out = matmul(h, self.head, prec) + self.head_b
         return out.reshape(b, q_num, spec.max_qudit_dim, spec.n_channels)

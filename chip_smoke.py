@@ -147,6 +147,45 @@ set to 0 before (b) and read after (f):
   for each pinned step; kernel #1 is timed at the full energy's 16,384
   rows and both at the pinned step's prefilter shapes.
 
+Last, the C2H4/6-31G CISD -> support-CI chain (the JAX package's
+``runs/c2h4_cisd_made``, ``runs/c2h4_sci`` and
+``runs/c2h4_cisd_transformer_emp_lr0.0001`` at full width: 52 qubits,
+MADE-2048 with a 512-wide phase net and the 8-head transformer,
+qubit_per_qudit 4, 8192 Gumbel samples, prefilter at (768, 4096); the
+packaged CISD vector, selected-CI target and JAX states ckpt_4000, ckpt_47
+and ckpt_3000), counts set to 0 before (c) and read after (f):
+
+- (a) The spin-orbital integrals rebuilt from the packaged spatial form,
+  and the host's H over the CISD vector's top 4096 (time, nnz) with its
+  ground state within 1e-8 Ha of the JAX package's.
+- (b) 100 pretraining steps of a fresh MADE-2048 on the CISD vector at
+  batch 8192: the loss falls; ms a step.
+- (c) ckpt_4000 in ``cisd_pretrain_vmc``'s MADE trainer (MinSR top 50,
+  clip 0.5, Born weights): steps at lr 0, the overflow policy after each,
+  until one drops no row; its ``found_pairs`` equal to a host count, its
+  energy within 1e-4 Ha of the float64 Rayleigh quotient over its own set
+  and within 1 mHa of JAX's last rows; then ``run()`` for 5 steps.
+- (d) ckpt_47: ``support_rayleigh`` over the target's top 8192 within 1e-5
+  Ha, and the example's polish loss and mass (temperature 4, linear lam
+  30, chunks of 8192) over all 262,144 rows within 1e-5 relative, of the
+  JAX package's float32 CPU values; one sampled full energy at 8192 (row
+  chunks of 1024) within 0.05 mHa of the TPU's confirmations (time, peak
+  memory).
+- (e) 20 full-batch polish steps at 262,144 rows from ckpt_47, 50
+  distillation steps from ckpt_4000, and on the top-8192 support from
+  ckpt_47 5 ``support_vmc`` steps (rq), 5 ``rq_refit`` steps (beta 0.05,
+  clip 1.0) and 10 L-BFGS evaluations: ms a step and peak memory each.
+- (f) The transformer (ckpt_3000, 'highest'): log|psi| over the target's
+  top 512 against JAX's float32 values (``data/c2h4_transformer_logpsi.
+  npz``; 1e-5 + 1e-5 |la|, the phase to 1e-4), a clean step at lr 0 in its
+  trainer (empirical weights, no SR) against the host as in (c), and a
+  sampled full energy at 1024 (row chunks of 128): finite; time and peak
+  memory. Kernels #1 and #2 launch twice a step, kernel #1 once a row
+  chunk of each full energy.
+- (g) Both kernels at (c)'s prefilter shapes and kernel #1 at the full
+  energy's row chunk (1024) and whole sample (8192), against their plain
+  versions (bit for bit) and bounds.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -235,6 +274,33 @@ TPU_CKPT13_LOSS = 1.528461
 # iteration 0 from ckpt_13 (runs/logs/li2o_pin.log).
 LI2O_SCI_CONFIRM_ENERGY = -88.705147
 LI2O_PIN_STEP0_ENERGY = -88.702309
+# The C2H4/6-31G CISD -> support-CI chain (``c2h4_cisd_sci_phase``): the
+# JAX package's runs at their full width, ``C2H4_ROWS`` samples, the full
+# energy in row chunks of 1024 (the transformer's: 1024 samples in chunks
+# of 128).
+C2H4_ROW_CHUNK = 1024
+C2H4_TR_FULL_SAMPLES = 1024
+C2H4_TR_ROW_CHUNK = 128
+C2H4_PRETRAIN_STEPS = 100
+C2H4_RUN_STEPS = 5
+C2H4_CISD_DETS = 29593
+C2H4_CISD_TOP = 4096
+# The JAX package's values on the CPU (``tests/test_torch_c2h4_sci.py``
+# recomputes each): ``restricted_ground_state`` over the top 4096 of the
+# packaged CISD vector; ckpt_47's ``support_rayleigh`` over the target's
+# top 8192 and its ``polish`` loss and mass over all 262,144 rows
+# (temperature 4, linear lam 30, chunks of 8192; float32).
+C2H4_CISD_TOP_E0 = -78.19798892093382
+C2H4_SCI_TOP = 8192
+C2H4_SCI_CKPT47_RAYLEIGH = -78.190076653442
+C2H4_SCI_CKPT47_LOSS = 79.2032470703
+C2H4_SCI_CKPT47_MASS = 0.9997919202
+# The JAX runs' records: the mean energy of ``runs/c2h4_cisd_made``'s
+# iterations 3997-3999 (-78.16374, -78.16380, -78.16377; ckpt_4000 is
+# their end state), and the mean of the five TPU confirmations of ckpt_47
+# (``runs/c2h4_sci/confirm_energies.npy``, std 2.5e-6).
+C2H4_MADE_RECORD_ENERGY = -78.16377
+C2H4_SCI_CONFIRM_ENERGY = -78.1886096
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -1289,9 +1355,10 @@ def c2h4_trainer_phase(torch):
 
 
 def li2o_nade_kernel_figures(torch, vmc, snap, label="Li2O NADE"):
-    """Kernels #1 and #2 at the two prefilter shapes of one Li2O NADE set
-    (``snap``): their device times (``tools/profile_torch_step.py``
-    ``prefilter_stages``) beside their bounds."""
+    """Kernels #1 and #2 at the two prefilter shapes of one set (``snap``;
+    Li2O NADE's by default): their device times
+    (``tools/profile_torch_step.py`` ``prefilter_stages``) beside their
+    bounds."""
     eng = vmc.engine
     words, valid, la, ph = snap
     stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
@@ -1309,8 +1376,8 @@ def li2o_nade_kernel_figures(torch, vmc, snap, label="Li2O NADE"):
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
             ms = cuda_ms(stages[f"kernel2_{key}_ms"], reps=10)
-            _, bytes_ms, ops_ms = lookup_bound(queries[f"kernel2_{key}"], 1,
-                                               tab)
+            _, bytes_ms, ops_ms = lookup_bound(queries[f"kernel2_{key}"],
+                                               words.shape[1], tab)
             figures[f"kernel2_{key}"] = {
                 "Q": queries[f"kernel2_{key}"], "ms": ms,
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -1723,6 +1790,370 @@ def li2o_support_ci_phase(torch):
     return launches, figures
 
 
+def c2h4_made_step_check(torch, vmc, state, label, record=None):
+    """Steps of ``vmc`` at lr 0 from its current weights, the overflow
+    policy acting after each, until one drops no row; that step's
+    ``found_pairs`` against a host count over its own set and its energy
+    against the float64 Rayleigh quotient over it (and, with ``record``
+    (energy, tol), against a JAX record). Returns (rows, the clean step's
+    set)."""
+    import numpy as np
+
+    rows = []
+    while True:
+        snap = c2h4_set(torch, vmc, state.generator)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        row = vmc.step(state, overrides={"lr": 0.0, "lr_schedule": None})
+        row["step_s"] = time.perf_counter() - t
+        rows.append(row)
+        log(f"{label} step at lr 0: energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs "
+            f"{int(row['found_pairs'])} pf_dropped_rows "
+            f"{int(row['pf_dropped_rows'])} ({row['step_s'] * 1e3:.0f} ms); "
+            f"capacities (row {vmc.engine.prefilter_row_capacity}, dense "
+            f"{vmc.engine.prefilter_dense_rows})")
+        check(np.isfinite(row["energy"]), f"{label}: energy")
+        if int(row["pf_dropped_rows"]) == 0:
+            break
+        before = vmc._overflow_escalations
+        vmc._handle_overflow({**row, "iter_idx": len(rows) - 1})
+        log(f"{label}: escalation {vmc._overflow_escalations}")
+        check(vmc._overflow_escalations > before and len(rows) <= 4,
+              f"{label}: rows dropped and no escalation left")
+    row = rows[-1]
+    t = time.perf_counter()
+    host_pairs, e_ref = host_pairs_and_rayleigh(vmc.ham, *snap)
+    msg = (f"{label} clean step on the host ({time.perf_counter() - t:.1f} "
+           f"s): found_pairs {host_pairs}, Rayleigh quotient over its "
+           f"{int(snap[1].sum())} determinants {e_ref:.6f} (|step - ref| = "
+           f"{abs(row['energy'] - e_ref):.2e} Ha)")
+    if record is not None:
+        msg += (f"; JAX record {record[0]:.6f}, diff "
+                f"{(row['energy'] - record[0]) * 1e3:+.4f} mHa")
+    log(msg)
+    check(int(row["table_overflow"]) == 0, f"{label}: table overflow")
+    check(int(row["found_pairs"]) == host_pairs,
+          f"{label}: found_pairs disagrees with the host count")
+    check(abs(row["energy"] - e_ref) <= 1e-4,
+          f"{label}: energy disagrees with the Rayleigh quotient")
+    if record is not None:
+        check(abs(row["energy"] - record[0]) <= record[1],
+              f"{label}: energy off the JAX record")
+    return rows, snap
+
+
+def timed(torch, fn):
+    """(result, seconds, peak GB above the memory held before) of fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t,
+            (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def c2h4_cisd_sci_phase(torch):
+    """The C2H4/6-31G CISD -> support-CI chain at full width (the JAX
+    package's ``runs/c2h4_cisd_made``, ``runs/c2h4_sci`` and
+    ``runs/c2h4_cisd_transformer_emp_lr0.0001``; their packaged vector,
+    target and states): (a) the integrals and the host's restricted ground
+    state over the CISD vector's top 4096; (b) 100 pretraining steps of a
+    fresh MADE-2048; (c) the MADE CISD trainer from ckpt_4000: a clean step
+    at lr 0 against the host and JAX's rows, then ``run()``; (d) ckpt_47's
+    quotient, polish loss and mass and a sampled full energy; (e) polish,
+    distillation and the support-restricted optimisers at cut depth; (f)
+    the transformer from ckpt_3000: log|psi| against JAX, a clean step, a
+    sampled full energy; (g) the kernels at this path's shapes. Counts are
+    set to 0 before (c) and read after (f). Returns (launches, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem import fci
+    from anqs_quantum_chemistry_torch.chem import selected_ci as sci
+    from anqs_quantum_chemistry_torch.chem.molecule import (
+        DATA_DIR,
+        load_c2h4,
+    )
+    from anqs_quantum_chemistry_torch.convert import load_params_npz
+    from anqs_quantum_chemistry_torch.experiments import support_ci as scp
+    from anqs_quantum_chemistry_torch.experiments.c2h4_support_ci import (
+        BEST_STATE,
+        C2H4_CISD_VECTOR,
+        C2H4_SCI_TARGET,
+        POLISH,
+        WARM_STATE,
+        c2h4_sci_vmc,
+    )
+    from anqs_quantum_chemistry_torch.experiments.c2h4_support_transformer \
+        import WARM_STATE as TR_STATE
+    from anqs_quantum_chemistry_torch.experiments.cisd_pretrain_vmc import (
+        NETS,
+        vmc_config,
+    )
+    from anqs_quantum_chemistry_torch.experiments.li2o_support_ci import (
+        load_target,
+    )
+    from anqs_quantum_chemistry_torch.experiments.vmc import VMC
+    from anqs_quantum_chemistry_torch.ops.keys import sort_words
+    from anqs_quantum_chemistry_torch.optim.pretrain import (
+        amplitude_targets_from_coefs,
+        pack_dets,
+        pretrain,
+    )
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        gumbel_top_k_sample,
+    )
+
+    figures = {}
+    t_phase = time.perf_counter()
+    mol = load_c2h4()
+
+    # (a) The packaged integrals, the CISD vector, the host's H.
+    with np.load(C2H4_CISD_VECTOR) as d:
+        dets, coef, e_cisd = d["dets"], d["coef"], float(d["e_cisd"])
+    d4, c4 = sci.truncate_by_weight(dets, coef, C2H4_CISD_TOP)
+    t = time.perf_counter()
+    h4 = fci.sparse_hamiltonian(d4, mol.h1, mol.v)
+    figures["h_build_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    e4 = fci._ground_state(h4)[0] + mol.e_nuc
+    figures["ground_state_s"] = time.perf_counter() - t
+    log(f"C2H4 CISD -> SCI: integrals h1 {mol.h1.shape} v {mol.v.shape} "
+        f"from the spatial form; CISD vector {len(dets)} determinants (E "
+        f"{e_cisd:.10f}); H over its top {C2H4_CISD_TOP} built on the host "
+        f"in {figures['h_build_s']:.2f} s (nnz {h4.nnz}), ground state in "
+        f"{figures['ground_state_s']:.2f} s: E0 {e4:.10f} (JAX "
+        f"{C2H4_CISD_TOP_E0:.10f}, |diff| {abs(e4 - C2H4_CISD_TOP_E0):.1e} "
+        f"Ha)")
+    check(mol.h1.shape == (52, 52) and mol.v.shape == (52,) * 4,
+          "C2H4: integral shapes")
+    check(len(dets) == C2H4_CISD_DETS, "C2H4: CISD vector size")
+    check(abs(e4 - C2H4_CISD_TOP_E0) <= 1e-8, "C2H4: top-4096 CISD E0")
+
+    # (b) 100 pretraining steps of a fresh MADE-2048 on the CISD vector.
+    made = VMC(mol, vmc_config(mol, "made", C2H4_ROWS, 4, 4000, True,
+                               1.0), NETS["made"], device="cuda")
+    state = made.init_state()
+    probs, phases = amplitude_targets_from_coefs(coef)
+    words = pack_dets(dets, mol.qubit_num).cuda()
+    (_, hist), pre_s, _ = timed(torch, lambda: pretrain(
+        made.anqs, words, probs, phases,
+        torch.Generator(device="cuda").manual_seed(0),
+        iters=C2H4_PRETRAIN_STEPS, lr=1e-3, batch=C2H4_ROWS,
+        log_every=25))
+    figures["pretrain_ms_per_step"] = pre_s * 1e3 / C2H4_PRETRAIN_STEPS
+    log(f"C2H4 MADE-2048 pretraining: {C2H4_PRETRAIN_STEPS} steps (batch "
+        f"{C2H4_ROWS}, lr 1e-3), {figures['pretrain_ms_per_step']:.2f} "
+        "ms a step; loss " + ", ".join(f"{r['iter']}: {r['loss']:.5f}"
+                                       for r in hist)
+        + f"; best {hist[-1]['best_loss']:.5f}")
+    check(all(np.isfinite(r["loss"]) for r in hist),
+          "C2H4 pretraining: non-finite loss")
+    check(hist[-1]["best_loss"] < hist[0]["loss"],
+          "C2H4 pretraining: the loss did not fall")
+
+    # (c) The MADE CISD trainer from the packaged ckpt_4000.
+    reset_launches()
+    warm = load_params_npz(WARM_STATE)
+    made.anqs.load_state_dict(warm)
+    made_rows, snap = c2h4_made_step_check(
+        torch, made, state, "C2H4 MADE ckpt_4000",
+        (C2H4_MADE_RECORD_ENERGY, 1e-3))
+    t = time.perf_counter()
+    _, history, _ = made.run(C2H4_RUN_STEPS, init_params=warm,
+                             steps_per_call=C2H4_RUN_STEPS,
+                             checkpoint_every=None, log_every=0)
+    torch.cuda.synchronize()
+    figures["made_run_s"] = time.perf_counter() - t
+    log(f"C2H4 MADE run(): {C2H4_RUN_STEPS} steps in "
+        f"{figures['made_run_s']:.2f} s, energies "
+        + ", ".join(f"{r['energy']:.6f}" for r in history))
+    check(len(history) == C2H4_RUN_STEPS and all(
+        np.isfinite(r["energy"]) for r in history), "C2H4 MADE run()")
+    figures["made_step_ms"] = [r["step_s"] * 1e3 for r in made_rows]
+    figures["made_escalations"] = made._overflow_escalations
+    figures["made_energy"] = made_rows[-1]["energy"]
+    figures["made_found_pairs"] = made_rows[-1]["found_pairs"]
+    made_evals = len(made_rows) + C2H4_RUN_STEPS
+    made_snap = snap
+
+    # (d) ckpt_47: restricted quotient, polish loss and mass, full energy.
+    vmc = c2h4_sci_vmc(device="cuda")
+    gen = vmc.init_state().generator
+    vmc.anqs.load_state_dict(load_params_npz(BEST_STATE))
+    td, tc, e_target = load_target(C2H4_SCI_TARGET)
+    d8, c8 = sci.truncate_by_weight(td, tc, C2H4_SCI_TOP)
+    t = time.perf_counter()
+    h8 = fci.sparse_hamiltonian(d8, mol.h1, mol.v)
+    figures["h8_build_s"] = time.perf_counter() - t
+    t8 = scp.make_target(d8, c8, mol.qubit_num, "cuda")
+    target = scp.make_target(td, tc, mol.qubit_num, "cuda")
+    rq47 = scp.support_rayleigh(mol, t8, vmc.anqs, h=h8)
+    with torch.no_grad():
+        loss47, mass47 = (float(x) for x in scp.polish_loss(
+            vmc.anqs, target, POLISH["temp"], POLISH["lam"], POLISH["kind"],
+            POLISH["chunk"]))
+    rel_loss = abs(loss47 / C2H4_SCI_CKPT47_LOSS - 1.0)
+    rel_mass = abs(mass47 / C2H4_SCI_CKPT47_MASS - 1.0)
+    log(f"C2H4 ckpt_47: target {len(td)} determinants (E0 {e_target:.6f});"
+        f" H over its top {C2H4_SCI_TOP} on the host in "
+        f"{figures['h8_build_s']:.2f} s (nnz {h8.nnz}); Rayleigh quotient "
+        f"{rq47:.9f} (JAX float32 {C2H4_SCI_CKPT47_RAYLEIGH:.9f}, |diff| "
+        f"{abs(rq47 - C2H4_SCI_CKPT47_RAYLEIGH):.1e} Ha); polish loss (T 4,"
+        f" linear lam 30, chunk 8192) {loss47:.8f} (JAX float32 "
+        f"{C2H4_SCI_CKPT47_LOSS:.8f}, rel {rel_loss:.1e}), mass "
+        f"{mass47:.10f} (JAX float32 {C2H4_SCI_CKPT47_MASS:.10f}, rel "
+        f"{rel_mass:.1e})")
+    check(len(td) == 262_144, "C2H4: target size")
+    check(abs(rq47 - C2H4_SCI_CKPT47_RAYLEIGH) <= 1e-5,
+          "C2H4 ckpt_47: Rayleigh quotient")
+    check(rel_loss <= 1e-5 and rel_mass <= 1e-5,
+          "C2H4 ckpt_47: polish loss or mass")
+    (e47, var47), fe_s, fe_gb = timed(torch, lambda: scp.sampled_full_energy(
+        vmc, gen, C2H4_ROWS, row_chunk=C2H4_ROW_CHUNK))
+    figures["full_energy"] = {"energy": e47, "var": var47, "s": fe_s,
+                              "peak_gb": fe_gb}
+    log(f"C2H4 ckpt_47 sampled full energy ({C2H4_ROWS}, row chunk "
+        f"{C2H4_ROW_CHUNK}; {fe_s:.2f} s, peak {fe_gb:.2f} GB): {e47:.7f} "
+        f"var {var47:.3e} (TPU confirmations {C2H4_SCI_CONFIRM_ENERGY:.7f}"
+        f" +- 2.5e-6, diff {(e47 - C2H4_SCI_CONFIRM_ENERGY) * 1e3:+.4f} "
+        "mHa)")
+    check(abs(e47 - C2H4_SCI_CONFIRM_ENERGY) <= 5e-5,
+          "C2H4 ckpt_47: sampled full energy off the confirmations")
+
+    # (e) The support chain at cut depth.
+    def polish_steps():
+        return scp.polish(vmc.anqs, target, **{
+            **POLISH, "lrs": (POLISH["lrs"][0],), "steps": POLISH_STEPS})
+
+    (_, pinfo), s, gb = timed(torch, polish_steps)
+    figures["polish"] = {"ms_per_step": s * 1e3 / (POLISH_STEPS + 1),
+                         "peak_gb": gb}
+    log(f"C2H4 polish from ckpt_47: {POLISH_STEPS} full-batch steps over "
+        f"{len(td)} rows (lr {POLISH['lrs'][0]:g}, chunk {POLISH['chunk']})"
+        f": best loss {pinfo[0]['loss']:.6f} (from {loss47:.6f}), mass "
+        f"{pinfo[0]['mass']:.7f}; {figures['polish']['ms_per_step']:.1f} ms "
+        f"a step, peak {gb:.2f} GB")
+    check(pinfo[0]["loss"] < loss47, "C2H4 polish: the loss did not fall")
+    vmc.anqs.load_state_dict(warm)
+    (_, dhist), s, gb = timed(torch, lambda: pretrain(
+        vmc.anqs, target["words"], target["p"], target["ph"],
+        torch.Generator(device="cuda").manual_seed(100), iters=DISTILL_STEPS,
+        lr=3e-4, batch=8192, log_every=10))
+    figures["distill"] = {"ms_per_step": s * 1e3 / DISTILL_STEPS,
+                          "peak_gb": gb}
+    log(f"C2H4 distillation from ckpt_4000: {DISTILL_STEPS} steps (batch "
+        f"8192, lr 3e-4), {figures['distill']['ms_per_step']:.2f} ms a step,"
+        f" peak {gb:.2f} GB; loss " + ", ".join(
+            f"{r['iter']}: {r['loss']:.5f}" for r in dhist))
+    check(all(np.isfinite(r["loss"]) for r in dhist)
+          and dhist[-1]["best_loss"] < dhist[0]["loss"],
+          "C2H4 distillation: the loss did not fall")
+    support = {}
+    for name, kw in (("rq", {}),
+                     ("rq_refit", dict(objective="rq_refit", refit_beta=0.05,
+                                       refit_clip=1.0, target_coef=c8))):
+        vmc.anqs.load_state_dict(load_params_npz(BEST_STATE))
+        rows = []
+        _, s, gb = timed(torch, lambda: scp.support_vmc(
+            vmc.anqs, t8, h8, mol.e_nuc, lrs=(1e-4,),
+            steps_per_stage=SUPPORT_VMC_STEPS, log_every=1,
+            on_log=rows.append, **kw))
+        support[name] = {"ms_per_step": s * 1e3 / SUPPORT_VMC_STEPS,
+                         "peak_gb": gb, "rq": [r["rq"] for r in rows]}
+    vmc.anqs.load_state_dict(load_params_npz(BEST_STATE))
+    lrows = []
+    (_, linfo), s, gb = timed(torch, lambda: scp.support_vmc_lbfgs(
+        vmc.anqs, t8, h8, mol.e_nuc, maxiter=LBFGS_EVALS,
+        segment=LBFGS_EVALS, log_every=1, on_log=lrows.append))
+    support["lbfgs"] = {"ms_per_step": s * 1e3 / max(1, len(lrows)),
+                        "peak_gb": gb, "rq": [r["rq"] for r in lrows]}
+    for name, f in support.items():
+        log(f"C2H4 {name} over the top {C2H4_SCI_TOP} from ckpt_47: rq "
+            + ", ".join(f"{x:.7f}" for x in f["rq"])
+            + f" ({f['ms_per_step']:.1f} ms a step, peak "
+            f"{f['peak_gb']:.2f} GB)")
+        check(len(f["rq"]) >= SUPPORT_VMC_STEPS and all(
+            np.isfinite(x) for x in f["rq"]), f"C2H4 {name}: rq")
+        check(abs(f["rq"][0] - support["rq"]["rq"][0]) <= 1e-9,
+              f"C2H4 {name}: the first rq is not ckpt_47's")
+    check(len(lrows) >= LBFGS_EVALS, "C2H4 L-BFGS: evaluations")
+    figures["support"] = support
+    del h8, target, t8
+    torch.cuda.empty_cache()
+
+    # (f) The transformer from the packaged ckpt_3000 at 'highest'.
+    tr = VMC(mol, vmc_config(mol, "transformer", C2H4_ROWS, 4, 3000,
+                             False, 1.0, 1e-4), NETS["transformer"],
+             device="cuda")
+    tr_state = tr.init_state()
+    tr.anqs.load_state_dict(load_params_npz(TR_STATE))
+    with np.load(os.path.join(DATA_DIR, "c2h4_transformer_logpsi.npz")) as d:
+        jla, jph = d["log_abs"], d["phase"]
+    dr, _ = sci.truncate_by_weight(td, tc, len(jla))
+    with torch.no_grad():
+        la, ph = (x.cpu().numpy() for x in tr.anqs.log_psi(
+            pack_dets(dr, mol.qubit_num).cuda()))
+    # log|psi| to 1e-5 + 1e-5 |la|; the phase, a float32 sum of 13 qudits'
+    # pi x outputs that reaches 78 here (one ulp 7.6e-6), to 1e-4.
+    err_la = float(np.max(np.abs(la - jla) / (1e-5 + 1e-5 * np.abs(jla))))
+    err_ph = float(np.max(np.abs(ph - jph)))
+    log(f"C2H4 transformer ckpt_3000 ({tr.anqs.config.matmul_precision}): "
+        f"log|psi| and phase over the target's top {len(jla)} against JAX "
+        f"float32: max |diff| {np.max(np.abs(la - jla)):.2e} (largest share "
+        f"of the 1e-5 + 1e-5 |la| tolerance {err_la:.2f}) and {err_ph:.2e} "
+        f"(tolerance 1e-4; max |phase| {np.max(np.abs(jph)):.1f})")
+    check(err_la <= 1.0 and err_ph <= 1e-4,
+          "C2H4 transformer: log|psi| or phase off JAX's")
+    tr_rows, tr_snap = c2h4_made_step_check(torch, tr, tr_state,
+                                            "C2H4 transformer ckpt_3000")
+    figures["transformer_step_ms"] = [r["step_s"] * 1e3 for r in tr_rows]
+    figures["transformer_escalations"] = tr._overflow_escalations
+    (etr, vtr), s, gb = timed(torch, lambda: scp.sampled_full_energy(
+        tr, tr_state.generator, C2H4_TR_FULL_SAMPLES,
+        row_chunk=C2H4_TR_ROW_CHUNK))
+    figures["transformer_full_energy"] = {"energy": etr, "var": vtr, "s": s,
+                                          "peak_gb": gb}
+    log(f"C2H4 transformer sampled full energy ({C2H4_TR_FULL_SAMPLES}, row"
+        f" chunk {C2H4_TR_ROW_CHUNK}): {etr:.6f} var {vtr:.3e}, {s:.2f} s, "
+        f"peak {gb:.2f} GB (JAX's last rows about -78.1614 .. -78.1655)")
+    check(np.isfinite(etr) and np.isfinite(vtr),
+          "C2H4 transformer: sampled full energy")
+    launches = read_launches()
+    tr_evals = len(tr_rows)
+    full_launches = (C2H4_ROWS // C2H4_ROW_CHUNK
+                     + C2H4_TR_FULL_SAMPLES // C2H4_TR_ROW_CHUNK)
+    evals = made_evals + tr_evals
+    log(f"C2H4 CISD -> SCI path launches {launches} ({made_evals} MADE and "
+        f"{tr_evals} transformer steps launch each kernel twice, stages 3a "
+        f"and 3b; the two full energies launch kernel #1 {full_launches} "
+        "times, once a row chunk)")
+    check(launches == {"fused_matrix_elements": 2 * evals + full_launches,
+                       "hash_lookup": 2 * evals, "hash_tags": 2 * evals},
+          f"C2H4 CISD -> SCI path launched {launches}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (g) The kernels at this path's shapes: both at the MADE step's
+    # prefilter stages; kernel #1 at the full energy's row chunk and whole
+    # sample.
+    figures.update(li2o_nade_kernel_figures(torch, made, made_snap,
+                                            "C2H4 MADE CISD"))
+    with torch.no_grad():
+        s = gumbel_top_k_sample(vmc.anqs, C2H4_ROWS,
+                                torch.Generator(device="cuda").manual_seed(1))
+        fe_words = sort_words(s.words)[0]
+    for rows in (C2H4_ROW_CHUNK, C2H4_ROWS):
+        figures[f"kernel1_full_energy_{rows}"] = me_figures(
+            torch, f"C2H4 full energy B {rows}", fe_words[:rows],
+            vmc.engine.me_tables, reps=10, plain_reps=1)
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"C2H4 CISD -> SCI phase: {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def main():
     try:
         import torch
@@ -1812,6 +2243,7 @@ def main():
     c2h4_launches, c2h4_figures = c2h4_trainer_phase(torch)
     nade_launches, nade_figures = li2o_nade_phase(torch)
     sci_launches, sci_figures = li2o_support_ci_phase(torch)
+    c2h4_sci_launches, c2h4_sci_figures = c2h4_cisd_sci_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -1823,7 +2255,8 @@ def main():
                "li2o_multinomial": multinomial_launches,
                "c2h4_transformer": c2h4_launches,
                "li2o_nade": nade_launches,
-               "li2o_support_ci": sci_launches}
+               "li2o_support_ci": sci_launches,
+               "c2h4_cisd_sci": c2h4_sci_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -1853,6 +2286,17 @@ def main():
             "polish_ms_per_step", "polish_peak_gb", "distill_ms_per_step",
             "pin_step_ms", "support_vmc_ms_per_step", "lbfgs_ms_per_eval",
             "phase_s")}
+
+    me_entry["c2h4_cisd_prefilter"] = {
+        stage: c2h4_sci_figures[f"kernel1_{stage}"] for stage in ("3a", "3b")}
+    hash_entry["c2h4_cisd_prefilter"] = {
+        stage: c2h4_sci_figures[f"kernel2_{stage}"] for stage in ("3a", "3b")}
+    me_entry["c2h4_full_energy"] = {
+        rows: c2h4_sci_figures[f"kernel1_full_energy_{rows}"]
+        for rows in (C2H4_ROW_CHUNK, C2H4_ROWS)}
+    me_entry["c2h4_cisd_sci"] = {
+        k: v for k, v in c2h4_sci_figures.items()
+        if not k.startswith(("kernel1_", "kernel2_", "rows_"))}
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

@@ -203,9 +203,15 @@ def test_li2o_campaign_entry_points(tmp_path, capsys):
     assert len(history) == 2 and np.isfinite(best["energy"])
     cisd_pretrain_vmc.main(argv, device="cpu", run_root=str(tmp_path))
     assert "resuming from" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="matmul_precision"):
-        cisd_pretrain_vmc.main(argv[:4] + ["transformer"], device="cpu",
-                               run_root=str(tmp_path))
+    # The transformer branch runs (it raised before ``matmul_precision``
+    # was ported), from the CISD vector that the first run cached.
+    history, _ = cisd_pretrain_vmc.main(
+        argv[:4] + ["transformer", "10", "0", "1"], device="cpu",
+        run_root=str(tmp_path), stages=((2, 1e-3),))
+    out = capsys.readouterr().out
+    assert "CISD solved" not in out and "CISD: 610 dets" in out
+    assert len(history) == 2
+    assert latest_checkpoint(str(tmp_path / "n2_cisd_transformer_emp_torch"))
 
     history, _ = li2o_closure.main(["li2o_closure", "", "2"], device="cpu",
                                    run_root=str(tmp_path), sample_num=16)

@@ -1,7 +1,7 @@
 """The PyTorch port imports no JAX: every module of
 ``anqs_quantum_chemistry_torch`` (the transformer and NADE ansatzes, the
-pretraining, selected CI, the support-CI closure and the C2H4 and Li2O
-campaigns' entry points among them),
+pretraining, the matmul precision, selected CI, the support-CI closures
+and the C2H4 and Li2O campaigns' entry points among them),
 ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX)."""
@@ -49,6 +49,9 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.experiments.li2o_support_ci",
     "anqs_quantum_chemistry_torch.experiments.li2o_sci_polish",
     "anqs_quantum_chemistry_torch.experiments.li2o_pin_vmc",
+    "anqs_quantum_chemistry_torch.models.precision",
+    "anqs_quantum_chemistry_torch.experiments.c2h4_support_ci",
+    "anqs_quantum_chemistry_torch.experiments.c2h4_support_transformer",
 )
 
 
@@ -58,5 +61,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = out.stdout.split()
-    assert len(walked) >= 34  # every module was walked
+    assert len(walked) >= 37  # every module was walked
     assert set(REQUIRED) <= set(walked)

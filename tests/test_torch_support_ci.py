@@ -44,10 +44,14 @@ def lih():
     params = jv.init_state()[0]
     v = VMC(mol, VMCConfig(**CFG), AnqsConfig(**NET), device="cpu")
     v.anqs.load_state_dict(params_from_jax(to_np(params)))
-    _, dets, coef = jsci.selected_ci([jmol.hf_det], jmol.h1, jmol.v,
-                                     jmol.e_nuc, n_parents=64, rounds=3,
-                                     tol=1e-8)
+    _, dets, _ = jsci.selected_ci([jmol.hf_det], jmol.h1, jmol.v,
+                                  jmol.e_nuc, n_parents=64, rounds=3,
+                                  tol=1e-8)
     h = jfci.sparse_hamiltonian(dets, jmol.h1, jmol.v)
+    # The ground state by dense eigh: ARPACK's start vector (eigsh inside
+    # selected_ci) depends on how many eigsh calls the process made
+    # before, and the float32 targets must not depend on test order.
+    coef = np.linalg.eigh(h.toarray())[1][:, 0]
     return jv, params, v, dets, coef, h
 
 

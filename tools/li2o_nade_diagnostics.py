@@ -2,6 +2,7 @@
 
     python tools/li2o_nade_diagnostics.py distill ITERS TAU [--tf32]
     python tools/li2o_nade_diagnostics.py cisd ITERS [--init FILE] [--tf32]
+        [--precision P] [--run NAME]
 
 ``distill`` runs ``experiments.li2o_distill_closure`` (from the JAX
 package's closure state) for ITERS iterations at ``distill_tau`` TAU and
@@ -12,10 +13,14 @@ amplifies. ``cisd`` runs ``experiments.cisd_pretrain_vmc li2o ITERS``;
 ``--init FILE`` starts its pretraining from the weights in FILE (an npz of
 dotted JAX names, e.g. the JAX package's initial weights written by
 ``tools/export_jax_params.py --init``). ``--tf32`` lets float32 matmuls
-run as TF32 (the port switches TF32 off). Run directories go under
-``build/diagnostics``. Needs a CUDA card; imports no JAX.
+run as TF32 (the port switches TF32 off). ``--precision P`` sets both
+NADE nets' ``matmul_precision`` (e.g. 'bfloat16', the TPU's one-pass
+arithmetic, under which the JAX campaign's record was made). Run
+directories go under ``build/diagnostics``, in ``NAME`` (``--run``) when
+given. Needs a CUDA card; imports no JAX.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -80,8 +85,14 @@ def main(argv):
                 return state
 
             vmc_module.VMC.init_state = init_from_file
+        if "--precision" in argv:
+            cisd_pretrain_vmc.NETS["nade"] = dataclasses.replace(
+                cisd_pretrain_vmc.NETS["nade"],
+                matmul_precision=argv[argv.index("--precision") + 1])
+        root = (os.path.join(RUN_ROOT, argv[argv.index("--run") + 1])
+                if "--run" in argv else RUN_ROOT)
         cisd_pretrain_vmc.main(["cisd_pretrain_vmc", "li2o", iters],
-                               run_root=RUN_ROOT)
+                               run_root=root)
     else:
         sys.exit(__doc__)
 

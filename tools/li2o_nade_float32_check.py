@@ -3,6 +3,7 @@ Li2O NADE campaign (runs where JAX does, not on the card).
 
     python tools/li2o_nade_float32_check.py pretrain0
     python tools/li2o_nade_float32_check.py leg jax|port SAMPLES ITERS
+    python tools/li2o_nade_float32_check.py cisd SAMPLES ITERS [OUT.csv]
 
 ``pretrain0``: the loss of the first CISD pretraining step from the JAX
 package's initial weights (seed 0), in both packages, beside the JAX
@@ -12,6 +13,15 @@ campaign's TPU record (``runs/logs/li2o_nade_t2.log``: 32.49424).
 top 50, prefilter capacities (768, 4096)) from the JAX closure state, in
 one package, at SAMPLES Gumbel samples for ITERS iterations, in windows
 of 10; prints every cycle's row and the one after it.
+``cisd``: the CISD leg of ``examples/cisd_pretrain_vmc.py`` for Li2O (NADE
+(128, 128), qubit_per_qudit 6, Born weights, gradient temperature 2) in the
+JAX package on the CPU, in float32: the JAX package's CISD vector, its
+initial weights (seed 0; the same as ``tools/export_jax_params.py
+--init``), the example's three full-batch pretraining stages (7000 steps:
+the 4425 determinants fit one batch, so no draw is random), then ITERS VMC
+iterations at SAMPLES Gumbel samples in windows of 25. Prints the rows
+every 25 iterations and writes every row to OUT.csv; its card counterpart
+is ``tools/li2o_nade_diagnostics.py cisd ITERS --init FILE --precision P``.
 """
 
 import os
@@ -122,10 +132,76 @@ def leg(which, samples, iters):
               steps_per_call=10, init_params=params, log_every=0)
 
 
+def cisd_leg(samples, iters, out=None):
+    import csv
+
+    import jax
+
+    from anqs_quantum_chemistry_tpu.chem import fci as jfci
+    from anqs_quantum_chemistry_tpu.experiments import vmc as jvmc
+    from anqs_quantum_chemistry_tpu.models.anqs import AnqsConfig
+    from anqs_quantum_chemistry_tpu.optim import pretrain as jpre
+    from anqs_quantum_chemistry_tpu.optim.sr import SRConfig
+
+    mol = jax_molecule()
+    t0 = time.perf_counter()
+    e, dets, coef = jfci.cisd_ground_state(mol.h1, mol.v, int(mol.hf_det),
+                                           mol.e_nuc)
+    print(f"CISD: {len(dets)} dets, E {e:.9f} "
+          f"[{time.perf_counter() - t0:.0f}s]", flush=True)
+    probs, phases = jpre.amplitude_targets_from_coefs(coef)
+    words = jpre.pack_dets(dets, mol.qubit_num)
+    jv = jvmc.VMC(mol, jvmc.VMCConfig(
+        sample_num=samples, sampling_mode="gumbel", qubit_per_qudit=6,
+        lr=3e-4, lr_schedule=((0, 3e-4), (1500, 1e-4), (3000, 3e-5)),
+        grad_clip_norm=0.5, sr=SRConfig(max_indices_num=50),
+        engine_overrides=PREFILTER, seed=0, iter_num=iters,
+        use_theor_freqs=True, grad_weight_temperature=2.0),
+        AnqsConfig(**NADE))
+    params, _, _ = jv.init_state()
+    t0 = time.perf_counter()
+
+    def plog(row):
+        if row["iter"] % 500 == 0:
+            print(f"  pretrain {row['iter']:5d} loss {row['loss']:.5f} "
+                  f"[{time.perf_counter() - t0:.0f}s]", flush=True)
+
+    for stage_iters, lr in ((2500, 1e-3), (2500, 3e-4), (2000, 1e-4)):
+        params, _ = jpre.pretrain(jv.anqs, params, words, probs, phases,
+                                  jax.random.PRNGKey(0), iters=stage_iters,
+                                  lr=lr, batch=min(8192, len(dets)),
+                                  on_log=plog)
+    rows = []
+
+    def progress(it, row):
+        rows.append({"iter": it, **row})
+        if it % 25 == 0:
+            print(f"iter {it} E {row['energy']:.6f} var "
+                  f"{row['energy_var']:.4g} found {int(row['found_pairs'])} "
+                  f"unique {int(row['unique_num'])} "
+                  f"[{time.perf_counter() - t0:.0f}s]", flush=True)
+
+    t0 = time.perf_counter()
+    jv.run(iters, on_iter=progress, checkpoint_every=None, steps_per_call=25,
+           init_params=params)
+    if out:
+        with open(out, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
+    energies = np.array([r["energy"] for r in rows])
+    print(f"found_pairs after pretraining {int(rows[0]['found_pairs'])}; "
+          f"mean energy over iterations 1-{iters - 1} "
+          f"{energies[1:].mean():.6f}", flush=True)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["pretrain0"]:
         pretrain0()
+    elif sys.argv[1:2] == ["cisd"] and len(sys.argv) in (4, 5):
+        cisd_leg(int(sys.argv[2]), int(sys.argv[3]),
+                 sys.argv[4] if len(sys.argv) == 5 else None)
     elif sys.argv[1:2] == ["leg"] and len(sys.argv) == 5:
         leg(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     else:

@@ -11,6 +11,10 @@ determinant and its single and double excitations (JAX
 ``fci.cisd_ground_state``), from the integrals or from the Pauli form: the
 target of supervised pretraining (``optim/pretrain.py``).
 
+``fci_ground_state`` diagonalises H over the whole sector from the
+integrals, and ``mp2_energy`` is the spin-orbital MP2 correlation energy
+(both JAX ``chem/fci.py``), for the molecule build (``chem/molecule.py``).
+
 ``sparse_hamiltonian(dets, h1, v)`` builds H over any determinant list from
 the spin-orbital integrals by the Slater-Condon rules (JAX
 ``fci.sparse_hamiltonian``), as selected CI needs it (``chem/
@@ -31,7 +35,7 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.linalg
 
-from .jw import PauliHamiltonian, words_to_uint64
+from .jw import PauliHamiltonian, words_to_ints
 
 _U = np.uint64
 
@@ -81,7 +85,7 @@ def _parity64(x: np.ndarray) -> np.ndarray:
 def sector_matrix_elements(ham: PauliHamiltonian, dets: np.ndarray,
                            row_chunk: int = 2048) -> np.ndarray:
     """(N, M) float64 elements <x ^ A_m | H | x> for uint64 ``dets``."""
-    b = words_to_uint64(ham.b_words)
+    b = words_to_ints(ham.b_words)
     w = np.asarray(ham.weights, np.float64)
     starts = np.asarray(ham.group_starts[:-1], np.int64)
     out = np.empty((len(dets), ham.n_groups), np.float64)
@@ -99,7 +103,7 @@ def sector_hamiltonian(ham: PauliHamiltonian, dets: np.ndarray):
     in ``dets`` order); partners outside ``dets`` are dropped."""
     n = len(dets)
     me = sector_matrix_elements(ham, dets)
-    a = words_to_uint64(ham.a_masks)
+    a = words_to_ints(ham.a_masks)
     partner = dets[:, None] ^ a[None, :]
     idx = np.clip(np.searchsorted(dets, partner), 0, n - 1)
     found = dets[idx] == partner
@@ -278,6 +282,35 @@ def _ground_state(h):
         return float(w[0]), u[:, 0]
     w, u = scipy.sparse.linalg.eigsh(h, k=1, which="SA")
     return float(w[0]), u[:, 0]
+
+
+def fci_ground_state(h1: np.ndarray, v: np.ndarray, n_alpha: int,
+                     n_beta: int, e_nuc: float = 0.0):
+    """In-sector FCI from the integrals (JAX ``fci.fci_ground_state``):
+    (energy, sorted uint64 determinants, coefficients, ipr), with H over
+    the whole (N_alpha, N_beta) sector from ``sparse_hamiltonian`` and
+    ipr = sum c^4, the inverse participation ratio."""
+    dets = sector_determinants(h1.shape[0], n_alpha, n_beta)
+    energy, coef = _ground_state(sparse_hamiltonian(dets, h1, v))
+    return energy + e_nuc, dets, coef, float(np.sum(coef ** 4))
+
+
+def mp2_energy(h1: np.ndarray, v: np.ndarray, mo_energy_so: np.ndarray,
+               hf_det: int) -> float:
+    """MP2 correlation energy in spin-orbital form (JAX
+    ``fci.mp2_energy``): 1/4 sum_{ijab} (<ab|ij> - <ab|ji>)^2 / (e_i + e_j
+    - e_a - e_b) over occupied i, j and virtual a, b, terms with a zero
+    numerator left out, as JAX's loop leaves them out."""
+    n_so = h1.shape[0]
+    occ = np.asarray(_occ_list(int(hf_det), n_so), np.int64)
+    virt = np.setdiff1d(np.arange(n_so), occ)
+    vv = v[np.ix_(virt, virt, occ, occ)]  # <ab|ij>
+    num = vv - vv.transpose(0, 1, 3, 2)
+    e = np.asarray(mo_energy_so, np.float64)
+    denom = (e[occ][None, None, :, None] + e[occ][None, None, None, :]
+             - e[virt][:, None, None, None] - e[virt][None, :, None, None])
+    nz = num != 0.0
+    return float(0.25 * np.sum(num[nz] ** 2 / denom[nz]))
 
 
 def cisd_ground_state(ham_or_h1, *args):

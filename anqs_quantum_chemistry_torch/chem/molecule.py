@@ -1,8 +1,19 @@
-"""Prepared molecules, read from a molecule file (no SCF).
+"""Prepared molecules: built from atoms, or read from a molecule file.
 
-A molecule file is the npz cache that the JAX package's
-``chem/molecule.py`` writes (``Molecule._save_cache``); ``Molecule.from_npz``
-reads the fields the training path needs, as ``Molecule._from_cache`` does.
+``Molecule.create(MolConfig(name=...), mols_dir=...)`` builds any molecule
+of ``chem/geometry_repo.py`` as the JAX package's ``chem/molecule.py``
+does, on the host: the integrals (``chem/integrals.py``), RHF or ROHF
+(``chem/scf.py``), the spin-orbital integrals, the Jordan-Wigner form
+(``chem/jw.py``), MP2, CISD, CCSD and CCSD(T) (``chem/cc.py``), and the FCI
+energy: sparse eigsh up to ``MAX_BF_FCI_QUBITS`` qubits, direct CI on the
+card (``chem/direct_ci.py``) up to ``MAX_DIRECT_CI_NDET`` determinants. It
+caches the result as ``<mols_dir>/<name>/<sha256(config)[:16]>.npz`` with
+JAX's keys and file name, so the two packages read each other's caches.
+
+A molecule file is such an npz cache; ``Molecule.from_npz`` is the one
+reader (JAX ``Molecule._from_cache``) and takes the keys a file lacks as
+absent.
+
 The molecules the port trains on ship inside this package, so a checkout
 that carries no ``mols/`` directory runs them: N2/STO-3G, the main path
 (``data/n2_sto3g.npz``), Li2O/STO-3G, the dynamic-membership path
@@ -52,12 +63,21 @@ import dataclasses
 import math
 import os
 import sys
+import time
 from typing import Optional
 
 import numpy as np
 
+from ..utils.config import Config
+from . import fci as fci_mod
+from .basis import ELEMENTS, basis_for_atoms, nuclear_repulsion
 from .fci import SECTOR_MAX_DETS, sector_ground_energy
-from .jw import PauliHamiltonian
+from .geometry_repo import (GEOMETRIES, MULTIPLICITIES, geometry_bohr,
+                            linear_geometry)
+from .integrals import compute_integrals_ao
+from .jw import (PauliHamiltonian, jordan_wigner_pauli_hamiltonian,
+                 z_string_symmetries)
+from .scf import mo_integrals, rhf, rohf, spin_orbital_integrals
 
 DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data"
@@ -77,6 +97,32 @@ PACKAGED_KEYS = (
 INTEGRAL_KEYS = ("h1", "v")
 SPATIAL_KEYS = ("h1_spatial", "v_spatial")
 
+# FCI by sparse eigsh up to this many qubits (JAX's cutoff, the reference's
+# max_fci_qubits), by direct CI up to this many sector determinants; larger
+# sectors (Li2O's 41.4M) go through an explicit ``run_direct_fci()``.
+MAX_BF_FCI_QUBITS = 20
+MAX_DIRECT_CI_NDET = 2_000_000
+
+
+@dataclasses.dataclass
+class GeometryConfig(Config):
+    type: str = "carleo"
+    idx: int = 0
+    bond_length: Optional[float] = None  # angstrom, for dissociation curves
+
+
+@dataclasses.dataclass
+class MolConfig(Config):
+    """A molecule of ``geometry_repo``; serialises as JAX's ``MolConfig``
+    does, so ``to_sha256_str()[:16]`` names the same cache file."""
+
+    name: str = "LiH"
+    basis: str = "sto-3g"
+    geometry: GeometryConfig = dataclasses.field(
+        default_factory=GeometryConfig)
+    multiplicity: Optional[int] = None
+    charge: int = 0
+
 
 def spatial_integrals(h1: np.ndarray, v: np.ndarray):
     """The alpha blocks (h1[0::2, 0::2], v[0::2, 0::2, 0::2, 0::2])."""
@@ -84,8 +130,10 @@ def spatial_integrals(h1: np.ndarray, v: np.ndarray):
             np.ascontiguousarray(v[0::2, 0::2, 0::2, 0::2]))
 
 
-def spin_orbital_integrals(h1s: np.ndarray, vs: np.ndarray):
-    """Spatial (h1, v) -> the interleaved spin-orbital (h1, v)."""
+def spin_orbital_from_alpha_block(h1s: np.ndarray, vs: np.ndarray):
+    """The alpha blocks of ``spatial_integrals`` -> the interleaved
+    spin-orbital (h1, v). (``scf.spin_orbital_integrals`` takes the chemist
+    ``eri_mo`` instead.)"""
     n = h1s.shape[0]
     h1 = np.zeros((2 * n, 2 * n), h1s.dtype)
     v = np.zeros((2 * n,) * 4, vs.dtype)
@@ -101,6 +149,10 @@ def _energy(data, key: str) -> Optional[float]:
         return None
     e = float(np.asarray(data[key]).reshape(-1)[0])
     return None if np.isnan(e) else e
+
+
+def _nan(value: Optional[float]) -> np.ndarray:
+    return np.array([np.nan if value is None else value])
 
 
 @dataclasses.dataclass
@@ -125,6 +177,16 @@ class Molecule:
     # (the C2H4 examples report "% of CCSD(T) correlation").
     cisd_energy: Optional[float] = None
     ccsd_t_energy: Optional[float] = None
+    # The rest of a molecule cache (JAX ``_from_cache``), where present.
+    mo_energy: Optional[np.ndarray] = None
+    mp2_energy: Optional[float] = None
+    ccsd_energy: Optional[float] = None
+    fci_ipr: Optional[float] = None
+    # What a build from atoms knows besides: its config and the seconds of
+    # each stage ("integrals", "scf", "jw", "mp2", "cisd", "ccsd_t",
+    # "fci").
+    config: Optional[MolConfig] = None
+    build_seconds: Optional[dict] = None
 
     @property
     def n_orbitals(self) -> int:
@@ -138,15 +200,196 @@ class Molecule:
         )
 
     @classmethod
-    def from_npz(cls, path: str, name: Optional[str] = None) -> "Molecule":
+    def build(cls, config: MolConfig, run_fci: bool = True,
+              run_cisd: bool = True, device="cuda") -> "Molecule":
+        """Build from atoms (JAX ``Molecule.__init__``): integrals, RHF
+        (ROHF for an open shell), the JW form, MP2 (closed shell), with
+        ``run_cisd`` CISD and CCSD(T), with ``run_fci`` the FCI energy
+        (direct CI on ``device`` above ``MAX_BF_FCI_QUBITS``), and the
+        Z-string symmetry generators. Raises ``ValueError`` on a name that
+        ``geometry_repo`` lacks, ``RuntimeError`` if the SCF fails."""
+        if config.name not in GEOMETRIES:
+            raise ValueError(f"Unknown molecule '{config.name}'; available: "
+                             f"{sorted(GEOMETRIES)}")
+        seconds = {}
+        t0 = time.perf_counter()
+        geom = GEOMETRIES[config.name]
+        if config.geometry.bond_length is not None:
+            geom = linear_geometry(config.name, config.geometry.bond_length)
+        atoms = geometry_bohr(geom)
+        multiplicity = config.multiplicity or MULTIPLICITIES.get(
+            config.name, 1)
+        n_electrons = (sum(ELEMENTS[el] for el, _ in atoms)
+                       - config.charge)
+        ints = compute_integrals_ao(atoms, basis_for_atoms(atoms,
+                                                           config.basis))
+        e_nuc = nuclear_repulsion(atoms)
+        h_core = ints["T"] + ints["V"]
+        n_alpha = (n_electrons + (multiplicity - 1)) // 2
+        n_beta = n_electrons - n_alpha
+        t1 = time.perf_counter()
+        seconds["integrals"] = t1 - t0
+        if n_alpha == n_beta:
+            scf_res = rhf(ints["S"], h_core, ints["ERI"], n_electrons, e_nuc)
+        else:
+            # Open shell: ROHF, one set of spatial orbitals, so the
+            # interleaved spin-orbital transform applies unchanged.
+            scf_res = rohf(ints["S"], h_core, ints["ERI"], n_alpha, n_beta,
+                           e_nuc)
+        if not scf_res["converged"]:
+            raise RuntimeError(f"SCF failed to converge for {config.name}")
+        h_mo, eri_mo = mo_integrals(h_core, ints["ERI"], scf_res["mo_coeff"])
+        h1, v = spin_orbital_integrals(h_mo, eri_mo)
+        t2 = time.perf_counter()
+        seconds["scf"] = t2 - t1
+        qubit_num = 2 * h_mo.shape[0]
+        hf_det = (sum(1 << (2 * o) for o in range(n_alpha))
+                  | sum(1 << (2 * o + 1) for o in range(n_beta)))
+        ham = jordan_wigner_pauli_hamiltonian(h1, v, constant=e_nuc)
+        t3 = time.perf_counter()
+        seconds["jw"] = t3 - t2
+        mol = cls(
+            name=config.name, qubit_num=qubit_num, n_alpha=n_alpha,
+            n_beta=n_beta, n_electrons=n_electrons,
+            multiplicity=multiplicity, hf_det=hf_det, e_nuc=e_nuc,
+            hf_energy=scf_res["hf_energy"], fci_energy=None,
+            z2_generators=z_string_symmetries(ham), qubit_ham=ham, h1=h1,
+            v=v, mo_energy=scf_res["mo_energy"], config=config,
+            build_seconds=seconds,
+        )
+        if n_alpha == n_beta:
+            mol.mp2_energy = mol.hf_energy + fci_mod.mp2_energy(
+                h1, v, np.repeat(mol.mo_energy, 2), hf_det)
+        # ROHF-MP2 is not uniquely defined with Roothaan effective orbital
+        # energies: an open shell gets none, as in JAX.
+        seconds["mp2"] = time.perf_counter() - t3
+        if run_cisd:
+            mol._compute_correlated_baselines()
+        if run_fci:
+            mol._compute_fci(device)
+        return mol
+
+    def _compute_fci(self, device="cuda") -> bool:
+        """The sector's exact ground state where tractable: sparse eigsh up
+        to ``MAX_BF_FCI_QUBITS`` qubits, else direct CI on ``device`` up to
+        ``MAX_DIRECT_CI_NDET`` determinants. True if it ran."""
+        t0 = time.perf_counter()
+        if self.qubit_num <= MAX_BF_FCI_QUBITS:
+            e, _, _, ipr = fci_mod.fci_ground_state(
+                self.h1, self.v, self.n_alpha, self.n_beta, self.e_nuc)
+            self.fci_energy = float(e)
+            self.fci_ipr = float(ipr)
+        elif self.fci_ndet <= MAX_DIRECT_CI_NDET:
+            self.run_direct_fci(device=device)
+        else:
+            return False
+        self._seconds("fci", t0)
+        return True
+
+    def run_direct_fci(self, device="cuda") -> float:
+        """The FCI energy by direct CI on ``device`` (beyond the eigsh cap:
+        Li2O/STO-3G's 41.4M determinants), to JAX's residual of 1e-4."""
+        from .direct_ci import direct_ci_ground_state
+
+        res = direct_ci_ground_state(self.h1, self.v, self.n_alpha,
+                                     self.n_beta, self.e_nuc, tol=1e-4,
+                                     device=device)
+        self.fci_energy = float(res.energy)
+        self.fci_ipr = float(res.ipr)
+        return self.fci_energy
+
+    def _compute_correlated_baselines(self):
+        """CISD, CCSD and CCSD(T) (JAX ``_compute_correlated_baselines``;
+        CCSD and (T) stay None if CCSD does not converge)."""
+        from .cc import ccsd, ccsd_t_correction
+
+        t0 = time.perf_counter()
+        self.cisd_energy = float(fci_mod.cisd_ground_state(
+            self.h1, self.v, self.hf_det, self.e_nuc)[0])
+        t0 = self._seconds("cisd", t0)
+        e_cc, t1, t2, info = ccsd(self.h1, self.v, self.hf_det, self.e_nuc)
+        if info["converged"]:
+            self.ccsd_energy = float(e_cc)
+            self.ccsd_t_energy = float(e_cc + ccsd_t_correction(
+                self.h1, self.v, self.hf_det, t1, t2))
+        self._seconds("ccsd_t", t0)
+
+    def _seconds(self, stage: str, t0: float) -> float:
+        now = time.perf_counter()
+        if self.build_seconds is not None:
+            self.build_seconds[stage] = now - t0
+        return now
+
+    @classmethod
+    def create(cls, config: MolConfig, mols_dir: str = "mols",
+               run_fci: bool = True, run_cisd: bool = True,
+               device="cuda") -> "Molecule":
+        """Read ``<mols_dir>/<name>/<sha256(config)[:16]>.npz`` or build
+        and write it (JAX ``Molecule.create``). A cache written without
+        the CISD/CCSD ladder or the FCI energy (NaN) gets what a caller
+        asks for computed and the file rewritten. ``device``: where direct
+        CI runs."""
+        cache_dir = os.path.join(mols_dir, config.name)
+        path = os.path.join(cache_dir, cache_name(config))
+        if os.path.exists(path):
+            mol = cls.from_npz(path, name=config.name, config=config)
+            upgraded = False
+            if run_cisd and mol.cisd_energy is None:
+                mol._compute_correlated_baselines()
+                upgraded = True
+            if run_fci and mol.fci_energy is None:
+                upgraded = mol._compute_fci(device) or upgraded
+            if upgraded:
+                mol._save_cache(path)
+            return mol
+        mol = cls.build(config, run_fci=run_fci, run_cisd=run_cisd,
+                        device=device)
+        os.makedirs(cache_dir, exist_ok=True)
+        mol._save_cache(path)
+        return mol
+
+    def _save_cache(self, path: str):
+        """Write the molecule cache with JAX's keys (``_save_cache``)."""
+        ham = self.qubit_ham
+        np.savez_compressed(
+            path,
+            e_nuc=self.e_nuc,
+            hf_energy=self.hf_energy,
+            mo_energy=self.mo_energy,
+            h1=self.h1,
+            v=self.v,
+            n_alpha=self.n_alpha,
+            n_beta=self.n_beta,
+            hf_det=np.array([self.hf_det], dtype=np.uint64),
+            qubit_num=self.qubit_num,
+            mp2_energy=_nan(self.mp2_energy),
+            cisd_energy=_nan(self.cisd_energy),
+            ccsd_energy=_nan(self.ccsd_energy),
+            ccsd_t_energy=_nan(self.ccsd_t_energy),
+            fci_energy=_nan(self.fci_energy),
+            fci_ipr=_nan(self.fci_ipr),
+            multiplicity=self.multiplicity,
+            n_electrons=self.n_electrons,
+            ham_constant=ham.constant,
+            ham_a_masks=ham.a_masks,
+            ham_b_words=ham.b_words,
+            ham_weights=ham.weights,
+            ham_group_starts=ham.group_starts,
+            z2_generators=self.z2_generators,
+        )
+
+    @classmethod
+    def from_npz(cls, path: str, name: Optional[str] = None,
+                 config: Optional[MolConfig] = None) -> "Molecule":
         with np.load(path) as data:
             qubit_num = int(data["qubit_num"])
             integrals = {}
             if set(INTEGRAL_KEYS) <= set(data.files):
                 integrals = {k: data[k] for k in INTEGRAL_KEYS}
             elif set(SPATIAL_KEYS) <= set(data.files):
-                integrals = dict(zip(INTEGRAL_KEYS, spin_orbital_integrals(
-                    *(data[k] for k in SPATIAL_KEYS))))
+                integrals = dict(zip(
+                    INTEGRAL_KEYS, spin_orbital_from_alpha_block(
+                        *(data[k] for k in SPATIAL_KEYS))))
             return cls(
                 name=name or os.path.basename(os.path.dirname(path)),
                 qubit_num=qubit_num,
@@ -160,6 +403,12 @@ class Molecule:
                 fci_energy=_energy(data, "fci_energy"),
                 cisd_energy=_energy(data, "cisd_energy"),
                 ccsd_t_energy=_energy(data, "ccsd_t_energy"),
+                mo_energy=(data["mo_energy"] if "mo_energy" in data.files
+                           else None),
+                mp2_energy=_energy(data, "mp2_energy"),
+                ccsd_energy=_energy(data, "ccsd_energy"),
+                fci_ipr=_energy(data, "fci_ipr"),
+                config=config,
                 z2_generators=data["z2_generators"],
                 qubit_ham=PauliHamiltonian(
                     qubit_num=qubit_num,
@@ -171,6 +420,11 @@ class Molecule:
                 ),
                 **integrals,
             )
+
+
+def cache_name(config: MolConfig) -> str:
+    """The molecule cache's file name: JAX's ``<sha256(config)[:16]>.npz``."""
+    return config.to_sha256_str()[:16] + ".npz"
 
 
 def load_n2() -> Molecule:
@@ -208,7 +462,7 @@ def write_packaged(src: str, dst: str, integrals: bool = False) -> float:
         if integrals:
             h1, v = data["h1"], data["v"]
             h1s, vs = spatial_integrals(h1, v)
-            back = spin_orbital_integrals(h1s, vs)
+            back = spin_orbital_from_alpha_block(h1s, vs)
             if not (np.array_equal(back[0], h1)
                     and np.array_equal(back[1], v)):
                 raise ValueError(f"{src}: the integrals are not the "

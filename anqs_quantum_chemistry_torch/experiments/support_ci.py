@@ -39,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..chem import fci as fci_mod
-from ..chem.jw import words_to_uint64
+from ..chem.jw import words_to_ints
 from ..ops import keys
 from ..optim.adam import FlatAdam
 from ..optim.pretrain import amplitude_targets_from_coefs, pack_dets, pretrain
@@ -61,7 +61,7 @@ def sample_support(vmc, generator: torch.Generator, sample_num: int,
     out = set()
     for _ in range(passes):
         s = gumbel_top_k_sample(vmc.anqs, sample_num, generator)
-        out.update(words_to_uint64(s.words[s.valid].cpu().numpy()).tolist())
+        out.update(words_to_ints(s.words[s.valid].cpu().numpy()).tolist())
     return sorted(out)
 
 

@@ -186,6 +186,31 @@ and ckpt_3000), counts set to 0 before (c) and read after (f):
   energy's row chunk (1024) and whole sample (8192), against their plain
   versions (bit for bit) and bounds.
 
+Last, the host chemistry layer and direct CI (``chem_build_phase``), counts
+set to 0 before (b) and read after it:
+
+- (a) N2/STO-3G at 2.0 angstrom built from atoms by ``Molecule.create``
+  into a temporary ``mols_dir``: HF, CISD and FCI within 1e-8 Ha of the JAX
+  package's record (``N2_R_*``), the host time of each stage; kernel #1
+  against its plain version at its Hamiltonian (9454 terms in 1744
+  groups), timed beside its bound.
+- (b) ``DISSOCIATION_STEPS`` steps of ``experiments.dissociation_curve``
+  (exact summation over the 14,400 determinants, MADE 512, qubit_per_qudit
+  10, MinSR top 50, clip 1.0, Adam 1e-3) on it through its ``main``: every
+  energy finite and at or above FCI - 1e-6 Ha (an exact energy is a
+  Rayleigh quotient), the curve's CSV under JAX's header; kernel #1 once a
+  step.
+- (c) The direct-CI sigma at a random vector (numpy ``--seed``) of that
+  molecule's sector: float64 on the card against ``host_sigma_f64`` to
+  1e-10 relative, float32 against float64 to 1e-5; the float32/float64
+  pair again over Li2O's 41,409,225 determinants.
+- (d) Li2O/STO-3G's FCI by ``direct_ci_ground_state`` on the card from the
+  packaged integrals: within 2e-6 Ha of the JAX package's record and its
+  ipr within 1e-4, and its vector's quotient over the string tables rounded
+  to float32 (the record's arithmetic) within 1e-8 Ha of the record; the Davidson iterations, the residual, the host time of
+  the tables, ms a float32 sigma, the float64 quotient's and the solve's
+  time and the peak memory printed.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -301,6 +326,28 @@ C2H4_SCI_CKPT47_MASS = 0.9997919202
 # (``runs/c2h4_sci/confirm_energies.npy``, std 2.5e-6).
 C2H4_MADE_RECORD_ENERGY = -78.16377
 C2H4_SCI_CONFIRM_ENERGY = -78.1886096
+# The molecule build from atoms and direct CI (``chem_build_phase``): N2/STO-3G
+# at 2.0 angstrom against the JAX package's record (runs/n2_dissociation.csv,
+# row 2.0: HF, CISD, FCI; host float64, so reproducible to ~1e-12), the
+# dissociation recipe's exact steps on it, and Li2O/STO-3G's FCI by direct CI
+# against the JAX package's (runs/li2o_fci_summary.json: the float64
+# Rayleigh quotient and the ipr of its 41,409,225-determinant solve). That
+# quotient upcasts float32 string tables; the port's takes float64 ones, and
+# the port's vector with the tables rounded to float32 gives JAX's record to
+# LI2O_JAX_TABLES_TOL.
+N2_R = 2.0
+N2_R_HF = -107.06729389526026
+N2_R_CISD = -107.31528185085801
+N2_R_FCI = -107.45515453326401
+N2_R_TOL = 1e-8
+DISSOCIATION_STEPS = 20
+LI2O_FCI_ENERGY = -88.7054497444615
+LI2O_FCI_IPR = 0.82054769548887
+LI2O_FCI_TOL = 2e-6
+LI2O_JAX_TABLES_TOL = 1e-8
+LI2O_IPR_TOL = 1e-4
+SIGMA64_TOL = 1e-10  # device float64 sigma vs host_sigma_f64, relative
+SIGMA32_TOL = 1e-5  # device float32 sigma vs float64, relative
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -859,7 +906,7 @@ def li2o_trainer_phase(torch, vmc):
     import numpy as np
 
     from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
-    from anqs_quantum_chemistry_torch.chem.jw import words_to_uint64
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_ints
 
     state = vmc.init_state()
     # Step 0's own sample set, replayed: the generator's state is restored,
@@ -887,7 +934,7 @@ def li2o_trainer_phase(torch, vmc):
 
     t = time.perf_counter()
     ham = vmc.ham
-    a = words_to_uint64(ham.a_masks)
+    a = words_to_ints(ham.a_masks)
     host_pairs = int(np.isin(dets[:, None] ^ a[None, :], dets).sum())
     h = sector_hamiltonian(ham, dets)
     e_ref = float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
@@ -1140,13 +1187,13 @@ def host_pairs_and_rayleigh(ham, words, valid, la, ph):
     import numpy as np
     import scipy.sparse
 
-    from anqs_quantum_chemistry_torch.chem.jw import words_to_uint64
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_ints
 
     keep = valid.cpu().numpy()
-    dets = words_to_uint64(words.cpu().numpy()[keep])
+    dets = words_to_ints(words.cpu().numpy()[keep])
     psi = np.exp(la.double().cpu().numpy()[keep]
                  + 1j * ph.double().cpu().numpy()[keep])
-    a = words_to_uint64(ham.a_masks)
+    a = words_to_ints(ham.a_masks)
     order = np.argsort(a)
     a_sorted = a[order]
     n = len(dets)
@@ -1164,7 +1211,7 @@ def host_pairs_and_rayleigh(ham, words, valid, la, ph):
     pair = np.repeat(np.arange(len(src)), sizes)
     term = (np.repeat(starts[grp] - (np.cumsum(sizes) - sizes), sizes)
             + np.arange(int(sizes.sum())))
-    par = dets[src][pair] & words_to_uint64(ham.b_words)[term]
+    par = dets[src][pair] & words_to_ints(ham.b_words)[term]
     for shift in (32, 16, 8, 4, 2, 1):
         par = par ^ (par >> np.uint64(shift))
     sign = 1.0 - 2.0 * (par & np.uint64(1)).astype(np.float64)
@@ -1855,6 +1902,203 @@ def timed(torch, fn):
             (torch.cuda.max_memory_allocated() - base) / 1e9)
 
 
+def sigma_check(torch, h1, v, n_alpha, n_beta, label, seed, host=True):
+    """The device sigma at a random vector (numpy ``seed``) of the sector:
+    float64 against ``host_sigma_f64`` (with ``host``) and float32 against
+    float64, each as max|diff| / max|reference|; the host time of the
+    tables, and the device time of each sigma (CUDA events, mean of 3)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.direct_ci import (
+        host_sigma_f64, make_sigma, sigma_operands)
+
+    n_orb = h1.shape[0] // 2
+    t = time.perf_counter()
+    ops = sigma_operands(h1, v, n_alpha, n_beta, device="cuda")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t
+    sig32, sa, sb = make_sigma(n_orb, ops.s_alpha, ops.s_beta,
+                               dtype=torch.float32, device="cuda")
+    sig64, _, _ = make_sigma(n_orb, ops.s_alpha, ops.s_beta,
+                             dtype=torch.float64, device="cuda")
+    c = np.zeros((sa, sb))
+    c[:ops.s_alpha, :ops.s_beta] = np.random.default_rng(seed).standard_normal(
+        (ops.s_alpha, ops.s_beta))
+    c64 = torch.from_numpy(c).cuda()
+    c32 = c64.float()
+    tab64, tab32 = ops.tables(torch.float64), ops.tables(torch.float32)
+    s64 = sig64(c64, *tab64, 0.0)
+    s32 = sig32(c32, *tab32, 0.0)
+    scale = float(s64.abs().max())
+    err32 = float((s32.double() - s64).abs().max()) / scale
+    del s32
+    out = {"S_a": ops.s_alpha, "S_b": ops.s_beta, "tables_s": tables_s,
+           "rel_err_f32": err32,
+           "ms_f32": cuda_ms(lambda: sig32(c32, *tab32, 0.0), 3, 1),
+           "ms_f64": cuda_ms(lambda: sig64(c64, *tab64, 0.0), 3, 1)}
+    if host:
+        ref = host_sigma_f64(c, *(t.cpu().numpy() for t in tab64))
+        out["rel_err_f64"] = float(np.abs(s64.cpu().numpy() - ref).max()
+                                   / np.abs(ref).max())
+    log(f"sigma at {label} ({ops.s_alpha} x {ops.s_beta} strings, padded "
+        f"{sa} x {sb}): " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                                      else f"{k} {v}" for k, v in out.items()))
+    if host:
+        check(out["rel_err_f64"] <= SIGMA64_TOL,
+              f"{label}: float64 sigma vs host_sigma_f64 "
+              f"{out['rel_err_f64']:.3e}")
+    check(err32 <= SIGMA32_TOL, f"{label}: float32 sigma vs float64 "
+          f"{err32:.3e}")
+    return out
+
+
+def li2o_quotient_f32_tables(torch, li2o, coeffs):
+    """The float64 Rayleigh quotient of the (S_a, S_b) vector ``coeffs``
+    on the card over the string tables rounded to float32 and upcast, as
+    the JAX package's record was taken (plus e_nuc)."""
+    from anqs_quantum_chemistry_torch.chem.direct_ci import (
+        make_sigma, sigma_operands)
+
+    ops = sigma_operands(li2o.h1, li2o.v, li2o.n_alpha, li2o.n_beta,
+                         device="cuda")
+    sig64, sa, sb = make_sigma(li2o.h1.shape[0] // 2, ops.s_alpha,
+                               ops.s_beta, dtype=torch.float64,
+                               device="cuda")
+    c = torch.zeros((sa, sb), dtype=torch.float64, device="cuda")
+    c[:ops.s_alpha, :ops.s_beta] = torch.from_numpy(coeffs).cuda()
+    tabs = [t.double() if t.is_floating_point() else t
+            for t in ops.tables(torch.float32)]
+    hc = sig64(c, *tabs, 0.0)
+    return float(torch.dot(c.reshape(-1), hc.reshape(-1))
+                 / torch.dot(c.reshape(-1), c.reshape(-1))) + li2o.e_nuc
+
+
+def chem_build_phase(torch, seed):
+    """The host chemistry layer and direct CI: (a) N2/STO-3G at ``N2_R``
+    angstrom built from atoms (``Molecule.create`` into a temporary
+    ``mols_dir``) against the JAX record; (b) ``DISSOCIATION_STEPS`` exact
+    steps of the dissociation recipe on it through its entry point, kernel
+    #1 held against its plain version at its Hamiltonian; (c) the device
+    sigma against its plain version at that molecule's 14,400-determinant
+    sector; (d) Li2O/STO-3G's FCI by ``direct_ci_ground_state`` on the card
+    from the packaged integrals. Returns (the launches of (b), figures)."""
+    import tempfile
+
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.direct_ci import (
+        direct_ci_ground_state)
+    from anqs_quantum_chemistry_torch.chem.fci import sector_determinants
+    from anqs_quantum_chemistry_torch.chem.molecule import load_li2o
+    from anqs_quantum_chemistry_torch.experiments import dissociation_curve
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import build_tables
+
+    t_phase = time.perf_counter()
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        mol = dissociation_curve.n2_at(N2_R, mols_dir=tmp, device="cuda")
+        figures["n2_build_s"] = time.perf_counter() - t
+        figures["n2_stage_s"] = dict(mol.build_seconds)
+        log(f"N2 r={N2_R} from atoms: {figures['n2_build_s']:.2f} s (host); "
+            "stages " + ", ".join(f"{k} {v:.2f} s"
+                                  for k, v in mol.build_seconds.items()))
+        for label, got, want in (("HF", mol.hf_energy, N2_R_HF),
+                                 ("CISD", mol.cisd_energy, N2_R_CISD),
+                                 ("FCI", mol.fci_energy, N2_R_FCI)):
+            log(f"N2 r={N2_R} {label} {got:.14f}, record {want:.14f}, "
+                f"|diff| {abs(got - want):.2e} Ha")
+            check(abs(got - want) <= N2_R_TOL, f"N2 r={N2_R} {label} "
+                  f"{got} vs the record {want}")
+        log(f"N2 r={N2_R} MP2 {mol.mp2_energy:.10f} CCSD "
+            f"{mol.ccsd_energy:.10f} CCSD(T) {mol.ccsd_t_energy:.10f} "
+            f"ipr {mol.fci_ipr:.6f}, {mol.qubit_ham.n_terms} terms in "
+            f"{mol.qubit_ham.n_groups} groups")
+
+        dets = sector_determinants(mol.qubit_num, mol.n_alpha, mol.n_beta)
+        words = np.concatenate([dets, np.full(64, 0xFFFFFFFF, np.uint64)])
+        words = torch.from_numpy(words.astype(np.int64)[:, None]).cuda()
+        figures["kernel1"] = me_figures(
+            torch, f"N2 r={N2_R}", words, build_tables(mol.qubit_ham, "cuda"),
+            reps=20, plain_reps=3)
+        del words
+        torch.cuda.empty_cache()
+
+        reset_launches()
+        t = time.perf_counter()
+        res = dissociation_curve.main(
+            ["dissociation_curve", "5", str(DISSOCIATION_STEPS), str(N2_R)],
+            device="cuda", mols_dir=tmp, run_root=tmp)[N2_R]
+        launches = read_launches()
+        figures["dissociation_s"] = time.perf_counter() - t
+        energies = res["energies"]
+        log(f"N2 r={N2_R} dissociation recipe, {len(energies)} exact steps "
+            f"({figures['dissociation_s']:.2f} s with set-up, "
+            f"{res['s_per_step']:.4f} s a step): energies "
+            f"{[round(e, 6) for e in energies]}; launches {launches}")
+        check(len(energies) == DISSOCIATION_STEPS, "dissociation: "
+              f"{len(energies)} rows")
+        check(all(np.isfinite(energies)), "dissociation: non-finite energy")
+        low = min(energies) - mol.fci_energy
+        check(low >= -1e-6, f"dissociation: an exact energy {low:.3e} Ha "
+              "below FCI")
+        check(launches == {"fused_matrix_elements": DISSOCIATION_STEPS,
+                           "hash_lookup": 0, "hash_tags": 0},
+              f"dissociation launched {launches}")
+        with open(os.path.join(tmp, "n2_dissociation.csv")) as f:
+            lines = f.read().splitlines()
+        check(lines[0] == "r_angstrom,hf,cisd,fci,vmc" and len(lines) == 2,
+              f"n2_dissociation.csv: {lines}")
+        figures["dissociation_s_per_step"] = res["s_per_step"]
+
+        figures["sigma_n2"] = sigma_check(torch, mol.h1, mol.v, mol.n_alpha,
+                                          mol.n_beta, f"N2 r={N2_R}", seed)
+
+    li2o = load_li2o()
+    figures["sigma_li2o"] = sigma_check(torch, li2o.h1, li2o.v, li2o.n_alpha,
+                                        li2o.n_beta, "Li2O", seed,
+                                        host=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    fci = direct_ci_ground_state(li2o.h1, li2o.v, li2o.n_alpha, li2o.n_beta,
+                                 li2o.e_nuc, tol=1e-4, device="cuda",
+                                 verbose=log, return_coeffs=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    sig = figures["sigma_li2o"]
+    e_jax_tables = li2o_quotient_f32_tables(torch, li2o, fci.coeffs)
+    figures["li2o_fci"] = {
+        "energy": fci.energy, "energy_f32": fci.energy_f32,
+        "energy_f32_tables": e_jax_tables,
+        "ipr": fci.ipr, "iterations": fci.iterations,
+        "residual": fci.residual, "solve_s": solve_s, "peak_gb": peak}
+    log(f"Li2O FCI by direct CI: {fci.energy:.13f} (record "
+        f"{LI2O_FCI_ENERGY:.13f}, diff "
+        f"{fci.energy - LI2O_FCI_ENERGY:+.2e} Ha; the same vector over the "
+        f"tables rounded to float32 as JAX's {e_jax_tables:.13f}, diff "
+        f"{e_jax_tables - LI2O_FCI_ENERGY:+.2e} Ha), float32 Ritz "
+        f"{fci.energy_f32:.10f}, ipr {fci.ipr:.11f} (record "
+        f"{LI2O_FCI_IPR}), {fci.iterations} Davidson iterations, residual "
+        f"{fci.residual:.3e}; solve {solve_s:.2f} s (host clock, "
+        f"synchronised): tables {sig['tables_s']:.2f} s (host), a float32 "
+        f"sigma {sig['ms_f32']:.1f} ms, the float64 quotient's sigma "
+        f"{sig['ms_f64']:.1f} ms; peak {peak:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held before")
+    check(abs(fci.energy - LI2O_FCI_ENERGY) <= LI2O_FCI_TOL,
+          f"Li2O FCI {fci.energy} vs {LI2O_FCI_ENERGY}")
+    check(abs(e_jax_tables - LI2O_FCI_ENERGY) <= LI2O_JAX_TABLES_TOL,
+          f"Li2O quotient over float32 tables {e_jax_tables} vs "
+          f"{LI2O_FCI_ENERGY}")
+    check(abs(fci.ipr - LI2O_FCI_IPR) <= LI2O_IPR_TOL,
+          f"Li2O FCI ipr {fci.ipr} vs {LI2O_FCI_IPR}")
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"chem build phase: {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def c2h4_cisd_sci_phase(torch):
     """The C2H4/6-31G CISD -> support-CI chain at full width (the JAX
     package's ``runs/c2h4_cisd_made``, ``runs/c2h4_sci`` and
@@ -2155,6 +2399,13 @@ def c2h4_cisd_sci_phase(torch):
 
 
 def main():
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="numpy seed of the direct-CI sigma's random "
+                        "vectors (default 0)")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -2244,6 +2495,7 @@ def main():
     nade_launches, nade_figures = li2o_nade_phase(torch)
     sci_launches, sci_figures = li2o_support_ci_phase(torch)
     c2h4_sci_launches, c2h4_sci_figures = c2h4_cisd_sci_phase(torch)
+    chem_launches, chem_figures = chem_build_phase(torch, args.seed)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -2256,7 +2508,8 @@ def main():
                "c2h4_transformer": c2h4_launches,
                "li2o_nade": nade_launches,
                "li2o_support_ci": sci_launches,
-               "c2h4_cisd_sci": c2h4_sci_launches}
+               "c2h4_cisd_sci": c2h4_sci_launches,
+               "n2_dissociation": chem_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -2297,6 +2550,9 @@ def main():
     me_entry["c2h4_cisd_sci"] = {
         k: v for k, v in c2h4_sci_figures.items()
         if not k.startswith(("kernel1_", "kernel2_", "rows_"))}
+
+    me_entry["by_molecule"]["n2_r2.0"] = chem_figures.pop("kernel1")
+    me_entry["chem_build"] = chem_figures
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

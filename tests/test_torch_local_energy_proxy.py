@@ -27,7 +27,7 @@ from anqs_quantum_chemistry_tpu.observables.pauli import (
 from anqs_quantum_chemistry_torch.chem.fci import sector_determinants
 from anqs_quantum_chemistry_torch.chem.jw import (
     PauliHamiltonian,
-    words_to_uint64,
+    words_to_ints,
 )
 from anqs_quantum_chemistry_torch.chem.molecule import load_li2o
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
@@ -139,7 +139,7 @@ def test_li2o_proxy_matches_jax():
         qubit_num=h.qubit_num, constant=h.constant, a_masks=h.a_masks,
         b_words=h.b_words, weights=h.weights, group_starts=h.group_starts,
     )
-    partners = np.uint64(mol.hf_det) ^ words_to_uint64(h.a_masks)
+    partners = np.uint64(mol.hf_det) ^ words_to_ints(h.a_masks)
     even = np.uint64(0x5555_5555_5555_5555)
     in_sector = [bin(int(p) & int(even)).count("1") == mol.n_alpha
                  and bin(int(p) & ~int(even)).count("1") == mol.n_beta

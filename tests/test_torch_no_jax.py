@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX: every module of
 ``anqs_quantum_chemistry_torch`` (the transformer and NADE ansatzes, the
-pretraining, the matmul precision, selected CI, the support-CI closures
-and the C2H4 and Li2O campaigns' entry points among them),
+pretraining, the matmul precision, selected CI, the support-CI closures,
+the C2H4 and Li2O campaigns' entry points, and the host chemistry layer
+with direct CI and the dissociation and ladder entry points among them),
 ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX)."""
@@ -52,6 +53,16 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.models.precision",
     "anqs_quantum_chemistry_torch.experiments.c2h4_support_ci",
     "anqs_quantum_chemistry_torch.experiments.c2h4_support_transformer",
+    "anqs_quantum_chemistry_torch.chem.geometry_repo",
+    "anqs_quantum_chemistry_torch.chem.basis",
+    "anqs_quantum_chemistry_torch.chem.integrals",
+    "anqs_quantum_chemistry_torch.chem.scf",
+    "anqs_quantum_chemistry_torch.chem.cc",
+    "anqs_quantum_chemistry_torch.chem.jw",
+    "anqs_quantum_chemistry_torch.chem.direct_ci",
+    "anqs_quantum_chemistry_torch.chem.molecule",
+    "anqs_quantum_chemistry_torch.experiments.dissociation_curve",
+    "anqs_quantum_chemistry_torch.experiments.ladder_rerun",
 )
 
 
@@ -61,5 +72,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = out.stdout.split()
-    assert len(walked) >= 37  # every module was walked
+    assert len(walked) >= 45  # every module was walked
     assert set(REQUIRED) <= set(walked)

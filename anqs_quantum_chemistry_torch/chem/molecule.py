@@ -85,6 +85,7 @@ DATA_DIR = os.path.join(
 N2_STO3G = os.path.join(DATA_DIR, "n2_sto3g.npz")
 LI2O_STO3G = os.path.join(DATA_DIR, "li2o_sto3g.npz")
 C2H4_631G = os.path.join(DATA_DIR, "c2h4_631g.npz")
+CR2_SV = os.path.join(DATA_DIR, "cr2_sv.npz")
 
 PACKAGED_KEYS = (
     "ham_constant", "ham_a_masks", "ham_b_words", "ham_weights",
@@ -93,9 +94,18 @@ PACKAGED_KEYS = (
     "z2_generators", "cisd_energy", "ccsd_t_energy",
 )
 # The spin-orbital integrals of a JAX-side cache (physicist's <pq|rs> in
-# ``v``), and their spatial form, which the packaged files hold.
+# ``v``), and their spatial form, which the packaged files hold: the alpha
+# block of v, or (``PACKED_KEYS``) its 8-fold packed chemist form, with the
+# molecule's orbital energies and MP2 energy beside it (``EXTRA_KEYS``).
 INTEGRAL_KEYS = ("h1", "v")
 SPATIAL_KEYS = ("h1_spatial", "v_spatial")
+PACKED_KEYS = ("h1_spatial", "eri_packed")
+EXTRA_KEYS = ("mo_energy", "mp2_energy")
+# The eight copies of a molecular-orbital integral agree only to the
+# roundoff of the integral transform (8.4e-15 Ha at Cr2/SV, whose largest
+# is 14.7 Ha): the packed form keeps one, and is written only if every
+# copy is within this many Ha of it.
+PACK_TOL = 1e-12
 
 # FCI by sparse eigsh up to this many qubits (JAX's cutoff, the reference's
 # max_fci_qubits), by direct CI up to this many sector determinants; larger
@@ -128,6 +138,39 @@ def spatial_integrals(h1: np.ndarray, v: np.ndarray):
     """The alpha blocks (h1[0::2, 0::2], v[0::2, 0::2, 0::2, 0::2])."""
     return (np.ascontiguousarray(h1[0::2, 0::2]),
             np.ascontiguousarray(v[0::2, 0::2, 0::2, 0::2]))
+
+
+def _pair_index(n: int):
+    """(i, j) of the n (n + 1) / 2 spatial pairs i >= j, in the order
+    i (i + 1) / 2 + j."""
+    return np.tril_indices(n)
+
+
+def pack_eri(vs: np.ndarray) -> np.ndarray:
+    """The physicist alpha block <pq|rs> -> the chemist (pr|qs) over pair
+    indices ij >= kl (i >= j, k >= l): the 8-fold packed form of real
+    orbitals' integrals, n_pair (n_pair + 1) / 2 values, each the copy
+    with i >= j, k >= l, ij >= kl."""
+    n = vs.shape[0]
+    i, j = _pair_index(n)
+    chem = vs.transpose(0, 2, 1, 3)[i[:, None], j[:, None], i[None, :],
+                                    j[None, :]]  # (n_pair, n_pair)
+    return np.ascontiguousarray(chem[np.tril_indices(len(i))])
+
+
+def unpack_eri(packed: np.ndarray, n: int) -> np.ndarray:
+    """``pack_eri``'s inverse: the (n, n, n, n) physicist alpha block, each
+    value copied to its eight places."""
+    i, j = _pair_index(n)
+    n_pair = len(i)
+    sq = np.zeros((n_pair, n_pair), packed.dtype)
+    sq[np.tril_indices(n_pair)] = packed
+    sq = sq + np.tril(sq, -1).T
+    chem = np.zeros((n,) * 4, packed.dtype)
+    for a, b in ((i, j), (j, i)):
+        for c, d in ((i, j), (j, i)):
+            chem[a[:, None], b[:, None], c[None, :], d[None, :]] = sq
+    return np.ascontiguousarray(chem.transpose(0, 2, 1, 3))
 
 
 def spin_orbital_from_alpha_block(h1s: np.ndarray, vs: np.ndarray):
@@ -183,7 +226,7 @@ class Molecule:
     ccsd_energy: Optional[float] = None
     fci_ipr: Optional[float] = None
     # What a build from atoms knows besides: its config and the seconds of
-    # each stage ("integrals", "scf", "jw", "mp2", "cisd", "ccsd_t",
+    # each stage ("integrals", "scf", "jw", "z2", "mp2", "cisd", "ccsd_t",
     # "fci").
     config: Optional[MolConfig] = None
     build_seconds: Optional[dict] = None
@@ -248,12 +291,15 @@ class Molecule:
         ham = jordan_wigner_pauli_hamiltonian(h1, v, constant=e_nuc)
         t3 = time.perf_counter()
         seconds["jw"] = t3 - t2
+        z2_generators = z_string_symmetries(ham)
+        t3 = time.perf_counter()
+        seconds["z2"] = t3 - t2 - seconds["jw"]
         mol = cls(
             name=config.name, qubit_num=qubit_num, n_alpha=n_alpha,
             n_beta=n_beta, n_electrons=n_electrons,
             multiplicity=multiplicity, hf_det=hf_det, e_nuc=e_nuc,
             hf_energy=scf_res["hf_energy"], fci_energy=None,
-            z2_generators=z_string_symmetries(ham), qubit_ham=ham, h1=h1,
+            z2_generators=z2_generators, qubit_ham=ham, h1=h1,
             v=v, mo_energy=scf_res["mo_energy"], config=config,
             build_seconds=seconds,
         )
@@ -390,6 +436,11 @@ class Molecule:
                 integrals = dict(zip(
                     INTEGRAL_KEYS, spin_orbital_from_alpha_block(
                         *(data[k] for k in SPATIAL_KEYS))))
+            elif set(PACKED_KEYS) <= set(data.files):
+                h1s = data["h1_spatial"]
+                integrals = dict(zip(
+                    INTEGRAL_KEYS, spin_orbital_from_alpha_block(
+                        h1s, unpack_eri(data["eri_packed"], h1s.shape[0]))))
             return cls(
                 name=name or os.path.basename(os.path.dirname(path)),
                 qubit_num=qubit_num,
@@ -441,6 +492,14 @@ def load_li2o() -> Molecule:
     return Molecule.from_npz(LI2O_STO3G, name="Li2O")
 
 
+def load_cr2() -> Molecule:
+    """Cr2/SV (the reference's custom basis), built from atoms by this
+    package: 84 qubits (three words a determinant), 2,240,694 Pauli terms
+    in 471,774 groups, a (24, 24) sector (no FCI energy), with its
+    integrals (packed), orbital energies and MP2 energy."""
+    return Molecule.from_npz(CR2_SV, name="Cr2")
+
+
 def load_c2h4() -> Molecule:
     """C2H4/6-31G: 52 qubits (two words a determinant), 104278 Pauli terms
     in 20776 groups, a ~2.4e12-determinant (8, 8) sector (no FCI energy),
@@ -449,17 +508,20 @@ def load_c2h4() -> Molecule:
     return Molecule.from_npz(C2H4_631G, name="C2H4")
 
 
-def write_packaged(src: str, dst: str, integrals: bool = False) -> float:
+def write_packaged(src: str, dst: str, integrals: bool = False,
+                   packed: bool = False) -> float:
     """Copy ``PACKAGED_KEYS`` of molecule file ``src`` (NaN for an energy
     it lacks; with ``integrals``, also the spatial form of its integrals,
-    ``SPATIAL_KEYS``) into ``dst``; returns the FCI energy written
+    ``SPATIAL_KEYS``; with ``packed``, the packed form, ``PACKED_KEYS``,
+    and ``EXTRA_KEYS``) into ``dst``; returns the FCI energy written
     (computed when ``src`` has none and its sector has at most
     ``SECTOR_MAX_DETS`` determinants, else NaN). Raises ``ValueError``
-    when the spatial form does not rebuild ``src``'s integrals exactly."""
+    when the spatial form does not rebuild ``src``'s integrals exactly, or
+    the packed form not to ``PACK_TOL``."""
     with np.load(src) as data:
         arrays = {k: data[k] if k in data.files else np.array([np.nan])
                   for k in PACKAGED_KEYS}
-        if integrals:
+        if integrals or packed:
             h1, v = data["h1"], data["v"]
             h1s, vs = spatial_integrals(h1, v)
             back = spin_orbital_from_alpha_block(h1s, vs)
@@ -468,7 +530,16 @@ def write_packaged(src: str, dst: str, integrals: bool = False) -> float:
                 raise ValueError(f"{src}: the integrals are not the "
                                  "interleaved spin-orbital form of one "
                                  "spatial block")
-            arrays.update(zip(SPATIAL_KEYS, (h1s, vs)))
+            if packed:
+                eri = pack_eri(vs)
+                dev = np.max(np.abs(unpack_eri(eri, len(h1s)) - vs))
+                if dev > PACK_TOL:
+                    raise ValueError(f"{src}: the integrals are 8-fold "
+                                     f"symmetric only to {dev:.2e} Ha")
+                arrays.update(zip(PACKED_KEYS, (h1s, eri)))
+                arrays.update({k: data[k] for k in EXTRA_KEYS})
+            else:
+                arrays.update(zip(SPATIAL_KEYS, (h1s, vs)))
     mol_fci = float(np.asarray(arrays["fci_energy"]).reshape(-1)[0])
     if np.isnan(mol_fci):
         mol = Molecule.from_npz(src)
@@ -481,8 +552,9 @@ def write_packaged(src: str, dst: str, integrals: bool = False) -> float:
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--integrals"]
+    args = [a for a in sys.argv[1:] if a not in ("--integrals", "--packed")]
     if len(args) != 2:
         sys.exit(__doc__)
     print(write_packaged(args[0], args[1],
-                         integrals="--integrals" in sys.argv))
+                         integrals="--integrals" in sys.argv,
+                         packed="--packed" in sys.argv))

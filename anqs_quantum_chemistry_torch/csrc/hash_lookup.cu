@@ -1,28 +1,35 @@
 // Bucket-hash membership lookup of packed determinant keys.
 //
 // Replaces the TPU kernel anqs_quantum_chemistry_tpu/ops/pallas_kernels.py
-// hash_lookup / _hash_lookup_kernel (:32-97). For each query key (lo, hi)
-// the three-round mix hash picks a bucket of the (nb, 128) float32 table
-// that PauliEngine._hash_build writes; the bucket row holds 32 entries in
-// four planar lane ranges -- [0, 32) key_lo, [32, 64) key_hi (the uint32
-// bits of the key words), [64, 96) log|psi| (NEG = empty slot), [96, 128)
-// phase. The output per query is (log|psi| of the first entry whose keys
-// match and whose log|psi| is not NEG, or NEG; its phase, or 0; found).
-// The plain version (ops/hash_lookup.py hash_lookup_plain) selects the
-// same entry, so the two agree bit for bit: nothing here does arithmetic on
-// a value, and keys are compared as integer bits (a key whose bits read as
-// a float NaN still matches).
+// hash_lookup / _hash_lookup_kernel (:32-97), and serves the other bucket
+// layouts of the JAX engine's _hash_query (observables/pauli.py:872-905)
+// with the same code. A key is K = max(W, 2) 32-bit words (a one-word key
+// has a high word of 0). Its bucket is the three-round mix hash of the first
+// two words, folded left over the others (mix2(mix2(k0, k1), k2), ...:
+// PauliEngine._bucket_hash), masked to nb - 1. The (nb, (K + 2) * E)
+// float32 table that PauliEngine._hash_build writes holds E entries a
+// bucket in K + 2 planar lane ranges: key word j at [j * E, (j + 1) * E)
+// (the uint32 bits), log|psi| at [K * E, (K + 1) * E) (NEG = empty slot),
+// phase at [(K + 1) * E, (K + 2) * E). The layouts instantiated are the
+// Pallas kernel's (K 2, E 32), the JAX engine's hash_epb rows at W <= 2
+// (K 2, E 8 or 16) and its rows above 64 qubits (K 3 or 4, E 16). The
+// output per query is (log|psi| of the first entry whose keys match and
+// whose log|psi| is not NEG, or NEG; its phase, or 0; found). The plain
+// version (ops/hash_lookup.py hash_lookup_plain) selects the same entry, so
+// the two agree bit for bit: nothing here does arithmetic on a value, and
+// keys are compared as integer bits (a key whose bits read as a float NaN
+// still matches).
 //
 // What binds it on the H100 (Li2O: N = 8192 rows x 3072 groups = 25.2M
 // queries, nb = 1024 buckets = 512 KB): the query and output stream, 4 B
-// in per key word (one word at W = 1, where q_hi is a null pointer read as
-// 0) and 9 B out, 13 B a query at W = 1 = 0.33 GB, about 98 us at 3.35
-// TB/s. Nearly every query misses (Li2O step 0: 13136 hits of 25.2M), and
-// the design decides a miss without reading the bucket row:
+// in per key word (one word at W = 1, where the high word's pointer is
+// null and the word is the constant 0) and 9 B out, 13 B a query at W = 1 = 0.33 GB, about
+// 98 us at 3.35 TB/s. Nearly every query misses (Li2O step 0: 13136 hits of
+// 25.2M), and the design decides a miss without reading the bucket row:
 //
-// - Tags. hash_tags_kernel writes one byte a slot, (nb, 32) bytes: the
-//   top 8 bits of the slot key's mix hash (bits the bucket index does not
-//   use up to nb = 2^24), mapped into 1..255, or 0 where the slot's
+// - Tags. hash_tags_kernel writes one byte a slot, (nb, E) bytes: the
+//   top 8 bits of the slot key's folded hash (bits the bucket index does
+//   not use up to nb = 2^24), mapped into 1..255, or 0 where the slot's
 //   log|psi| is NEG (empty). A tag is a function of the key, so a tag that
 //   differs from the query's proves a key that differs; correctness never
 //   rests on the tag, a poor one only costs time. The table changes every
@@ -30,32 +37,34 @@
 //   Li2O, a few microseconds).
 // - One lane, one query. A thread holds QPT queries in flight (coalesced
 //   loads, QPT * THREADS consecutive queries a block pass), hashes each,
-//   and probes its bucket's 32 tags as two 16-B loads: a zero-byte test of
-//   tag ^ query tag over the eight words says "no candidate" for about
-//   1 - 8/255 of the misses at Li2O's load of 8 entries a bucket. Only
-//   candidate slots, in ascending order, read the table from L2: key_lo,
-//   key_hi and log|psi| of that slot, its phase on a full match, stopping
-//   at the first. Queries and outputs use streaming (evict-first) loads
-//   and stores, so they do not push the table and tags out of L2.
-// - Tags in shared memory where they fit: up to TAG_SMEM_BYTES (64 KB,
-//   nb <= 2048) each persistent block copies the whole tag array into
-//   shared memory once (cp.async), which keeps three 512-thread blocks an
-//   SM; above it the probes read the tags from global memory (nb * 32 B,
-//   in L2 up to nb = 2^20). Both tiers run the same code; only where the
-//   two 16-B probe loads come from differs.
+//   and probes its bucket's E tags as E / 16 16-B loads (one 8-B load at
+//   E = 8): a zero-byte test of tag ^ query tag over the E / 4 words says
+//   "no candidate" for about 1 - load/255 of the misses. Only candidate
+//   slots, in ascending order, read the table from L2: the key words and
+//   log|psi| of that slot, its phase on a full match, stopping at the
+//   first. Queries and outputs use streaming (evict-first) loads and
+//   stores, so they do not push the table and tags out of L2.
+// - Tags in shared memory where they fit: up to TAG_SMEM_BYTES (64 KB:
+//   nb <= 2048 at E = 32, nb <= 4096 at E = 16) each persistent block
+//   copies the whole tag array into shared memory once (cp.async), which
+//   keeps three 512-thread blocks an SM; above it the probes read the tags
+//   from global memory (nb * E bytes, in L2 up to nb = 2^20 at E = 32).
+//   Both tiers run the same code; only where the probe loads come from
+//   differs.
 // - The grid is one wave: as many blocks as the card holds at once, each
 //   striding over the queries.
 //
-// What binds it, measured on the H100 (PERF.md, with the times of the
-// designs timed against it): the stream. The same grid's loads and stores
-// with no probe at all take about nine tenths of the kernel's time; the
-// probe adds the rest, and reading the tags from L2 instead of shared
-// memory (the tier above 64 KB) costs about 1.7x. A bank-conflict swizzle
-// of the staged tags, a per-bucket
-// flag that skips the second 16-B probe, 2 to 16 queries a thread, 256 to
-// 1024 threads a block, 32-bit offsets, loading the next pass's queries
-// ahead, and plain instead of streaming loads and stores were each tried
-// and none was faster.
+// What binds it, measured on the H100 at (K 2, E 32) (PERF.md, with the
+// times of the designs timed against it): the stream. The same grid's loads
+// and stores with no probe at all take about nine tenths of the kernel's
+// time; the probe adds the rest, and reading the tags from L2 instead of
+// shared memory (the tier above 64 KB) costs about 1.7x. A bank-conflict
+// swizzle of the staged tags, a per-bucket flag that skips the second 16-B
+// probe, 2 to 16 queries a thread, 256 to 1024 threads a block, 32-bit
+// offsets, loading the next pass's queries ahead, and plain instead of
+// streaming loads and stores were each tried and none was faster. At K 3-4
+// a thread holds half the queries (QPT 4), so that K words of each stay in
+// registers at three blocks an SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_build.py); called through ctypes.
@@ -65,14 +74,17 @@
 
 namespace {
 
-constexpr int ENTRIES = 32;
-constexpr int ROW = 4 * ENTRIES;
+constexpr int MAX_KEYS = 4;
 constexpr int THREADS = 512;
 constexpr int MIN_BLOCKS = 3;  // blocks an SM the register budget allows
-constexpr int QPT = 8;         // queries a thread holds in flight
 constexpr int TAG_SMEM_BYTES = 64 * 1024;
 constexpr int TAG_THREADS = 256;
 constexpr float NEG = -1e30f;
+
+// The query columns: word j of query q at w[j][q]; a null column is all 0.
+struct Queries {
+  const uint32_t* w[MAX_KEYS];
+};
 
 // PauliEngine._mix2 in wrapping uint32 arithmetic.
 __device__ __forceinline__ uint32_t mix2(uint32_t lo, uint32_t hi) {
@@ -85,26 +97,40 @@ __device__ __forceinline__ uint32_t mix2(uint32_t lo, uint32_t hi) {
   return acc;
 }
 
+// PauliEngine._bucket_hash: mix2 of the first two words, folded left.
+template <int K>
+__device__ __forceinline__ uint32_t bucket_hash(const uint32_t (&key)[K]) {
+  uint32_t acc = mix2(key[0], key[1]);
+#pragma unroll
+  for (int j = 2; j < K; ++j) acc = mix2(acc, key[j]);
+  return acc;
+}
+
 // A live slot's tag: the hash's top byte, 0 moved to 1 (0 marks empty).
 __device__ __forceinline__ uint32_t tag_of(uint32_t h) {
   const uint32_t t = h >> 24;
   return t != 0u ? t : 1u;
 }
 
-// One byte a slot: tags[b * 32 + e] for entry e of bucket b.
+// One byte a slot: tags[b * E + e] for entry e of bucket b.
+template <int K, int E>
 __global__ void __launch_bounds__(TAG_THREADS)
 hash_tags_kernel(const uint32_t* __restrict__ tab, uint8_t* __restrict__ tags,
                  long long n_slots) {
   for (long long i = static_cast<long long>(blockIdx.x) * TAG_THREADS +
                      threadIdx.x;
        i < n_slots; i += static_cast<long long>(gridDim.x) * TAG_THREADS) {
-    const uint32_t* row = tab + (i >> 5) * ROW;
-    const int e = static_cast<int>(i & 31);
-    const float la = __uint_as_float(__ldg(row + 2 * ENTRIES + e));
-    tags[i] = la > 0.5f * NEG
-                  ? static_cast<uint8_t>(tag_of(
-                        mix2(__ldg(row + e), __ldg(row + ENTRIES + e))))
-                  : uint8_t{0};
+    const uint32_t* row = tab + (i / E) * ((K + 2) * E);
+    const int e = static_cast<int>(i % E);
+    const float la = __uint_as_float(__ldg(row + K * E + e));
+    uint8_t tag = 0;
+    if (la > 0.5f * NEG) {
+      uint32_t key[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) key[j] = __ldg(row + j * E + e);
+      tag = static_cast<uint8_t>(tag_of(bucket_hash<K>(key)));
+    }
+    tags[i] = tag;
   }
 }
 
@@ -121,35 +147,64 @@ __device__ __forceinline__ uint32_t equal_bytes(uint32_t word, uint32_t rep) {
   return (eq * 0x01020408u) >> 24;
 }
 
-template <bool STAGED>
-__device__ __forceinline__ uint4 load_tags(const uint4* p) {
-  if constexpr (STAGED) {
-    return *p;
+// The E tags of `bucket` as E / 4 words: 16-B loads, or one 8-B load at
+// E = 8, from shared memory (STAGED) or through the read-only path.
+template <int E, bool STAGED>
+__device__ __forceinline__ void load_tags(const void* tags, uint32_t bucket,
+                                          uint32_t (&t)[E / 4]) {
+  if constexpr (E >= 16) {
+    const uint4* p = static_cast<const uint4*>(tags) + bucket * (E / 16);
+#pragma unroll
+    for (int v = 0; v < E / 16; ++v) {
+      uint4 x;
+      if constexpr (STAGED) {
+        x = p[v];
+      } else {
+        x = __ldg(p + v);
+      }
+      t[4 * v] = x.x;
+      t[4 * v + 1] = x.y;
+      t[4 * v + 2] = x.z;
+      t[4 * v + 3] = x.w;
+    }
   } else {
-    return __ldg(p);
+    const uint2* p = static_cast<const uint2*>(tags) + bucket;
+    uint2 x;
+    if constexpr (STAGED) {
+      x = *p;
+    } else {
+      x = __ldg(p);
+    }
+    t[0] = x.x;
+    t[1] = x.y;
   }
 }
 
-template <bool STAGED, bool TWO_WORDS>
+// NW: the key words the queries carry (the first NW columns; the other
+// K - NW words are 0: NW 1 at K 2 for one-word keys).
+template <int K, int E, int NW, bool STAGED>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-hash_lookup_kernel(const uint32_t* __restrict__ tab,  // (nb, 128) bits
-                   const uint4* __restrict__ tags,    // (nb, 32) bytes
+hash_lookup_kernel(const uint32_t* __restrict__ tab,  // (nb, (K+2)E) bits
+                   const uint8_t* __restrict__ tags,  // (nb, E) bytes
                    uint32_t bucket_mask,              // nb - 1
-                   const uint32_t* __restrict__ q_lo,  // (N,)
-                   const uint32_t* __restrict__ q_hi,  // (N,) if TWO_WORDS
-                   float* __restrict__ la_out,         // (N,)
-                   float* __restrict__ ph_out,         // (N,)
-                   bool* __restrict__ found_out,       // (N,)
+                   Queries queries,                   // NW columns of (N,)
+                   float* __restrict__ la_out,        // (N,)
+                   float* __restrict__ ph_out,        // (N,)
+                   bool* __restrict__ found_out,      // (N,)
                    long long n) {
+  constexpr int QPT = K <= 2 ? 8 : 4;  // queries a thread holds in flight
+  constexpr int ROW = (K + 2) * E;
+  constexpr int TAG_WORDS = E / 4;
   extern __shared__ uint4 staged[];
-  const uint4* tag_rows = tags;
+  const void* tag_rows = tags;
   if constexpr (STAGED) {
-    const int n_vec = static_cast<int>(bucket_mask + 1) * 2;
+    const int n_vec = static_cast<int>(bucket_mask + 1) * E / 16;
+    const uint4* src = reinterpret_cast<const uint4*>(tags);
     for (int i = threadIdx.x; i < n_vec; i += THREADS) {
       const uint32_t dst =
           static_cast<uint32_t>(__cvta_generic_to_shared(staged + i));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                   "l"(tags + i)
+                   "l"(src + i)
                    : "memory");
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -162,48 +217,45 @@ hash_lookup_kernel(const uint32_t* __restrict__ tab,  // (nb, 128) bits
   for (long long base =
            static_cast<long long>(blockIdx.x) * THREADS * QPT + threadIdx.x;
        base < n; base += stride) {
-    uint32_t lo[QPT], hi[QPT];
+    uint32_t key[QPT][K];
 #pragma unroll
     for (int k = 0; k < QPT; ++k) {
       const long long q = base + k * THREADS;
-      lo[k] = q < n ? __ldcs(q_lo + q) : 0u;
-      hi[k] = TWO_WORDS && q < n ? __ldcs(q_hi + q) : 0u;
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        key[k][j] = j < NW && q < n ? __ldcs(queries.w[j] + q) : 0u;
     }
 #pragma unroll
     for (int k = 0; k < QPT; ++k) {
       const long long q = base + k * THREADS;
       if (q >= n) break;
-      const uint32_t h = mix2(lo[k], hi[k]);
+      const uint32_t h = bucket_hash<K>(key[k]);
       const uint32_t bucket = h & bucket_mask;
       const uint32_t rep = tag_of(h) * 0x01010101u;
-      const uint4 t0 = load_tags<STAGED>(tag_rows + 2 * bucket);
-      const uint4 t1 = load_tags<STAGED>(tag_rows + 2 * bucket + 1);
+      uint32_t t[TAG_WORDS];
+      load_tags<E, STAGED>(tag_rows, bucket, t);
       float la = NEG, ph = 0.0f;
       bool found = false;
-      const uint32_t any =
-          zero_bytes(t0.x, rep) | zero_bytes(t0.y, rep) |
-          zero_bytes(t0.z, rep) | zero_bytes(t0.w, rep) |
-          zero_bytes(t1.x, rep) | zero_bytes(t1.y, rep) |
-          zero_bytes(t1.z, rep) | zero_bytes(t1.w, rep);
+      uint32_t any = 0u;
+#pragma unroll
+      for (int v = 0; v < TAG_WORDS; ++v) any |= zero_bytes(t[v], rep);
       if (any & 0x80808080u) {
-        uint32_t cand = equal_bytes(t0.x, rep) |
-                        equal_bytes(t0.y, rep) << 4 |
-                        equal_bytes(t0.z, rep) << 8 |
-                        equal_bytes(t0.w, rep) << 12 |
-                        equal_bytes(t1.x, rep) << 16 |
-                        equal_bytes(t1.y, rep) << 20 |
-                        equal_bytes(t1.z, rep) << 24 |
-                        equal_bytes(t1.w, rep) << 28;
+        uint32_t cand = 0u;
+#pragma unroll
+        for (int v = 0; v < TAG_WORDS; ++v)
+          cand |= equal_bytes(t[v], rep) << (4 * v);
         const uint32_t* row = tab + static_cast<size_t>(bucket) * ROW;
         while (cand != 0u) {
           const int e = __ffs(cand) - 1;
           cand &= cand - 1u;
-          const uint32_t k_lo = __ldg(row + e);
-          const uint32_t k_hi = __ldg(row + ENTRIES + e);
-          const float la_e = __uint_as_float(__ldg(row + 2 * ENTRIES + e));
-          if (k_lo == lo[k] && k_hi == hi[k] && la_e > 0.5f * NEG) {
+          bool match = true;
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            match = match && __ldg(row + j * E + e) == key[k][j];
+          const float la_e = __uint_as_float(__ldg(row + K * E + e));
+          if (match && la_e > 0.5f * NEG) {
             la = la_e;
-            ph = __uint_as_float(__ldg(row + 3 * ENTRIES + e));
+            ph = __uint_as_float(__ldg(row + (K + 1) * E + e));
             found = true;
             break;
           }
@@ -216,12 +268,19 @@ hash_lookup_kernel(const uint32_t* __restrict__ tab,  // (nb, 128) bits
   }
 }
 
-template <bool STAGED, bool TWO_WORDS>
+template <int K, int E>
+bool stages_tags(int n_buckets) {
+  const long long bytes = static_cast<long long>(n_buckets) * E;
+  return bytes <= TAG_SMEM_BYTES && bytes % 16 == 0;
+}
+
+template <int K, int E, int NW, bool STAGED>
 int launch_lookup(const void* tab, const void* tags, int n_buckets,
-                  const void* q_lo, const void* q_hi, void* la, void* ph,
-                  void* found, long long n, cudaStream_t stream) {
-  const auto kernel = hash_lookup_kernel<STAGED, TWO_WORDS>;
-  const int smem = STAGED ? n_buckets * ENTRIES : 0;
+                  const Queries& queries, void* la, void* ph, void* found,
+                  long long n, cudaStream_t stream) {
+  const auto kernel = hash_lookup_kernel<K, E, NW, STAGED>;
+  constexpr int QPT = K <= 2 ? 8 : 4;
+  const int smem = STAGED ? n_buckets * E : 0;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -238,12 +297,34 @@ int launch_lookup(const void* tab, const void* tags, int n_buckets,
   const long long resident = static_cast<long long>(per_sm) * sms;
   const int blocks = static_cast<int>(
       blocks_needed < resident ? blocks_needed : resident);
-  hash_lookup_kernel<STAGED, TWO_WORDS><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const uint32_t*>(tab), static_cast<const uint4*>(tags),
-      static_cast<uint32_t>(n_buckets - 1),
-      static_cast<const uint32_t*>(q_lo), static_cast<const uint32_t*>(q_hi),
-      static_cast<float*>(la), static_cast<float*>(ph),
-      static_cast<bool*>(found), n);
+  kernel<<<blocks, THREADS, smem, stream>>>(
+      static_cast<const uint32_t*>(tab), static_cast<const uint8_t*>(tags),
+      static_cast<uint32_t>(n_buckets - 1), queries, static_cast<float*>(la),
+      static_cast<float*>(ph), static_cast<bool*>(found), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K, int E, int NW>
+int lookup(const void* tab, const void* tags, int n_buckets,
+           const Queries& queries, void* la, void* ph, void* found,
+           long long n, cudaStream_t stream) {
+  return stages_tags<K, E>(n_buckets)
+             ? launch_lookup<K, E, NW, true>(tab, tags, n_buckets, queries,
+                                             la, ph, found, n, stream)
+             : launch_lookup<K, E, NW, false>(tab, tags, n_buckets, queries,
+                                              la, ph, found, n, stream);
+}
+
+template <int K, int E>
+int build_tags(const void* tab, int n_buckets, void* out,
+               cudaStream_t stream) {
+  const long long n_slots = static_cast<long long>(n_buckets) * E;
+  const long long blocks_needed = (n_slots + TAG_THREADS - 1) / TAG_THREADS;
+  const int blocks =
+      static_cast<int>(blocks_needed < (1 << 20) ? blocks_needed : 1 << 20);
+  hash_tags_kernel<K, E><<<blocks, TAG_THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(tab), static_cast<uint8_t*>(out),
+      n_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -251,50 +332,91 @@ bool valid_buckets(int n_buckets) {
   return n_buckets > 0 && (n_buckets & (n_buckets - 1)) == 0;
 }
 
+// The instantiated layouts: (K 2; E 8, 16, 32) and (K 3 or 4; E 16).
+// Returns call.template run<K, E>() for a valid pair, else
+// cudaErrorInvalidValue.
+template <typename Call>
+int dispatch(int n_keys, int entries, const Call& call) {
+  if (n_keys == 2 && entries == 32) return call.template run<2, 32>();
+  if (n_keys == 2 && entries == 16) return call.template run<2, 16>();
+  if (n_keys == 2 && entries == 8) return call.template run<2, 8>();
+  if (n_keys == 3 && entries == 16) return call.template run<3, 16>();
+  if (n_keys == 4 && entries == 16) return call.template run<4, 16>();
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+struct TagsCall {
+  const void* tab;
+  int n_buckets;
+  void* out;
+  cudaStream_t stream;
+  template <int K, int E>
+  int run() const {
+    return build_tags<K, E>(tab, n_buckets, out, stream);
+  }
+};
+
+struct LookupCall {
+  const void* tab;
+  const void* tag_bytes;
+  int n_buckets;
+  Queries queries;
+  void* la;
+  void* ph;
+  void* found;
+  long long n;
+  cudaStream_t stream;
+  template <int K, int E>
+  int run() const {
+    // One-word keys at K 2 leave the high word's column null; otherwise
+    // every column is given.
+    if constexpr (K == 2) {
+      if (queries.w[1] == nullptr)
+        return lookup<K, E, 1>(tab, tag_bytes, n_buckets, queries, la, ph,
+                               found, n, stream);
+    }
+    for (int j = 0; j < K; ++j)
+      if (queries.w[j] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return lookup<K, E, K>(tab, tag_bytes, n_buckets, queries, la, ph, found,
+                           n, stream);
+  }
+};
+
 }  // namespace
 
 // Bytes of tags up to which the lookup stages them in shared memory.
 extern "C" int hash_lookup_tag_smem_bytes() { return TAG_SMEM_BYTES; }
 
-// Writes the (n_buckets, 32) uint8 tags of `tab` on `stream`; returns the
+// Writes the (n_buckets, entries) uint8 tags of `tab`, a table of n_keys
+// key words and `entries` entries a bucket, on `stream`; returns the
 // cudaError_t of the launch (0 = success).
-extern "C" int hash_tags_launch(const void* tab, int n_buckets, void* tags,
-                                void* stream) {
+extern "C" int hash_tags_launch(const void* tab, int n_buckets, int n_keys,
+                                int entries, void* out, void* stream) {
   if (!valid_buckets(n_buckets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_slots = static_cast<long long>(n_buckets) * ENTRIES;
-  const long long blocks_needed = (n_slots + TAG_THREADS - 1) / TAG_THREADS;
-  const int blocks =
-      static_cast<int>(blocks_needed < (1 << 20) ? blocks_needed : 1 << 20);
-  hash_tags_kernel<<<blocks, TAG_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(tab), static_cast<uint8_t*>(tags),
-      n_slots);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(n_keys, entries,
+                  TagsCall{tab, n_buckets, out,
+                           static_cast<cudaStream_t>(stream)});
 }
 
 // Looks the queries up in `tab` through its tags (hash_tags_launch) on
-// `stream`; returns the cudaError_t of the launch (0 = success). q_hi may
-// be null (one-word keys: every high word is 0).
-extern "C" int hash_lookup_launch(const void* tab, const void* tags,
-                                  int n_buckets, const void* q_lo,
-                                  const void* q_hi, void* la, void* ph,
-                                  void* found, long long n, void* stream) {
+// `stream`; returns the cudaError_t of the launch (0 = success). q0..q3 are
+// the queries' key words, the first n_keys of them read; q1 may be null at
+// n_keys 2 (one-word keys: every high word is 0), no other may.
+extern "C" int hash_lookup_launch(const void* tab, const void* tag_bytes,
+                                  int n_buckets, int n_keys, int entries,
+                                  const void* q0, const void* q1,
+                                  const void* q2, const void* q3, void* la,
+                                  void* ph, void* found, long long n,
+                                  void* stream) {
   if (n <= 0 || !valid_buckets(n_buckets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool staged =
-      static_cast<long long>(n_buckets) * ENTRIES <= TAG_SMEM_BYTES;
-  if (staged) {
-    return q_hi != nullptr
-               ? launch_lookup<true, true>(tab, tags, n_buckets, q_lo, q_hi,
-                                           la, ph, found, n, s)
-               : launch_lookup<true, false>(tab, tags, n_buckets, q_lo, q_hi,
-                                            la, ph, found, n, s);
-  }
-  return q_hi != nullptr
-             ? launch_lookup<false, true>(tab, tags, n_buckets, q_lo, q_hi,
-                                          la, ph, found, n, s)
-             : launch_lookup<false, false>(tab, tags, n_buckets, q_lo, q_hi,
-                                           la, ph, found, n, s);
+  const Queries queries{{static_cast<const uint32_t*>(q0),
+                         static_cast<const uint32_t*>(q1),
+                         static_cast<const uint32_t*>(q2),
+                         static_cast<const uint32_t*>(q3)}};
+  return dispatch(n_keys, entries,
+                  LookupCall{tab, tag_bytes, n_buckets, queries, la, ph,
+                             found, n, static_cast<cudaStream_t>(stream)});
 }

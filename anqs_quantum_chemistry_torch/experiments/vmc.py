@@ -71,7 +71,7 @@ BEST_SAVE_INTERVAL_S = 10.0
 # and so the keys ``VMCConfig.engine_overrides`` may hold.
 ENGINE_OVERRIDE_KEYS = ("prefilter_row_capacity", "prefilter_dense_rows",
                         "pf_row_chunk", "hash_extra_bits", "membership",
-                        "weights_matmul")
+                        "weights_matmul", "me_chunk", "hash_epb")
 DISTILL_LOSSES = ("ce", "logmse")
 # The cycle's metrics, in the order JAX's ``run`` appends them to a row.
 DISTILL_COLUMNS = ("distill_loss_first", "distill_loss_last",
@@ -144,7 +144,8 @@ class VMCConfig(Config):
     # extra dir (reference energy_opt_exp.py:414-481,648-675).
     save_best_model: bool = False
     extra_best_dirs: Tuple[str, ...] = ()
-    # The engine's dynamic membership ('auto' | 'table' | 'hash'). With
+    # The engine's dynamic membership ('auto' | 'table' | 'hash' |
+    # 'prefilter' | 'search'). With
     # 'auto' the step uses the precomputed partner connectivity of the
     # (N_alpha, N_beta) sector where it fits the limits above; otherwise
     # (and with any named membership) it sorts the sample set and the
@@ -1252,6 +1253,52 @@ def li2o_nade_closure_params():
     from ..convert import load_params_npz
 
     return load_params_npz(os.path.join(DATA_DIR, "li2o_nade_closure.npz"))
+
+
+# Cr2/SV at 84 qubits (JAX ``examples/cr2_step.py`` and ``cr2_train.py``):
+# MADE 1024 with the logit cap, the pinned HF neighbourhood, and the
+# engine's capacities and row blocks, which keep every (rows, M = 471,774)
+# intermediate of the prefilter at 128 rows.
+CR2_ANQS = AnqsConfig(hidden_widths=(1024,), logit_cap=8.0)
+CR2_ENGINE = {"me_chunk": 128, "pf_row_chunk": 128,
+              "prefilter_row_capacity": 1024, "prefilter_dense_rows": 64}
+CR2_CKPT1000 = "cr2_train_ckpt1000.npz"
+
+
+def cr2_config(sample_num: int = 1024, **overrides) -> VMCConfig:
+    """The examples' Cr2/SV settings (``cr2_vmc``); ``overrides``: other
+    ``VMCConfig`` fields."""
+    cfg = dict(sample_num=sample_num, sampling_mode="gumbel",
+               qubit_per_qudit=6, seed=0, couple_ref_dets=64,
+               grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
+               engine_overrides=dict(CR2_ENGINE))
+    return VMCConfig(**{**cfg, **overrides})
+
+
+def cr2_vmc(device="cuda", sample_num: int = 1024,
+            run_dir: Optional[str] = None, **overrides) -> VMC:
+    """The examples' Cr2/SV trainer at full width: 84 qubits (three words a
+    determinant), 2,240,694 terms in 471,774 groups (``load_cr2``), MADE
+    1024 with logit_cap 8, qubit_per_qudit 6 (14 qudits), ``sample_num``
+    Gumbel samples plus the 64 pinned HF neighbours, prefilter membership
+    and the 'grouped' group order (both the engine's 'auto') at
+    ``CR2_ENGINE``, MinSR top 50, clip 1.0, Adam 1e-3, seed 0
+    (``cr2_config``). ``overrides``: other ``VMCConfig`` fields."""
+    from ..chem.molecule import load_cr2
+
+    return VMC(load_cr2(), cr2_config(sample_num, **overrides), CR2_ANQS,
+               device=device, run_dir=run_dir)
+
+
+def cr2_ckpt1000_params():
+    """The JAX package's Cr2/SV state after 1000 iterations
+    (``runs/cr2_train/ckpt_1000`` of ``examples/cr2_train.py``, written by
+    ``tools/export_jax_params.py`` into the port's data), as a state dict
+    of ``cr2_vmc``'s ansatz."""
+    from ..chem.molecule import DATA_DIR
+    from ..convert import load_params_npz
+
+    return load_params_npz(os.path.join(DATA_DIR, CR2_CKPT1000))
 
 
 def latest_checkpoint(run_dir: Optional[str]) -> Optional[str]:

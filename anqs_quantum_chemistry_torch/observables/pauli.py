@@ -15,13 +15,16 @@ a sampled set (``local_energy_sector``; its amplitude table is the (N + 1,
 2) layout of the JAX engine's ``table_pairs_per_row=1``); or dynamically,
 from the sampled set alone (``local_energy_proxy``): a
 (2^n, 2) direct-address table up to ``MAX_TABLE_QUBITS`` qubits
-(``membership='table'``), or a bucket-hash table of 32 entries per bucket
-for any qubit count up to 64 (``membership='hash'``; the lookup is
-``ops/hash_lookup.py``, the CUDA kernel on the card), or cheap-first
-through the same table (``membership='prefilter'``, the JAX engine's choice
-above 22 qubits): a 32-bit fingerprint pass over every partner, per-row
-compaction of the candidates, and exact verification of the survivors by
-the lookup kernel, with a dense fallback for rows over capacity. The
+(``membership='table'``), or a bucket-hash table for any qubit count up to
+128 (``membership='hash'``: 32 entries a bucket up to 64 qubits, or
+``hash_epb`` 8 or 16; 16 above; the lookup is ``ops/hash_lookup.py``, the
+CUDA kernel on the card), or cheap-first through the same table
+(``membership='prefilter'``, the JAX engine's choice above 22 qubits): a
+32-bit fingerprint pass over every partner, per-row compaction of the
+candidates, and exact verification of the survivors by the lookup kernel,
+with a dense fallback for rows over capacity; or by a binary search of the
+sorted set (``membership='search'``, any width, the JAX engine's choice
+above 128 qubits). The
 unbiased full local energy (``local_energy_full``) evaluates the network at
 every partner instead. Amplitudes are real pairs ``(log|psi|, phase)``. Real
 Hamiltonians only (every molecular JW case).
@@ -47,9 +50,14 @@ from ..ops import keys
 from ..ops.matrix_elements import build_tables, fused_matrix_elements
 
 NEG = -1e30
-MEMBERSHIPS = ("auto", "table", "hash", "prefilter")
+MEMBERSHIPS = ("auto", "table", "hash", "prefilter", "search")
 # Memberships of the JAX engine that the port does not have yet.
-UNPORTED_MEMBERSHIPS = ("search", "hash_dist")
+UNPORTED_MEMBERSHIPS = ("hash_dist",)
+# Key words up to which the hash and prefilter memberships run (128 qubits:
+# JAX ``pauli.py:813``, ``:959``).
+MAX_HASH_WORDS = 4
+# The JAX engine's ``hash_epb`` values (W <= 2 only).
+HASH_EPBS = (8, 16, 32)
 # The JAX engine's matrix-element forms that fix the group order: 'split'
 # keeps the Hamiltonian's, 'grouped' its class-major order; 'auto' picks
 # 'grouped' where the dense (T, M) operand would exceed 2^29 elements.
@@ -58,6 +66,9 @@ GROUPED_MIN_ELEMENTS = 1 << 29
 # Partner queries a pass of the prefilter's fingerprint probe: bounds its
 # (chunk, 32) int32 row gather at 1 GB.
 FP_QUERY_CHUNK = 1 << 23
+# Partner queries a row block of the search membership: bounds its (chunk,
+# W) int64 query array and the search's temporaries at a few GB.
+SEARCH_QUERY_CHUNK = 1 << 24
 
 
 class LocalEnergies(NamedTuple):
@@ -117,21 +128,24 @@ class PauliEngine:
                  weights_matmul: str = "auto",
                  prefilter_row_capacity: int = 64,
                  prefilter_dense_rows: int = 256,
-                 pf_row_chunk: Optional[int] = None):
-        """``membership``: 'auto' | 'table' | 'hash' | 'prefilter', the
-        dynamic membership of ``local_energy_proxy``; 'auto' resolves as
-        the JAX engine's does: to 'table' up to ``MAX_TABLE_QUBITS`` qubits,
-        and above that to 'prefilter' (W <= 4) or 'search'. 'search', and
-        'prefilter' above 64 qubits, are not ported: ``local_energy_proxy``
-        raises on such an engine (its matrix elements and sector local
-        energies work). ``hash_extra_bits``: extra log2 bucket-count bits of
+                 pf_row_chunk: Optional[int] = None,
+                 me_chunk: Optional[int] = None,
+                 hash_epb: Optional[int] = None):
+        """``membership``: 'auto' | 'table' | 'hash' | 'prefilter' |
+        'search', the dynamic membership of ``local_energy_proxy``; 'auto'
+        resolves as the JAX engine's does: to 'table' up to
+        ``MAX_TABLE_QUBITS`` qubits, and above that to 'prefilter' (W <= 4)
+        or 'search'. ``hash_extra_bits``: extra log2 bucket-count bits of
         the hash table (0 = ~25% average load; the trainer's overflow
-        policy raises it). ``weights_matmul``: 'auto' | 'split' |
-        'grouped', the JAX engine's option, which here only chooses the
-        group order (module docstring). Prefilter capacities (JAX's
-        defaults): candidates kept a row (``prefilter_row_capacity``), rows
-        over it re-done over all groups (``prefilter_dense_rows``), and the
-        rows a block of the fingerprint, compaction and verification stages
+        policy raises it). ``hash_epb``: entries a bucket of the hash table
+        (JAX's option: 8, 16 or 32, W <= 2 only; None: 32 up to 64 qubits,
+        16 above). ``weights_matmul``: 'auto' | 'split' | 'grouped', the
+        JAX engine's option, which here only chooses the group order
+        (module docstring). ``me_chunk``: rows a launch of the matrix
+        elements (None: all). Prefilter capacities (JAX's defaults):
+        candidates kept a row (``prefilter_row_capacity``), rows over it
+        re-done over all groups (``prefilter_dense_rows``), and the rows a
+        block of the fingerprint, compaction and verification stages
         (``pf_row_chunk``; None: one block)."""
         n_words = bitops.n_words(ham.qubit_num)
         if membership in UNPORTED_MEMBERSHIPS:
@@ -149,11 +163,14 @@ class PauliEngine:
                 membership = "table"
             else:
                 membership = "prefilter" if n_words <= 4 else "search"
-        elif membership in ("hash", "prefilter") and n_words > 2:
-            raise NotImplementedError(
-                f"{membership} membership above 64 qubits (16-entry bucket "
-                "rows) is not ported (ROADMAP item 6)"
-            )
+        elif membership in ("hash", "prefilter") and (
+                n_words > MAX_HASH_WORDS):
+            raise ValueError(f"{membership} membership supports <= "
+                             f"{32 * MAX_HASH_WORDS} qubits")
+        if hash_epb is not None and (n_words > 2
+                                     or hash_epb not in HASH_EPBS):
+            raise ValueError(f"hash_epb={hash_epb!r}: expected one of "
+                             f"{HASH_EPBS}, at <= 64 qubits")
         if membership == "table" and ham.qubit_num > self.MAX_TABLE_QUBITS:
             raise ValueError(f"membership='table' needs <= "
                              f"{self.MAX_TABLE_QUBITS} qubits")
@@ -164,9 +181,11 @@ class PauliEngine:
             # phase channel (odd-Y, imaginary-weight Hamiltonians).
             raise ValueError("prefilter membership does not carry a "
                              "per-group phase channel")
-        if min(prefilter_row_capacity, prefilter_dense_rows) < 1 or (
-                pf_row_chunk is not None and pf_row_chunk < 1):
-            raise ValueError("prefilter capacities must be positive")
+        if min(prefilter_row_capacity, prefilter_dense_rows) < 1 or any(
+                chunk is not None and chunk < 1
+                for chunk in (pf_row_chunk, me_chunk)):
+            raise ValueError("prefilter capacities and chunks must be "
+                             "positive")
         if weights_matmul == "auto":
             weights_matmul = (
                 "grouped" if ham.n_terms * ham.n_groups * 2
@@ -179,6 +198,8 @@ class PauliEngine:
         self.prefilter_row_capacity = prefilter_row_capacity
         self.prefilter_dense_rows = prefilter_dense_rows
         self.pf_row_chunk = pf_row_chunk
+        self.me_chunk = me_chunk
+        self.hash_epb = hash_epb or (32 if n_words <= 2 else 16)
         self.qubit_num = ham.qubit_num
         self.constant = float(ham.constant)
         self.n_groups = ham.n_groups
@@ -205,11 +226,18 @@ class PauliEngine:
         return eng
 
     def matrix_elements(self, words) -> torch.Tensor:
-        """(B, W) packed sources -> (B, M) elements <x ^ A_m | H | x>.
+        """(B, W) packed sources -> (B, M) elements <x ^ A_m | H | x>, in
+        launches of ``me_chunk`` rows (JAX ``pauli.py:432-441``; a row's
+        elements do not depend on the rows beside it).
 
         Group sums are symmetric under x <-> x^A for a real Hamiltonian, so
         signs are evaluated on the source x only."""
-        return fused_matrix_elements(words, self.me_tables)
+        chunk = self.me_chunk
+        if chunk is None or words.shape[0] <= chunk:
+            return fused_matrix_elements(words, self.me_tables)
+        return torch.cat([fused_matrix_elements(words[s:s + chunk],
+                                                self.me_tables)
+                          for s in range(0, words.shape[0], chunk)])
 
     def local_energy_static(self, words, log_abs, phase, valid,
                             partner_idx, partner_found) -> LocalEnergies:
@@ -276,13 +304,9 @@ class PauliEngine:
     @classmethod
     def _bucket_hash(cls, cols):
         """Bucket hash over W 32-bit key words: the 2-word mix, folded left
-        over any extra words (equal to ``_mix2(lo, hi)`` for W <= 2, the
+        over any extra words (equal to ``_mix2(lo, hi)`` for W <= 2; the
         hash that the lookup kernel computes)."""
-        cols = cls._padded_cols(cols)
-        acc = cls._mix2(cols[0], cols[1])
-        for c in cols[2:]:
-            acc = cls._mix2(acc, c)
-        return acc
+        return hashops.bucket_hash(cls._padded_cols(cols))
 
     @staticmethod
     def _fp32(lo, hi):
@@ -314,20 +338,39 @@ class PauliEngine:
 
         ``sorted_words`` rows of invalid entries must hold words that can
         never match (the VMC step writes all-ones sentinels)."""
-        if self.membership in UNPORTED_MEMBERSHIPS or (
-                self.membership == "prefilter"
-                and sorted_words.shape[1] > 2):
-            raise NotImplementedError(
-                f"membership='auto' at {self.qubit_num} qubits resolves to "
-                f"{self.membership!r} in the JAX engine, which is not ported "
-                "at this width (ROADMAP item 6)"
-            )
         if self.membership == "table":
             return self._proxy_via_table2(sorted_words, log_abs, phase, valid)
         if self.membership == "prefilter":
             return self._proxy_via_prefilter(sorted_words, log_abs, phase,
                                              valid)
+        if self.membership == "search":
+            return self._proxy_via_search(sorted_words, log_abs, phase, valid)
         return self._proxy_via_hash(sorted_words, log_abs, phase, valid)
+
+    def _proxy_via_search(self, words, log_abs, phase, valid):
+        """Membership by a binary search of every partner x ^ A_m in the
+        sorted set itself (JAX ``pauli.py:477-494``), any word count, in
+        row blocks of about ``SEARCH_QUERY_CHUNK`` partners so that the
+        (rows, M, W) query array stays bounded. The set's invalid rows hold
+        sentinels that no partner equals."""
+        b, w = words.shape
+        m = self.n_groups
+        step = max(1, SEARCH_QUERY_CHUNK // m)
+        parts = []
+        for s in range(0, b, step):
+            rows = words[s:s + step]
+            xp = (rows[:, None, :] ^ self.a_words[None, :, :]).reshape(-1, w)
+            idx, found = keys.searchsorted_words(words, xp)
+            shape = (rows.shape[0], m)
+            safe = torch.clamp(idx, 0, b - 1).reshape(shape)
+            parts.append(self._combine(
+                self.matrix_elements(rows), log_abs[safe], phase[safe],
+                found.reshape(shape) & valid[s:s + step, None],
+                log_abs[s:s + step], phase[s:s + step], valid[s:s + step]))
+        return LocalEnergies(
+            **{f: torch.cat([getattr(p, f) for p in parts])
+               for f in ("e_re", "e_im", "t_re", "t_im")},
+            found_pairs=sum(p.found_pairs for p in parts))
 
     def _proxy_via_table2(self, words, log_abs, phase, valid):
         """Direct-address membership with a (2^n, 2) table: one (q, 2) row
@@ -357,8 +400,8 @@ class PauliEngine:
         the bucket table from the sampled set, then look every partner
         x ^ A_m up in it (``ops/hash_lookup.py``)."""
         tab, _, overflow = self._hash_build(words, log_abs, phase, valid)
-        la_p, ph_p, found = hashops.hash_lookup(tab,
-                                                *self._hash_queries(words))
+        la_p, ph_p, found = hashops.hash_lookup(
+            tab, *self._hash_queries(words), entries=self.hash_epb)
         shape = (words.shape[0], self.n_groups)
         found = found.reshape(shape) & valid[:, None]
         me = self.matrix_elements(words)
@@ -368,32 +411,32 @@ class PauliEngine:
 
     def _hash_queries(self, words):
         """The (B * M,) key words of every partner x ^ A_m as int32 bits,
-        row-major over (B, M): (q_lo, q_hi), with q_hi None for one-word
-        keys (their high word is 0, so nothing needs to be stored)."""
+        row-major over (B, M), one column a word (a one-word key's high
+        word is 0, so nothing needs to be stored for it)."""
         w32 = hashops.as_int32(words)
         a32 = hashops.as_int32(self.a_words)
-        cols = [(w32[:, None, i] ^ a32[None, :, i]).reshape(-1)
-                for i in range(words.shape[1])]
-        return cols[0], (cols[1] if len(cols) > 1 else None)
+        return tuple((w32[:, None, i] ^ a32[None, :, i]).reshape(-1)
+                     for i in range(words.shape[1]))
 
     def _hash_build(self, words, log_abs, phase, valid, with_fp=False):
         """Scatter (key, log|psi|, phase) entries of the valid rows into
-        planar bucket rows (JAX ``pauli.py:799-870``, W <= 2: 32 entries a
-        bucket). Returns (table (nb, 128) float32, nb, overflow count), and
-        with ``with_fp`` also the (nb, 32) fingerprint table (each entry's
-        ``_fp_hash`` as int32 bits, 0 for an empty slot) under the same
-        bucket and rank assignment.
+        planar bucket rows (JAX ``pauli.py:799-870``): E = ``hash_epb``
+        entries a bucket. Returns (table (nb, (K + 2) E) float32, nb,
+        overflow count), and with ``with_fp`` also the (nb, E) fingerprint
+        table (each entry's ``_fp_hash`` as int32 bits, 0 for an empty
+        slot) under the same bucket and rank assignment.
 
-        Lanes [0, 32) key_lo, [32, 64) key_hi (the keys' 32 bits, written
-        through int32 so that no key is handled as a float), [64, 96)
-        log|psi| (NEG = empty), [96, 128) phase. Entries are ranked within
-        their bucket by a stable sort over bucket ids; buckets are sized to
-        ~25% average load, so a bucket of more than 32 entries is a Poisson
-        tail, counted in the overflow. Invalid and overflowing rows go to a
-        spare last row, cut off at the end."""
+        Lanes [j E, (j + 1) E) key word j for the K = max(W, 2) words (the
+        keys' 32 bits, written through int32 so that no key is handled as a
+        float; a one-word key's high word is 0), [K E, (K + 1) E) log|psi|
+        (NEG = empty), [(K + 1) E, (K + 2) E) phase. Entries are ranked
+        within their bucket by a stable sort over bucket ids; buckets are
+        sized to ~25% average load, so a bucket of more than E entries is a
+        Poisson tail, counted in the overflow. Invalid and overflowing rows
+        go to a spare last row, cut off at the end."""
         b, w = words.shape
         dev = words.device
-        epb = hashops.ENTRIES
+        epb = self.hash_epb
         nb = 1 << (max(8, (4 * b // epb - 1).bit_length())
                    + self.hash_extra_bits)
         cols = self._padded_cols(tuple(words[:, i] for i in range(w)))
@@ -409,14 +452,16 @@ class PauliEngine:
         ok = valid & ~overflow
         row = torch.where(ok, bucket, nb)
         lane = torch.where(ok, rank, 0)
+        nk = len(cols)
         neg_bits = torch.tensor(NEG, dtype=torch.float32).view(torch.int32)
-        tab = torch.full((nb + 1, hashops.ROW), int(neg_bits),
+        tab = torch.full((nb + 1, (nk + 2) * epb), int(neg_bits),
                          dtype=torch.int32, device=dev)
         for i, c in enumerate(cols):
             tab[row, lane + i * epb] = hashops.as_int32(c)
-        tab[row, lane + 2 * epb] = torch.where(
+        tab[row, lane + nk * epb] = torch.where(
             valid, log_abs, NEG).view(torch.int32)
-        tab[row, lane + 3 * epb] = phase.to(torch.float32).view(torch.int32)
+        tab[row, lane + (nk + 1) * epb] = phase.to(torch.float32).view(
+            torch.int32)
         overflow_count = torch.sum(overflow).to(torch.int32)
         if not with_fp:
             return tab[:nb].view(torch.float32), nb, overflow_count
@@ -427,14 +472,14 @@ class PauliEngine:
     def _fp_candidates(self, fptab, nb, words):
         """Stage 1 of the prefilter: (B, M) bool, whether any entry of the
         bucket of partner x ^ A_m has its fingerprint -- no false negatives
-        against the table, ~32 / 2^32 false positives a partner. In passes
+        against the table, ~E / 2^32 false positives a partner. In passes
         of about ``FP_QUERY_CHUNK`` partners.
 
-        JAX gathers the bucket's (32,) fingerprint row a partner and
+        JAX gathers the bucket's (E,) fingerprint row a partner and
         compares its lanes; here the same question is one binary search of
         the key bucket * 2^32 + fingerprint among the table's sorted slot
         keys (an empty slot's fingerprint, 0, is never a partner's), which
-        answers alike without the (chunk, 32) gather."""
+        answers alike without the (chunk, E) gather."""
         b, w = words.shape
         m = self.n_groups
         dev = words.device
@@ -462,8 +507,8 @@ class PauliEngine:
         cols = [(w32[:, None, i] ^ (a32[:, i][m_idx] if m_idx is not None
                                     else a32[None, :, i])).reshape(-1)
                 for i in range(words.shape[1])]
-        la, ph, found = hashops.hash_lookup(
-            tab, cols[0], cols[1] if len(cols) > 1 else None)
+        la, ph, found = hashops.hash_lookup(tab, *cols,
+                                            entries=self.hash_epb)
         shape = (words.shape[0], -1)
         return la.reshape(shape), ph.reshape(shape), found.reshape(shape)
 

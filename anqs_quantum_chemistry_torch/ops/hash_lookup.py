@@ -1,19 +1,22 @@
 """Bucket-hash membership lookup: the CUDA kernel, its wrapper and its plain
 version.
 
-``hash_lookup(tab, q_lo, q_hi)`` answers, for each query key (q_lo, q_hi)
-(the key's two 32-bit words as int32 bits; ``q_hi=None`` for one-word keys,
-whose high word is 0),
+``hash_lookup(tab, *q_cols, entries=32)`` answers, for each query key (its
+K = max(W, 2) 32-bit words as int32 bits, one column each; the high word
+of one-word keys, which is 0, given as None or left off),
 whether it is an entry of the planar bucket table ``tab`` that
 ``PauliEngine._hash_build`` writes, and with which amplitude -- what the JAX
 package's Pallas kernel ``ops/pallas_kernels.py`` ``hash_lookup`` computes
 (``PauliEngine._proxy_via_hash``, ``lookup_kernel='pallas'``, W <= 2, 32
-entries per bucket). The query's bucket is ``mix2(lo, hi) & (nb - 1)``; its
-row holds 32 entries in four planar lane ranges, [0, 32) key_lo, [32, 64)
-key_hi (both the uint32 bits of the key words, stored as float32), [64, 96)
-log|psi| (NEG = empty) and [96, 128) phase. Returns (log|psi| or NEG,
-phase or 0, found) per query; on a match of several entries (a duplicate
-key, which a unique sample set never holds) the first entry wins.
+entries per bucket), and at the other layouts what the JAX engine's
+``_hash_query`` computes (``hash_epb`` rows at W <= 2, 16-entry rows at W
+3-4). The query's bucket is ``bucket_hash`` of its words (``mix2(k0, k1)``
+folded left over the others) ``& (nb - 1)``; its row holds E = ``entries``
+entries in K + 2 planar lane ranges of E lanes: the K key words (the uint32
+bits, stored as float32), log|psi| (NEG = empty) and phase. ``LAYOUTS``
+lists the (K, E) pairs. Returns (log|psi| or NEG, phase or 0, found) per
+query; on a match of several entries (a duplicate key, which a unique
+sample set never holds) the first entry wins.
 
 On a CUDA tensor it launches ``csrc/hash_lookup.cu`` or raises; on a CPU
 tensor it runs ``hash_lookup_plain``. It counts its launches in
@@ -23,9 +26,9 @@ arithmetic on the values, so kernel and plain version agree bit for bit.
 The kernel decides most misses from a one-byte tag a slot, which
 ``hash_tags`` (a kernel of the same source, counted in
 ``hash_tags.launches``) builds from the table at every ``hash_lookup``
-call: the top byte of the slot key's ``mix2`` moved into 1..255, and 0 for
-an empty slot (``hash_tags_plain``). The tags only decide which slots the
-kernel reads, never the result.
+call: the top byte of the slot key's ``bucket_hash`` moved into 1..255,
+and 0 for an empty slot (``hash_tags_plain``). The tags only decide which
+slots the kernel reads, never the result.
 """
 
 from __future__ import annotations
@@ -38,8 +41,11 @@ from . import cuda_build
 from .bits import MASK32
 
 NEG = -1e30
-ENTRIES = 32  # per bucket row: 4 planar fields x 32 lanes = 128 floats
+ENTRIES = 32  # per bucket row of the Pallas layout: 4 fields x 32 lanes
 ROW = 4 * ENTRIES
+# The (key words K, entries a bucket E) of the tables the kernel reads: the
+# JAX engine's rows at W <= 2 (E 32, or ``hash_epb`` 8 or 16) and at W 3-4.
+LAYOUTS = ((2, 32), (2, 16), (2, 8), (3, 16), (4, 16))
 # Queries per pass of the plain version: bounds its (chunk, 128) row
 # gather at 2 GB (the JAX engine's default ``lookup_chunk``).
 PLAIN_CHUNK = 1 << 22
@@ -65,6 +71,16 @@ def mix2(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return acc ^ (acc >> 13)
 
 
+def bucket_hash(cols) -> torch.Tensor:
+    """The bucket hash of keys given as a sequence of K >= 2 uint32 word
+    columns held in int64: ``mix2`` of the first two, folded left over the
+    others (JAX ``PauliEngine._bucket_hash``)."""
+    acc = mix2(cols[0], cols[1])
+    for c in cols[2:]:
+        acc = mix2(acc, c)
+    return acc
+
+
 def as_int32(words: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 with the same 32 bits."""
     return torch.where(words >= 1 << 31, words - (1 << 32),
@@ -72,47 +88,80 @@ def as_int32(words: torch.Tensor) -> torch.Tensor:
 
 
 def tag_of(h: torch.Tensor) -> torch.Tensor:
-    """The tag of keys whose ``mix2`` is ``h`` (int64 in [0, 2^32)): the
-    top byte, with 0 (the empty-slot tag) moved to 1."""
+    """The tag of keys whose ``bucket_hash`` is ``h`` (int64 in [0, 2^32)):
+    the top byte, with 0 (the empty-slot tag) moved to 1."""
     t = h >> 24
     return torch.where(t == 0, 1, t)
 
 
-def hash_tags_plain(tab):
-    """(nb, 128) bucket table -> (nb, 32) uint8 tags: each live slot's
-    ``tag_of(mix2(key_lo, key_hi))``, 0 for each slot whose log|psi| is not
-    above 0.5 NEG (what the lookup counts as empty)."""
+def key_words(tab, entries: int = ENTRIES) -> int:
+    """K, the key words of a bucket table of ``entries`` entries a bucket
+    (its rows are (K + 2) * entries lanes). Raises ``ValueError`` on a shape
+    that is no layout of ``LAYOUTS`` or a bucket count that is not a power
+    of two."""
+    nb, row = tab.shape if tab.dim() == 2 else (0, 0)
+    k = row // entries - 2 if row % entries == 0 else 0
+    if (k, entries) not in LAYOUTS or nb < 1 or nb & (nb - 1):
+        raise ValueError(
+            f"tab: expected (2^k, (K + 2) * {entries}) with (K, E) in "
+            f"{LAYOUTS}, got {tuple(tab.shape)}")
+    return k
+
+
+def _columns(q_cols, k: int):
+    """The query columns padded with None to K; raises ``ValueError``
+    unless every column is given but the high word at K = 2, or on
+    differing shapes or non-int32 words."""
+    cols = tuple(q_cols) + (None,) * (k - len(q_cols))
+    if len(cols) != k or any(q is None for q in cols[:1] + cols[2:]):
+        raise ValueError(f"queries: expected {k} key-word columns (the "
+                         "second may be None at 2)")
+    given = [q for q in cols if q is not None]
+    if any(q.shape != given[0].shape for q in given):
+        raise ValueError("query shapes differ: "
+                         f"{[tuple(q.shape) for q in given]}")
+    if any(q.dtype != torch.int32 for q in given):
+        raise ValueError("queries: expected int32 key words")
+    return cols
+
+
+def hash_tags_plain(tab, entries: int = ENTRIES):
+    """(nb, (K + 2) E) bucket table -> (nb, E) uint8 tags: each live slot's
+    ``tag_of(bucket_hash(its key words))``, 0 for each slot whose log|psi|
+    is not above 0.5 NEG (what the lookup counts as empty)."""
+    k = key_words(tab, entries)
     bits = tab.view(torch.int32).to(torch.int64) & MASK32
-    tags = tag_of(mix2(bits[:, :ENTRIES], bits[:, ENTRIES:2 * ENTRIES]))
-    live = tab[:, 2 * ENTRIES:3 * ENTRIES] > 0.5 * NEG
+    tags = tag_of(bucket_hash([bits[:, j * entries:(j + 1) * entries]
+                               for j in range(k)]))
+    live = tab[:, k * entries:(k + 1) * entries] > 0.5 * NEG
     return torch.where(live, tags, 0).to(torch.uint8)
 
 
-def hash_lookup_plain(tab, q_lo, q_hi=None):
-    """Torch transcription of the JAX ``_hash_lookup_kernel``: gather each
-    query's bucket row, compare the key lanes as int32 bits (a key whose
-    bits read as a float NaN still matches), select the first matching
-    entry's amplitude lanes."""
-    if q_hi is None:
-        q_hi = torch.zeros_like(q_lo)
+def hash_lookup_plain(tab, *q_cols, entries: int = ENTRIES):
+    """Torch transcription of the JAX ``_hash_lookup_kernel`` (and of
+    ``_hash_query`` at the other layouts): gather each query's bucket row,
+    compare the key lanes as int32 bits (a key whose bits read as a float
+    NaN still matches), select the first matching entry's amplitude
+    lanes."""
+    k = key_words(tab, entries)
+    cols = _columns(q_cols, k)
+    cols = tuple(torch.zeros_like(cols[0]) if q is None else q for q in cols)
+    e = entries
     nb = tab.shape[0]
     bits = tab.view(torch.int32)
     la_out, ph_out, found_out = [], [], []
-    for s in range(0, max(q_lo.shape[0], 1), PLAIN_CHUNK):
-        lo = q_lo[s:s + PLAIN_CHUNK]
-        hi = q_hi[s:s + PLAIN_CHUNK]
-        bucket = mix2(lo.to(torch.int64) & MASK32,
-                      hi.to(torch.int64) & MASK32) & (nb - 1)
-        rows = bits[bucket]  # (chunk, 128)
-        la_e = rows[:, 2 * ENTRIES:3 * ENTRIES].view(torch.float32)
-        match = (
-            (rows[:, :ENTRIES] == lo[:, None])
-            & (rows[:, ENTRIES:2 * ENTRIES] == hi[:, None])
-            & (la_e > 0.5 * NEG)
-        )
+    for s in range(0, max(cols[0].shape[0], 1), PLAIN_CHUNK):
+        qs = [q[s:s + PLAIN_CHUNK] for q in cols]
+        bucket = bucket_hash([q.to(torch.int64) & MASK32 for q in qs]) & (
+            nb - 1)
+        rows = bits[bucket]  # (chunk, (K + 2) E)
+        la_e = rows[:, k * e:(k + 1) * e].view(torch.float32)
+        match = la_e > 0.5 * NEG
+        for j, q in enumerate(qs):
+            match = match & (rows[:, j * e:(j + 1) * e] == q[:, None])
         found = torch.any(match, dim=1)
         first = torch.argmax(match.to(torch.uint8), dim=1, keepdim=True)
-        ph_e = rows[:, 3 * ENTRIES:].view(torch.float32)
+        ph_e = rows[:, (k + 1) * e:].view(torch.float32)
         la_out.append(torch.where(found, la_e.gather(1, first)[:, 0], NEG))
         ph_out.append(torch.where(found, ph_e.gather(1, first)[:, 0], 0.0))
         found_out.append(found)
@@ -123,11 +172,11 @@ def _library():
     lib = cuda_build.load("hash_lookup")
     if lib.hash_lookup_launch.argtypes is None:
         lib.hash_tags_launch.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         lib.hash_tags_launch.restype = ctypes.c_int
         lib.hash_lookup_launch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong, ctypes.c_void_p]
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
         )
         lib.hash_lookup_launch.restype = ctypes.c_int
         lib.hash_lookup_tag_smem_bytes.argtypes = []
@@ -135,32 +184,29 @@ def _library():
     return lib
 
 
-def tags_in_shared_memory(n_buckets: int) -> bool:
-    """Whether the kernel stages a table of ``n_buckets`` buckets' tags in
-    shared memory (else it reads them from global memory)."""
-    return n_buckets * ENTRIES <= _library().hash_lookup_tag_smem_bytes()
+def tags_in_shared_memory(n_buckets: int, entries: int = ENTRIES) -> bool:
+    """Whether the kernel stages the tags of a table of ``n_buckets``
+    buckets of ``entries`` entries in shared memory (else it reads them
+    from global memory)."""
+    n_bytes = n_buckets * entries
+    return (n_bytes <= _library().hash_lookup_tag_smem_bytes()
+            and n_bytes % 16 == 0)
 
 
-def _check_table(tab):
-    if tab.shape[1:] != (ROW,) or tab.shape[0] & (tab.shape[0] - 1):
-        raise ValueError(f"tab: expected (2^k, {ROW}), got "
-                         f"{tuple(tab.shape)}")
-
-
-def hash_tags(tab: torch.Tensor) -> torch.Tensor:
-    """(nb, 128) float32 bucket table -> (nb, 32) uint8 slot tags
+def hash_tags(tab: torch.Tensor, entries: int = ENTRIES) -> torch.Tensor:
+    """(nb, (K + 2) E) float32 bucket table -> (nb, E) uint8 slot tags
     (``hash_tags_plain``)."""
-    _check_table(tab)
+    k = key_words(tab, entries)
     if tab.device.type == "cpu":
-        return hash_tags_plain(tab)
+        return hash_tags_plain(tab, entries)
     if tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {tab.device}")
     cuda_build.check_operand("tab", tab, torch.float32, 2, tab.device)
-    tags = torch.empty((tab.shape[0], ENTRIES), dtype=torch.uint8,
+    tags = torch.empty((tab.shape[0], entries), dtype=torch.uint8,
                        device=tab.device)
     with torch.cuda.device(tab.device):
         rc = _library().hash_tags_launch(
-            tab.data_ptr(), tab.shape[0], tags.data_ptr(),
+            tab.data_ptr(), tab.shape[0], k, entries, tags.data_ptr(),
             torch.cuda.current_stream(tab.device).cuda_stream,
         )
     if rc != 0:
@@ -169,38 +215,34 @@ def hash_tags(tab: torch.Tensor) -> torch.Tensor:
     return tags
 
 
-def hash_lookup(tab: torch.Tensor, q_lo: torch.Tensor,
-                q_hi: torch.Tensor = None):
-    """(nb, 128) float32 bucket table, (N,) int32 query words (the keys'
-    32-bit words; ``q_hi=None``: all high words 0) -> (log|psi| (N,)
-    float32, phase (N,) float32, found (N,) bool)."""
-    _check_table(tab)
-    if q_hi is not None and q_lo.shape != q_hi.shape:
-        raise ValueError(f"query shapes differ: {tuple(q_lo.shape)} vs "
-                         f"{tuple(q_hi.shape)}")
-    if any(q.dtype != torch.int32 for q in (q_lo, q_hi) if q is not None):
-        raise ValueError("queries: expected int32 key words")
+def hash_lookup(tab: torch.Tensor, *q_cols, entries: int = ENTRIES):
+    """(nb, (K + 2) E) float32 bucket table, K (N,) int32 query word
+    columns (at K = 2 the second None or left off: one-word keys) ->
+    (log|psi| (N,) float32, phase (N,) float32, found (N,) bool)."""
+    k = key_words(tab, entries)
+    cols = _columns(q_cols, k)
     if tab.device.type == "cpu":
-        return hash_lookup_plain(tab, q_lo, q_hi)
+        return hash_lookup_plain(tab, *cols, entries=entries)
     if tab.device.type != "cuda":
         raise ValueError(f"no kernel for device {tab.device}")
     dev = tab.device
     cuda_build.check_operand("tab", tab, torch.float32, 2, dev)
-    cuda_build.check_operand("q_lo", q_lo, torch.int32, 1, dev)
-    if q_hi is not None:
-        cuda_build.check_operand("q_hi", q_hi, torch.int32, 1, dev)
-    n = q_lo.shape[0]
+    for j, q in enumerate(cols):
+        if q is not None:
+            cuda_build.check_operand(f"q_cols[{j}]", q, torch.int32, 1, dev)
+    n = cols[0].shape[0]
     la = torch.empty(n, dtype=torch.float32, device=dev)
     ph = torch.empty(n, dtype=torch.float32, device=dev)
     found = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return la, ph, found
-    tags = hash_tags(tab)
+    tags = hash_tags(tab, entries)
+    ptrs = [None if q is None else q.data_ptr() for q in cols]
+    ptrs += [None] * (4 - len(ptrs))
     with torch.cuda.device(dev):
         rc = _library().hash_lookup_launch(
-            tab.data_ptr(), tags.data_ptr(), tab.shape[0], q_lo.data_ptr(),
-            None if q_hi is None else q_hi.data_ptr(),
-            la.data_ptr(), ph.data_ptr(), found.data_ptr(), n,
+            tab.data_ptr(), tags.data_ptr(), tab.shape[0], k, entries,
+            *ptrs, la.data_ptr(), ph.data_ptr(), found.data_ptr(), n,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -179,7 +179,7 @@ and ckpt_3000), counts set to 0 before (c) and read after (f):
   top 512 against JAX's float32 values (``data/c2h4_transformer_logpsi.
   npz``; 1e-5 + 1e-5 |la|, the phase to 1e-4), a clean step at lr 0 in its
   trainer (empirical weights, no SR) against the host as in (c), and a
-  sampled full energy at 1024 (row chunks of 128): finite; time and peak
+  sampled full energy at 512 (row chunks of 128): finite; time and peak
   memory. Kernels #1 and #2 launch twice a step, kernel #1 once a row
   chunk of each full energy.
 - (g) Both kernels at (c)'s prefilter shapes and kernel #1 at the full
@@ -210,6 +210,39 @@ set to 0 before (b) and read after it:
   to float32 (the record's arithmetic) within 1e-8 Ha of the record; the Davidson iterations, the residual, the host time of
   the tables, ms a float32 sigma, the float64 quotient's and the solve's
   time and the peak memory printed.
+
+Last, Cr2/SV at 84 qubits (``cr2_phase``: the JAX package's
+``examples/cr2_step.py`` and ``cr2_train.py`` at full width through
+``experiments.vmc.cr2_vmc``: three words a determinant, 2,240,694 terms in
+471,774 groups, MADE 1024 with logit_cap 8, qubit_per_qudit 6, 1024
+Gumbel samples and the 64 pinned HF neighbours, prefilter membership in
+128-row blocks at capacities (1024, 64), the 'grouped' group order),
+counts set to 0 before (e) and read after (f):
+
+- (a) The packaged molecule (``data/cr2_sv.npz``, built by the port)
+  loaded and timed; its sizes and sector exactly, HF and MP2 within 1e-8
+  Ha of the JAX record (``CR2_*``).
+- (b) Kernel #1 on its W = 3 tables: ``CR2_CHECK_ROWS`` rows of a set of
+  the packaged JAX state ckpt_1000 bit for bit against its plain version,
+  timed beside its bound (the dense library form's (T, M) one-hot does
+  not fit); the whole 1088-row set in one launch, timed.
+- (c) Kernel #2 and its tag build bit for bit against their plain
+  versions at K 3 / E 16 on that set's table (the partners of
+  ``CR2_LOOKUP_ROWS`` rows), at K 4 / E 16 on a random 100-qubit table
+  and at K 2 / E 8 and E 16 on random 64-qubit tables (numpy
+  ``CR2_SEED``), each timed beside its bound.
+- (d) Prefilter, hash and search membership on that set: the same pairs,
+  t within 1e-6 of max|t|, no row dropped; each membership's time and
+  each prefilter stage's (the set as one row block).
+- (e) ckpt_1000, one step at lr 0: within 2 mHa of the JAX run's tail-50
+  mean, ``found_pairs`` equal to a host count, and the step's float64
+  estimator within 1e-4 Ha of the float64 Rayleigh quotient over its own
+  set built from the integrals (``chem/fci.matrix_element`` on every pair
+  with popcount(x ^ y) <= 4; the step reports that estimator rounded to
+  float32, as JAX's does, 2.4e-4 Ha a unit at 2086 Ha).
+- (f) ``CR2_STEPS`` steps from random weights (seed 0): finite energies,
+  ms a step, peak memory; kernels #1 and #2 (and the tag build) once a
+  row block and once for the dense rows each step.
 
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
@@ -301,10 +334,12 @@ LI2O_SCI_CONFIRM_ENERGY = -88.705147
 LI2O_PIN_STEP0_ENERGY = -88.702309
 # The C2H4/6-31G CISD -> support-CI chain (``c2h4_cisd_sci_phase``): the
 # JAX package's runs at their full width, ``C2H4_ROWS`` samples, the full
-# energy in row chunks of 1024 (the transformer's: 1024 samples in chunks
-# of 128).
+# energy in row chunks of 1024 (the transformer's: 512 samples in chunks
+# of 128, cut from 1024 to keep the whole script inside its time limit
+# with the Cr2 phase; a sampled full energy is checked only for being
+# finite).
 C2H4_ROW_CHUNK = 1024
-C2H4_TR_FULL_SAMPLES = 1024
+C2H4_TR_FULL_SAMPLES = 512
 C2H4_TR_ROW_CHUNK = 128
 C2H4_PRETRAIN_STEPS = 100
 C2H4_RUN_STEPS = 5
@@ -348,6 +383,20 @@ LI2O_JAX_TABLES_TOL = 1e-8
 LI2O_IPR_TOL = 1e-4
 SIGMA64_TOL = 1e-10  # device float64 sigma vs host_sigma_f64, relative
 SIGMA32_TOL = 1e-5  # device float32 sigma vs float64, relative
+# Cr2/SV at 84 qubits (``cr2_phase``): the JAX package's records of its
+# build (runs/cr2_prep_summary.json: sizes, HF, MP2) and of its training leg
+# (runs/cr2_train/summary.json: the best energy and the mean of the last 50
+# of 1000 iterations, whose end state ckpt_1000 the port ships).
+CR2_TERMS = 2_240_694
+CR2_GROUPS = 471_774
+CR2_HF = -2085.787294075257
+CR2_MP2 = -2086.294215432151
+CR2_BEST = -2085.9443359375
+CR2_TAIL50 = -2085.9428466796876
+CR2_CHECK_ROWS = 128  # kernel #1 against its plain version
+CR2_LOOKUP_ROWS = 32  # rows of the set whose partners query kernel #2
+CR2_STEPS = 3
+CR2_SEED = 0  # numpy seed of the random key tables
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -735,16 +784,19 @@ def li2o_sample(torch, vmc, seed):
     return words, valid, la, ph
 
 
-def lookup_bound(n_q, key_words, tab):
+def lookup_bound(n_q, key_words, tab, entries=32):
     """(bytes moved, bytes ms, operations ms) of kernel #2 on ``n_q``
-    queries of ``key_words`` 32-bit words into table ``tab``: each input
-    read once -- 4 B a key word and the table -- and the (la, ph, found)
-    outputs written once; per query the hash (9 integer operations) and 3
-    compares of each of 32 entries, counted at the float32 rate (the data
-    sheet gives no integer rate outside the tensor cores)."""
+    queries of ``key_words`` 32-bit words into table ``tab`` of
+    ``entries`` entries a bucket: each input read once -- 4 B a key word
+    and the table -- and the (la, ph, found) outputs written once; per
+    query the hash (9 integer operations for each of the K - 1 mixes of K
+    = max(key_words, 2) words) and K + 1 compares of each entry, counted at
+    the float32 rate (the data sheet gives no integer rate outside the
+    tensor cores)."""
+    k = max(key_words, 2)
     n_bytes = n_q * 4 * key_words + tab.numel() * 4 + n_q * (4 + 4 + 1)
     return (n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3,
-            n_q * (9 + 3 * 32) / FP32_FLOP_PER_S * 1e3)
+            n_q * (9 * (k - 1) + (k + 1) * entries) / FP32_FLOP_PER_S * 1e3)
 
 
 def hash_lookup_phase(torch, vmc):
@@ -771,7 +823,8 @@ def hash_lookup_phase(torch, vmc):
     words, valid, la, ph = li2o_sample(torch, vmc, seed=1)
     check(int(valid.sum()) == vmc.config.sample_num, "Li2O sample short")
     tab, nb, overflow = eng._hash_build(words, la, ph, valid)
-    q_lo, q_hi = eng._hash_queries(words)  # one-word keys: q_hi is None
+    (q_lo,) = eng._hash_queries(words)
+    q_hi = None  # one-word keys: no high words
 
     def compare(label, tab, q_lo, q_hi):
         tags = hash_tags(tab)
@@ -2398,6 +2451,335 @@ def c2h4_cisd_sci_phase(torch):
     return launches, figures
 
 
+def cr2_host_pairs_and_rayleigh(torch, mol, a_words, words, valid, la,
+                                ph):
+    """(connected pairs, float64 Rayleigh quotient) of a three-word set on
+    the host, from the integrals and not from the Pauli form: every ordered
+    pair (x, y) of the set's valid rows with x ^ y a flip mask A_m of the
+    engine (the diagonal included) counts as a pair; H over the set is
+    ``chem/fci.matrix_element`` (Slater-Condon with Python ints, any width)
+    on every pair with popcount(x ^ y) <= 4, and psi = exp(la + i ph)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import matrix_element
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_pyints
+    from anqs_quantum_chemistry_torch.ops.bits import popcount
+
+    keep = valid.cpu()
+    w = words.cpu()[keep]
+    dets = words_to_pyints(w.numpy())
+    flips = set(words_to_pyints(a_words.cpu().numpy()))
+    psi = np.exp(la.double().cpu().numpy()[keep.numpy()]
+                 + 1j * ph.double().cpu().numpy()[keep.numpy()])
+    n = len(dets)
+    near = popcount(w[:, None, :] ^ w[None, :, :]) <= 4
+    i_idx, j_idx = (t.tolist() for t in torch.nonzero(near, as_tuple=True))
+    h = np.zeros((n, n))
+    pairs = 0
+    for i, j in zip(i_idx, j_idx):
+        pairs += (dets[i] ^ dets[j]) in flips
+        if i <= j:
+            h[i, j] = h[j, i] = matrix_element(dets[i], dets[j], mol.h1,
+                                               mol.v)
+    energy = (np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real
+              + mol.e_nuc)
+    return pairs, float(energy), len(i_idx)
+
+
+def lookup_figures(torch, label, tab, cols, entries, batches=3, reps=5):
+    """Kernel #2 and its tag build against their plain versions on ``tab``
+    (``entries`` a bucket) and the query columns ``cols``, bit for bit;
+    the lookup's time (the wrapper's whole call, tag build included: the
+    median of ``batches`` x ``reps``) beside its bound and the plain
+    version's time. Returns the figures."""
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        hash_lookup,
+        hash_lookup_plain,
+        hash_tags,
+        hash_tags_plain,
+        key_words,
+        tags_in_shared_memory,
+    )
+
+    got = hash_lookup(tab, *cols, entries=entries)
+    want = hash_lookup_plain(tab, *cols, entries=entries)
+    tags = hash_tags(tab, entries)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(g.view(torch.int32), p.view(torch.int32))
+                for g, p in zip(got[:2], want[:2]))
+            and torch.equal(got[2], want[2])
+            and torch.equal(tags, hash_tags_plain(tab, entries)))
+    err = float(torch.max(torch.abs(got[0] - want[0])))
+    n_q = cols[0].numel()
+    k = key_words(tab, entries)
+    ms = median_ms(lambda: hash_lookup(tab, *cols, entries=entries),
+                   batches=batches, reps=reps)
+    plain_ms = cuda_ms(lambda: hash_lookup_plain(tab, *cols,
+                                                 entries=entries),
+                       reps=1, warmup=1)
+    n_bytes, bytes_ms, ops_ms = lookup_bound(n_q, len(cols), tab, entries)
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    tier = ("shared" if tags_in_shared_memory(tab.shape[0], entries)
+            else "global")
+    log(f"kernel hash_lookup at {label} (K {k}, E {entries}, nb "
+        f"{tab.shape[0]}, tags in {tier} memory): Q={n_q} found "
+        f"{int(got[2].sum())}, bit-identical (lookup and tags) {same}; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}: {n_bytes / 1e6:.1f} MB; "
+        f"{ms / bound_ms:.2f}x)")
+    check(same and err <= HASH_TOL,
+          f"kernel #2 disagrees with its plain version at {label}")
+    return {"K": k, "E": entries, "nb": tab.shape[0], "Q": n_q,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def random_key_table(torch, n_qubits, rng, hash_epb=None, n_keys=8192,
+                     n_queries=1 << 20):
+    """A bucket table of ``n_keys`` random ``n_qubits``-bit keys (numpy
+    ``rng``) built by ``PauliEngine._hash_build`` at ``hash_epb``, and
+    int32 query columns: stored keys, keys with one bit of word 0 flipped,
+    and random keys."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.jw import PauliHamiltonian
+    from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+
+    w = -(-n_qubits // 32)
+    ham = PauliHamiltonian(
+        qubit_num=n_qubits, constant=0.0,
+        a_masks=np.zeros((1, w), np.uint32),
+        b_words=np.zeros((1, w), np.uint32), weights=np.ones(1),
+        group_starts=np.array([0, 1]))
+    eng = PauliEngine(ham, device="cuda", membership="hash",
+                      hash_epb=hash_epb)
+    top = (1 << (n_qubits - 32 * (w - 1))) - 1
+    keys = rng.integers(0, 1 << 32, (n_keys, w), dtype=np.int64)
+    keys[:, -1] &= top
+    keys = np.unique(keys, axis=0)
+    n = len(keys)
+    tab, _, overflow = eng._hash_build(
+        torch.from_numpy(keys).cuda(),
+        torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32)).cuda(),
+        torch.ones(n, dtype=torch.bool, device="cuda"))
+    # 8-entry buckets at ~25% load overflow a few keys (JAX's hash_epb
+    # note); those keys are missing from both versions' table alike.
+    log(f"{n_qubits}-qubit random table at E {eng.hash_epb}: {n} keys, "
+        f"{int(overflow)} overflowed")
+    q = keys[rng.integers(0, n, n_queries)]
+    kind = rng.integers(0, 3, n_queries)
+    q[kind == 1, 0] ^= 1 << 7
+    rand = rng.integers(0, 1 << 32, (int((kind == 2).sum()), w),
+                        dtype=np.int64)
+    rand[:, -1] &= top
+    q[kind == 2] = rand
+    q = torch.from_numpy(q.astype(np.uint32).view(np.int32)).cuda()
+    return tab, [q[:, j].contiguous() for j in range(w)], eng.hash_epb
+
+
+def cr2_phase(torch):
+    """Cr2/SV at 84 qubits (the JAX package's ``examples/cr2_step.py`` and
+    ``cr2_train.py`` at full width, ``experiments.vmc.cr2_vmc``): (a) the
+    packaged molecule against the JAX record; (b) kernel #1 on its grouped
+    W = 3 tables; (c) kernel #2 at K 3 / E 16 on a Cr2 set's table, K 4 on a
+    random 100-qubit table, K 2 at E 8 and 16; (d) prefilter, hash and
+    search membership on one set of the packaged JAX state ckpt_1000; (e)
+    one step at lr 0 from ckpt_1000 against the JAX record and the host;
+    (f) ``CR2_STEPS`` steps from random weights; (g) the kernels' launches
+    on (e)-(f). Returns (launches, figures)."""
+    import copy
+
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.molecule import load_cr2
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        CR2_ANQS,
+        VMC,
+        cr2_ckpt1000_params,
+        cr2_config,
+    )
+    from anqs_quantum_chemistry_torch.ops.matrix_elements import (
+        fused_matrix_elements,
+    )
+
+    t_phase = time.perf_counter()
+    figures = {}
+    # (a) The packaged molecule.
+    t = time.perf_counter()
+    mol = load_cr2()
+    ham = mol.qubit_ham
+    figures["load_s"] = time.perf_counter() - t
+    log(f"Cr2/SV loaded in {figures['load_s']:.2f} s: {mol.qubit_num} "
+        f"qubits, sector ({mol.n_alpha}, {mol.n_beta}), T {ham.n_terms}, M "
+        f"{ham.n_groups}, HF {mol.hf_energy:.9f} (record "
+        f"{CR2_HF:.9f}), MP2 {mol.mp2_energy:.9f} (record {CR2_MP2:.9f})")
+    check((mol.qubit_num, mol.n_alpha, mol.n_beta, ham.n_terms,
+           ham.n_groups) == (84, 24, 24, CR2_TERMS, CR2_GROUPS),
+          "Cr2: sizes differ from the JAX record")
+    check(abs(mol.hf_energy - CR2_HF) <= 1e-8
+          and abs(mol.mp2_energy - CR2_MP2) <= 1e-8,
+          "Cr2: HF or MP2 differs from the JAX record")
+
+    t = time.perf_counter()
+    vmc = VMC(mol, cr2_config(), CR2_ANQS, device="cuda")  # cr2_vmc's
+    figures["setup_s"] = time.perf_counter() - t
+    eng = vmc.engine
+    log(f"Cr2 trainer set-up: {figures['setup_s']:.2f} s (membership "
+        f"{eng.membership}, weights_matmul {eng.weights_matmul}, hash_epb "
+        f"{eng.hash_epb}, me_chunk {eng.me_chunk}, pf_row_chunk "
+        f"{eng.pf_row_chunk}, capacities (row {eng.prefilter_row_capacity},"
+        f" dense {eng.prefilter_dense_rows}))")
+    check((eng.membership, eng.weights_matmul) == ("prefilter", "grouped"),
+          "Cr2: the engine does not resolve as JAX's")
+
+    # One set of the JAX state ckpt_1000 (the step of (e) draws it again).
+    state = vmc.init_state()
+    vmc.anqs.load_state_dict(cr2_ckpt1000_params())
+    snap = c2h4_set(torch, vmc, state.generator)
+    words, valid, la, ph = snap
+    log(f"Cr2 ckpt_1000 set: {words.shape[0]} rows, {int(valid.sum())} "
+        "valid")
+
+    # (b) Kernel #1 on the grouped W = 3 tables.
+    tables = eng.me_tables
+    k1 = me_figures(torch, f"Cr2 ({CR2_CHECK_ROWS} rows)",
+                    words[:CR2_CHECK_ROWS], tables, reps=5, plain_reps=1)
+    ms_full = cuda_ms(lambda: fused_matrix_elements(words, tables), reps=5,
+                      warmup=1)
+    n_bytes, bytes_ms, ops_ms = me_bound(words, tables)
+    k1_full = {"B": words.shape[0], "ms": ms_full,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    log(f"kernel fused_matrix_elements at the Cr2 set (B "
+        f"{words.shape[0]}, one launch): {ms_full:.4f} ms, bound "
+        f"{k1_full['bound_ms'] * 1e3:.2f} us ({k1_full['bound_by']}: "
+        f"{n_bytes / 1e6:.1f} MB; {ms_full / k1_full['bound_ms']:.2f}x)")
+    torch.cuda.empty_cache()
+
+    # (c) Kernel #2 at the new layouts.
+    tab, nb, overflow = eng._hash_build(words, la, ph, valid)
+    check(int(overflow) == 0, "Cr2: the set's table overflowed")
+    k2 = {"cr2_k3_e16": lookup_figures(
+        torch, "the Cr2 set's table", tab,
+        list(eng._hash_queries(words[:CR2_LOOKUP_ROWS])), eng.hash_epb)}
+    rng = np.random.default_rng(CR2_SEED)
+    for label, n_qubits, epb in (("k4_e16", 100, None), ("k2_e8", 64, 8),
+                                 ("k2_e16", 64, 16)):
+        rtab, cols, entries = random_key_table(torch, n_qubits, rng, epb)
+        k2[label] = lookup_figures(
+            torch, f"a random {n_qubits}-qubit table", rtab, cols, entries)
+    torch.cuda.empty_cache()
+
+    # (d) Prefilter, hash and search membership on the set.
+    engines = {"prefilter": eng}
+    for name in ("hash", "search"):
+        engines[name] = copy.copy(eng)
+        engines[name].membership = name
+    results, totals = {}, {}
+    with torch.no_grad():
+        for name, e in engines.items():
+            results[name], totals[name], _ = timed(
+                torch, lambda e=e: e.local_energy_proxy(words, la, ph,
+                                                        valid))
+    ref = results["search"]
+    t_max = float(torch.max(torch.abs(ref.t_re)))
+    diffs = {name: float(torch.max(torch.abs(r.t_re - ref.t_re)))
+             for name, r in results.items()}
+    log("Cr2 memberships on the ckpt_1000 set: " + ", ".join(
+        f"{name} found_pairs {int(r.found_pairs)} table_overflow "
+        f"{int(r.table_overflow)} pf_dropped_rows {int(r.pf_dropped_rows)} "
+        f"max|t - t_search| {diffs[name]:.3e} ({totals[name]:.3f} s)"
+        for name, r in results.items()) + f"; max|t| {t_max:.3e}")
+    pairs = {int(r.found_pairs) for r in results.values()}
+    check(len(pairs) == 1, "Cr2: the memberships find other pairs")
+    check(int(results["prefilter"].pf_dropped_rows) == 0,
+          "Cr2: the prefilter dropped rows")
+    check(all(d <= 1e-6 * t_max for d in diffs.values()),
+          "Cr2: the memberships' t disagree")
+    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
+                                                       valid)
+    with torch.no_grad():
+        stage_ms = {name: cuda_ms(fn, reps=2, warmup=1)
+                    for name, fn in stages.items()}
+    log(f"Cr2 prefilter stages (device ms, mean of 2, the set as one row "
+        f"block; Q 3a {queries['kernel2_3a']}, Q 3b "
+        f"{queries['kernel2_3b']}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stage_ms.items()))
+    figures.update(membership_s=totals, stage_ms=stage_ms, queries=queries,
+                   found_pairs=pairs.pop())
+    # The step of (e) reports its float64 estimator over these local
+    # energies rounded to float32, as JAX's does: 2.4e-4 Ha a unit at 2086
+    # Ha. The unrounded estimator is what (e) holds to the quotient.
+    a_x = torch.where(valid, torch.exp(la), 0.0).double()
+    e64 = float(torch.sum(a_x * results["prefilter"].t_re.double())
+                / torch.sum(a_x**2))
+    del results, ref, tab
+    torch.cuda.empty_cache()
+
+    # (e) One step at lr 0 from ckpt_1000; (f) steps from random weights.
+    reset_launches()
+    row, step_s, _ = timed(torch, lambda: vmc.step(
+        state, overrides={"lr": 0.0, "lr_schedule": None}))
+    t = time.perf_counter()
+    host_pairs, e_ref, n_near = cr2_host_pairs_and_rayleigh(
+        torch, mol, eng.a_words, *snap)
+    ulp = float(np.spacing(np.float32(abs(e64))))
+    host_s = time.perf_counter() - t
+    log(f"Cr2 ckpt_1000, one step at lr 0 ({step_s:.3f} s): energy "
+        f"{row['energy']:.7f} (JAX tail-50 mean {CR2_TAIL50:.7f}, diff "
+        f"{(row['energy'] - CR2_TAIL50) * 1e3:+.4f} mHa; JAX best "
+        f"{CR2_BEST:.7f}), found_pairs {int(row['found_pairs'])}, "
+        f"pf_dropped_rows {int(row['pf_dropped_rows'])}, unique_num "
+        f"{int(row['unique_num'])}; host ({host_s:.1f} s, {n_near} pairs "
+        f"with popcount <= 4): found_pairs {host_pairs}, Rayleigh quotient "
+        f"from the integrals {e_ref:.7f}; the step's float64 estimator "
+        f"{e64:.7f} (|e64 - ref| = {abs(e64 - e_ref):.2e} Ha, |step - e64| "
+        f"= {abs(row['energy'] - e64):.2e}, float32 unit {ulp:.2e})")
+    check(abs(row["energy"] - CR2_TAIL50) <= 2e-3,
+          "Cr2 ckpt_1000: energy off the JAX record")
+    check(int(row["found_pairs"]) == host_pairs,
+          "Cr2 ckpt_1000: found_pairs differs from the host count")
+    check(abs(e64 - e_ref) <= 1e-4,
+          "Cr2 ckpt_1000: energy off the float64 Rayleigh quotient")
+    check(abs(row["energy"] - e64) <= ulp,
+          "Cr2 ckpt_1000: the step's energy is not its estimator's")
+    state = vmc.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    rows, times = [], []
+    for _ in range(CR2_STEPS):
+        t = time.perf_counter()
+        rows.append(vmc.step(state))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_launches()
+    log(f"Cr2 {CR2_STEPS} steps from random weights: energies "
+        + ", ".join(f"{r['energy']:.6f}" for r in rows)
+        + f"; found_pairs {[int(r['found_pairs']) for r in rows]}, "
+        f"pf_dropped_rows {[int(r['pf_dropped_rows']) for r in rows]}; "
+        + ", ".join(f"{s * 1e3:.1f}" for s in times)
+        + f" ms a step; peak {peak:.2f} GB; launches {launches}")
+    check(all(np.isfinite(r["energy"]) for r in rows),
+          "Cr2: non-finite energy")
+    blocks = -(-words.shape[0] // eng.pf_row_chunk) + 1  # 3a blocks and 3b
+    n = blocks * (1 + CR2_STEPS)
+    check(launches == {"fused_matrix_elements": n, "hash_lookup": n,
+                       "hash_tags": n},
+          f"Cr2: launches {launches}, expected {n} each")
+    figures.update(
+        kernel1=k1, kernel1_set=k1_full, kernel2=k2, host_s=host_s,
+        ckpt1000_energy=row["energy"], ckpt1000_energy_f64=e64,
+        ckpt1000_rayleigh=e_ref,
+        ckpt1000_found_pairs=int(row["found_pairs"]), lr0_step_s=step_s,
+        step_ms=[s * 1e3 for s in times],
+        energies=[r["energy"] for r in rows], peak_gb=peak,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"Cr2 phase: {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def main():
     import argparse
 
@@ -2448,12 +2830,13 @@ def main():
         instance = name
         for line in text.splitlines():
             # ptxas -v names each entry function (mangled) before its
-            # resource lines; label those by the kernel's template argument.
+            # resource lines; label those by the kernel's template
+            # arguments (W of fused_me; K, E and the tag tier of
+            # hash_lookup).
             found = re.search(r"Compiling entry function '(\S+)'", line)
             if found:
-                words_arg = re.search(r"ILi(\d+)E", found.group(1))
-                instance = (f"{name}<W={words_arg.group(1)}>" if words_arg
-                            else name)
+                targs = re.findall(r"L[ib](\d+)E", found.group(1))
+                instance = f"{name}<{','.join(targs)}>" if targs else name
             elif "registers" in line or "spill" in line:
                 log(f"  {instance}: {line.strip()}")
 
@@ -2496,6 +2879,7 @@ def main():
     sci_launches, sci_figures = li2o_support_ci_phase(torch)
     c2h4_sci_launches, c2h4_sci_figures = c2h4_cisd_sci_phase(torch)
     chem_launches, chem_figures = chem_build_phase(torch, args.seed)
+    cr2_launches, cr2_figures = cr2_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -2509,7 +2893,8 @@ def main():
                "li2o_nade": nade_launches,
                "li2o_support_ci": sci_launches,
                "c2h4_cisd_sci": c2h4_sci_launches,
-               "n2_dissociation": chem_launches}
+               "n2_dissociation": chem_launches,
+               "cr2": cr2_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -2553,6 +2938,16 @@ def main():
 
     me_entry["by_molecule"]["n2_r2.0"] = chem_figures.pop("kernel1")
     me_entry["chem_build"] = chem_figures
+    me_entry["by_molecule"]["cr2"] = cr2_figures.pop("kernel1")
+    me_entry["cr2_set"] = cr2_figures.pop("kernel1_set")
+    hash_entry["layouts"] = cr2_figures.pop("kernel2")
+    me_entry["cr2"] = cr2_figures
+    me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
+                                  me_entry["by_molecule"]["cr2"][
+                                      "max_abs_err"])
+    hash_entry["max_abs_err"] = max(
+        [hash_entry["max_abs_err"]]
+        + [f["max_abs_err"] for f in hash_entry["layouts"].values()])
 
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")

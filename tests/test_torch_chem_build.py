@@ -196,8 +196,8 @@ def test_molecule_matches_jax(built):
     assert abs(ham.constant - jham.constant) <= 1e-10
     np.testing.assert_array_equal(mol.z2_generators, ref.z2_generators)
     assert cache_name(cfg) == jcfg.to_sha256_str()[:16] + ".npz"
-    assert set(mol.build_seconds) == {"integrals", "scf", "jw", "mp2",
-                                      "cisd", "ccsd_t", "fci"}
+    assert set(mol.build_seconds) == {"integrals", "scf", "jw", "z2",
+                                      "mp2", "cisd", "ccsd_t", "fci"}
 
 
 def test_correlated_methods_match_jax(built):

@@ -20,6 +20,7 @@ from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4, load_n2
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
     ENTRIES,
+    LAYOUTS,
     NEG,
     ROW,
     hash_lookup,
@@ -234,6 +235,64 @@ def _bucket(lo, hi, nb):
 def _queries(keys, device):
     q = torch.from_numpy(np.asarray(keys, np.uint32).view(np.int32))
     return q[:, 0].contiguous().to(device), q[:, 1].contiguous().to(device)
+
+
+def _layout_case(device, w, epb, extra_bits, n=4096, n_queries=1 << 18,
+                 seed=11):
+    """A bucket table of ``n`` random ``w``-word keys (a few invalid, one
+    whose bits read as a float NaN) at ``hash_epb`` ``epb`` (None: the
+    engine's default, 16 entries at w 3-4), and query columns: hits,
+    misses that differ from an entry in one bit of the last word, and
+    random misses. Returns (table, columns, entries a bucket)."""
+    rng = np.random.default_rng(seed + 10 * w)
+    ham = PauliHamiltonian(
+        qubit_num=32 * w, constant=0.0, a_masks=np.zeros((1, w), np.uint32),
+        b_words=np.zeros((1, w), np.uint32), weights=np.ones(1),
+        group_starts=np.array([0, 1]))
+    engine = PauliEngine(ham, device=device, membership="hash",
+                         hash_epb=epb, hash_extra_bits=extra_bits)
+    keys = rng.integers(0, 1 << 32, (n, w), dtype=np.int64)
+    keys[0, 0] = 0x7FC00001
+    valid = np.ones(n, bool)
+    valid[-16:] = False
+    la = rng.standard_normal(n).astype(np.float32)
+    ph = rng.uniform(-3, 3, n).astype(np.float32)
+    tab, _, overflow = engine._hash_build(
+        *(torch.from_numpy(a).to(device) for a in (keys, la, ph, valid)))
+    # 8-entry buckets at ~25% load overflow a few keys (JAX's hash_epb
+    # note: a fatter Poisson tail); the comparison holds either way.
+    assert int(overflow) <= 16
+    q = keys[rng.integers(0, n, n_queries)]
+    kind = rng.integers(0, 3, n_queries)
+    q[kind == 1, w - 1] ^= 1 << 7
+    q[kind == 2] = rng.integers(0, 1 << 32, (int((kind == 2).sum()), w))
+    q = torch.from_numpy(q.astype(np.uint32).view(np.int32)).to(device)
+    return tab, [q[:, j].contiguous() for j in range(w)], engine.hash_epb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,epb", [(2, 8), (2, 16), (3, None), (4, None)])
+@pytest.mark.parametrize("extra_bits", [0, 3])
+def test_hash_lookup_layouts_match_plain_on_card(cuda, w, epb, extra_bits):
+    """The JAX engine's other bucket layouts: K 2 at E 8 and 16
+    (``hash_epb``), K 3 and 4 at E 16, with the tags in shared memory
+    (extra_bits 0: 16 KB) and in global memory (3: 128 KB): the lookup
+    and the tag build bit for bit against their plain versions."""
+    tab, cols, entries = _layout_case(cuda, w, epb, extra_bits)
+    assert (tab.shape[1] // entries - 2, entries) in LAYOUTS
+    assert tags_in_shared_memory(tab.shape[0], entries) == (extra_bits == 0)
+    launches = hash_lookup.launches, hash_tags.launches
+    got = hash_lookup(tab, *cols, entries=entries)
+    assert (hash_lookup.launches, hash_tags.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    want = hash_lookup_plain(tab, *cols, entries=entries)
+    tags = hash_tags(tab, entries)
+    torch.cuda.synchronize()
+    for g, p in zip(got[:2], want[:2]):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(tags, hash_tags_plain(tab, entries))
+    assert 0 < int(got[2].sum()) < cols[0].numel()
 
 
 @pytest.mark.cuda

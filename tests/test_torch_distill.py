@@ -141,7 +141,8 @@ def test_run_interleaves_cycles_under_jax_header(tmp_path):
 def test_engine_overrides():
     """The overrides reach the engine (the Li2O campaign's prefilter
     capacities, and the escalation doubles them); a ``membership`` key
-    turns sector membership off; keys the port's engine lacks, a
+    turns sector membership off; ``me_chunk`` and ``hash_epb`` reach the
+    engine; keys the port's engine lacks, a
     contradicting ``membership`` / ``weights_matmul`` and an unknown
     distillation loss raise."""
     vmc = li2o_nade_vmc(device="cpu", engine_overrides={
@@ -166,7 +167,11 @@ def test_engine_overrides():
     assert VMC(mol, VMCConfig(membership="hash", engine_overrides={
         "membership": "hash", "weights_matmul": "grouped"}, **H2_CFG),
         cfg, device="cpu").engine.weights_matmul == "grouped"
-    for bad in ({"me_chunk": 64}, {"lookup_kernel": "pallas"},
+    eng = VMC(mol, VMCConfig(engine_overrides={
+        "membership": "hash", "me_chunk": 64, "hash_epb": 16}, **H2_CFG),
+        cfg, device="cpu").engine
+    assert (eng.me_chunk, eng.hash_epb) == (64, 16)
+    for bad in ({"dist_entry_slack": 4.0}, {"lookup_kernel": "pallas"},
                 {"mesh": None}):
         with pytest.raises(ValueError, match=next(iter(bad))):
             VMC(mol, VMCConfig(engine_overrides=bad, **H2_CFG), cfg,

@@ -21,7 +21,10 @@ With no arguments it writes every JAX state that ships with the port
   best stage (``examples/c2h4_support_ci.py rql``);
 - ``runs/c2h4_cisd_transformer_emp_lr0.0001/ckpt_3000`` ->
   ``c2h4_cisd_transformer_ckpt3000.npz``, the CISD-pretrained transformer
-  (``examples/c2h4_support_transformer.py``'s warm start).
+  (``examples/c2h4_support_transformer.py``'s warm start);
+- ``runs/cr2_train/ckpt_1000`` -> ``cr2_train_ckpt1000.npz``, the end state
+  of the Cr2/SV training leg (``examples/cr2_train.py``: MADE 1024 with
+  logit_cap 8, qubit_per_qudit 6).
 
 (The C2H4 CISD vector and selected-CI target ship as copies of
 ``runs/c2h4_cisd_vector.npz`` and ``runs/c2h4_sci/target.npz``:
@@ -49,6 +52,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 DATA = os.path.join(ROOT, "anqs_quantum_chemistry_torch", "data")
+# The C2H4 transformer state that ``--anchor`` evaluates.
+TRANSFORMER_STATE = "c2h4_cisd_transformer_ckpt3000.npz"
 # (checkpoint under runs/, npz under the port's data/).
 EXPORTS = (
     ("li2o_closure/ckpt_16000", "li2o_nade_closure.npz"),
@@ -57,8 +62,8 @@ EXPORTS = (
     ("li2o_sci/ckpt_26", "li2o_sci_ckpt26.npz"),
     ("c2h4_cisd_made/ckpt_4000", "c2h4_cisd_made_ckpt4000.npz"),
     ("c2h4_sci/ckpt_47", "c2h4_sci_ckpt47.npz"),
-    ("c2h4_cisd_transformer_emp_lr0.0001/ckpt_3000",
-     "c2h4_cisd_transformer_ckpt3000.npz"),
+    ("c2h4_cisd_transformer_emp_lr0.0001/ckpt_3000", TRANSFORMER_STATE),
+    ("cr2_train/ckpt_1000", "cr2_train_ckpt1000.npz"),
 )
 
 
@@ -117,7 +122,7 @@ def c2h4_transformer_anchor():
                            n_layers=3, d_ff=512, logit_cap=4.0,
                            matmul_precision="highest"))
     params = {}
-    with np.load(os.path.join(DATA, EXPORTS[-1][1])) as d:
+    with np.load(os.path.join(DATA, TRANSFORMER_STATE)) as d:
         for name in d.files:
             node = params
             *path, leaf = name.split(".")

@@ -1,6 +1,6 @@
 """Where the time of one training step of the PyTorch port goes, on one card.
 
-Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4|li2o_nade]
+Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4|li2o_nade|cr2]
 
 Builds a training workload -- ``n2`` (default): the main path,
 ``experiments.vmc.main_path_vmc`` (N2, MADE 512, 14464 Gumbel samples,
@@ -12,7 +12,11 @@ neighbours, prefilter membership, MinSR top-50); ``li2o_nade``:
 ``experiments.vmc.li2o_nade_vmc`` (Li2O, NADE (128, 128), 8192 Gumbel
 samples, prefilter membership at capacities (768, 4096), MinSR top-50)
 from the JAX package's closure state, which also times one distillation
-cycle (100 supervised Adam steps) alone -- warms it up with 3
+cycle (100 supervised Adam steps) alone; ``cr2``:
+``experiments.vmc.cr2_vmc`` (Cr2/SV, 84 qubits, MADE 1024, 1024 Gumbel
+samples and 64 pinned HF neighbours, prefilter membership in 128-row
+blocks, MinSR top-50; its prefilter stages are timed with the batch as
+one block) -- warms it up with 3
 steps (and on until a step drops no rows, the overflow policy acting after
 each step, as ``run`` does), then
 times ``reps`` whole steps on the host clock, and each stage of the step
@@ -106,8 +110,10 @@ def prefilter_stages(eng, words, la, ph, valid):
         "stage3b_dense_ms": stage3b,
         "kernel1_me_ms": lambda: eng.matrix_elements(words),
         "kernel1_me_3b_ms": lambda: eng.matrix_elements(rw),
-        "kernel2_3a_ms": lambda: hash_lookup(tab, *q3a),
-        "kernel2_3b_ms": lambda: hash_lookup(tab, *q3b),
+        "kernel2_3a_ms": lambda: hash_lookup(tab, *q3a,
+                                             entries=eng.hash_epb),
+        "kernel2_3b_ms": lambda: hash_lookup(tab, *q3b,
+                                             entries=eng.hash_epb),
     }
     return stages, {"kernel2_3a": q3a[0].numel(),
                     "kernel2_3b": q3b[0].numel(), "rows_3b": rw.shape[0]}
@@ -120,6 +126,7 @@ def main():
 
     from anqs_quantum_chemistry_torch.experiments.vmc import (
         c2h4_vmc,
+        cr2_vmc,
         li2o_nade_closure_params,
         li2o_nade_vmc,
         li2o_vmc,
@@ -134,7 +141,7 @@ def main():
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     workload = sys.argv[2] if len(sys.argv) > 2 else "n2"
     vmc = {"n2": main_path_vmc, "li2o": li2o_vmc, "c2h4": c2h4_vmc,
-           "li2o_nade": li2o_nade_vmc}[workload]("cuda")
+           "li2o_nade": li2o_nade_vmc, "cr2": cr2_vmc}[workload]("cuda")
     state = vmc.init_state()
     if workload == "li2o_nade":
         vmc.anqs.load_state_dict(li2o_nade_closure_params())
@@ -181,7 +188,8 @@ def main():
                 tab = eng._hash_build(words, la, ph, valid)[0]
                 queries = eng._hash_queries(words)
                 stages["hash_lookup_ms"] = cuda_ms(
-                    lambda: hash_lookup(tab, *queries), reps)
+                    lambda: hash_lookup(tab, *queries,
+                                        entries=eng.hash_epb), reps)
     stages["loss_fwd_bwd_ms"] = cuda_ms(loss_backward, reps)
     stages["minsr_ms"] = cuda_ms(
         lambda: sr_transform(anqs, params, grads, words, weights, cfg.sr),

@@ -317,3 +317,50 @@ def symplectic_symmetries(ham: PauliHamiltonian):
     b_bits = _unpack_bits(ham.b_words, n)
     kernel = _gf2_nullspace(np.concatenate([b_bits, a_bits], axis=1))
     return kernel[:, :n], kernel[:, n:]
+
+
+def permute_qubits_hamiltonian(ham: PauliHamiltonian,
+                               perm) -> PauliHamiltonian:
+    """Relabel qubits: new qubit ``i`` carries old qubit ``perm[i]`` (the
+    convention of ``ops.bits.permute_qubits``; JAX ``chem/jw.py:379-429``).
+    Each group keeps its terms; the groups are re-sorted by their permuted
+    flip masks, so ``a_masks`` stays canonically ordered. Raises
+    ``ValueError`` unless ``perm`` is a permutation of the qubits."""
+    n = ham.qubit_num
+    perm = np.asarray(perm, dtype=np.int64)
+    if sorted(perm.tolist()) != list(range(n)):
+        raise ValueError(f"qubit_perm is not a permutation of {n} qubits")
+
+    def permute_words(words):
+        out = np.zeros_like(words)
+        for i, p in enumerate(perm):
+            bit = (words[:, p // WORD_BITS] >> np.uint32(p % WORD_BITS)) & 1
+            out[:, i // WORD_BITS] |= (bit.astype(words.dtype)
+                                       << np.uint32(i % WORD_BITS))
+        return out
+
+    a_new = permute_words(ham.a_masks)
+    b_new = permute_words(ham.b_words)
+    a_ints = words_to_pyints(a_new)
+    order = sorted(range(len(a_ints)), key=lambda m: a_ints[m])
+    starts = ham.group_starts
+    new_starts = [0]
+    b_parts, w_parts = [], []
+    for m in order:
+        s, e = int(starts[m]), int(starts[m + 1])
+        b_parts.append(b_new[s:e])
+        w_parts.append(ham.weights[s:e])
+        new_starts.append(new_starts[-1] + (e - s))
+    return PauliHamiltonian(
+        qubit_num=n,
+        constant=ham.constant,
+        a_masks=a_new[np.asarray(order)],
+        b_words=np.vstack(b_parts),
+        weights=np.concatenate(w_parts),
+        group_starts=np.asarray(new_starts, dtype=np.int64),
+    )
+
+
+def permute_det(det: int, perm) -> int:
+    """Relabel the bits of a determinant: new bit i = old bit perm[i]."""
+    return sum(((int(det) >> int(p)) & 1) << i for i, p in enumerate(perm))

@@ -3,8 +3,11 @@
 The JAX ansatz keeps its weights in a nested dict pytree
 (``{"main": {"w0", "b0", ...}, "aux": {...}}``); the port's ``ANQS`` module
 holds the same arrays under dotted names (``"main.w0"``) in the same
-``(fan_in, fan_out)`` layout. The tests use this to run both packages from one
-set of weights.
+``(fan_in, fan_out)`` layout, whatever the options: layers without a bias
+have no ``b{i}`` in either, the 'log_psi' head has no ``aux``, NADE's
+subnets are ``main.qudit{q}.*``, and a stacked ensemble tree (a leading
+replica axis on every leaf) gives ``models/ensemble.py``'s stacked dict.
+The tests use this to run both packages from one set of weights.
 """
 
 from __future__ import annotations

@@ -25,7 +25,9 @@ overflow policy, ``result.csv``, ``best_energy.npy``, checkpoints and
 resume, and every ``distill_period`` iterations a distillation cycle
 (``distill_cycle``: supervised Adam steps toward the imaginary-time target
 the step's own local energies define). ``init_state()`` and
-``step(state)`` take single steps.
+``step(state)`` take single steps; ``init_ensemble_state(n_rep)`` and
+``_multi_step_ensemble(n_steps, n_rep)`` advance replicas seeded ``seed +
+r``, each as a run of its own would.
 """
 
 from __future__ import annotations
@@ -36,14 +38,16 @@ import json
 import logging
 import os
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..chem.fci import SECTOR_MAX_DETS, sector_determinants
+from ..chem.jw import permute_det, permute_qubits_hamiltonian
 from ..chem.molecule import Molecule
 from ..models.anqs import ANQS, AnqsConfig
+from ..models.ensemble import ensemble_init, preserved_parameters
 from ..observables.pauli import PauliEngine, mc_estimate
 from ..ops import bits as bitops
 from ..ops import keys
@@ -89,6 +93,8 @@ class VMCConfig(Config):
     # 'gumbel' | 'multinomial' | 'exact' ('exact' enumerates the whole
     # symmetry sector once and sums over it; sample_num is ignored).
     sampling_mode: str = "gumbel"
+    # The samplers' top-k: 'lax' or 'bisect' (``ops.topk.exact_top_k``).
+    topk_impl: str = "lax"
     multinomial_budget: Optional[int] = None
     # Adaptive multinomial budget (reference sample_precisely,
     # calculations/sample.py:62-75): rescale the budget between iterations
@@ -130,6 +136,12 @@ class VMCConfig(Config):
     couple_ref_dets: int = 0
     couple_support_file: Optional[str] = None
     couple_support_k: int = 8192
+    # Qubit relabelling (reference HilbertSpace perm/inv_perm,
+    # hilbert_space.py:97-104): new qubit i carries spin-orbital
+    # qubit_perm[i], in the Hamiltonian, the masker, the HF determinant and
+    # the enumerated sector alike. The spin-flip options assume the
+    # interleaved order and raise beside it.
+    qubit_perm: Optional[Tuple[int, ...]] = None
     seed: int = 0
     iter_num: int = 500
     # Iteration-keyed config schedules ((start_iter, {field: value}), ...):
@@ -292,16 +304,36 @@ class TrainState(NamedTuple):
     generator: torch.Generator  # sampler noise
 
 
+class EnsembleState(NamedTuple):
+    """Replicas of one trainer: every parameter stacked along a leading
+    replica axis (``models/ensemble.py``'s layout), and each replica's
+    optimizer (over the ansatz's own parameter tensors) and generator."""
+
+    params: Dict[str, torch.Tensor]
+    opts: Tuple[FiniteGuardOptimizer, ...]
+    generators: Tuple[torch.Generator, ...]
+
+
 class VMC:
     """The full stack for one molecule: masker, grouping, ansatz, Pauli
-    engine and the static tables of the exact or sector paths."""
+    engine and the static tables of the exact or sector paths.
+    ``sign_structure``: the ansatz's fixed phase table (``ANQS``), indexed
+    in the trainer's qubit order."""
 
     def __init__(self, mol: Molecule, config: VMCConfig = None,
                  anqs_config: AnqsConfig = None, device="cuda",
-                 run_dir: Optional[str] = None):
+                 run_dir: Optional[str] = None, sign_structure=None):
         self.mol = mol
         self.config = config or VMCConfig()
+        anqs_config = anqs_config or AnqsConfig()
         self.device = torch.device(device)
+        perm = self.config.qubit_perm
+        if perm is not None and (self.config.couple_spin_flip
+                                 or anqs_config.spin_flip_abs
+                                 or anqs_config.spin_flip_phase):
+            raise ValueError("spin-flip coupling assumes the interleaved "
+                             "qubit order; it cannot be combined with "
+                             "qubit_perm")
         if self.config.overflow_policy not in OVERFLOW_POLICIES:
             raise ValueError(f"overflow_policy="
                              f"{self.config.overflow_policy!r}: expected one "
@@ -310,14 +342,19 @@ class VMC:
             raise ValueError(f"distill_loss={self.config.distill_loss!r}: "
                              f"expected one of {DISTILL_LOSSES}")
         self.ham = mol.qubit_ham
+        ref_det = mol.hf_det
+        if perm is not None:
+            self.ham = permute_qubits_hamiltonian(self.ham, perm)
+            ref_det = permute_det(ref_det, perm)
         n = self.ham.qubit_num
-        self.masker = create_masker(mol, self.config.symmetry_level)
+        self.masker = create_masker(mol, self.config.symmetry_level, perm)
         self.grouping = QubitGrouping.create(
             self.masker, qubit_per_qudit=self.config.qubit_per_qudit
         )
         self.anqs = ANQS(
-            self.grouping, anqs_config or AnqsConfig(),
+            self.grouping, anqs_config,
             torch.Generator().manual_seed(self.config.seed),
+            sign_structure=sign_structure,
         ).to(self.device)
         self._overflow_escalations = 0
         self._mult_budget = None
@@ -331,7 +368,7 @@ class VMC:
                           self.config.proc_grad_schedule)
             if sched
         )
-        hf_bits = torch.tensor([[(mol.hf_det >> i) & 1 for i in range(n)]])
+        hf_bits = torch.tensor([[(ref_det >> i) & 1 for i in range(n)]])
         self.hf_words = bitops.pack(hf_bits).to(self.device)
         self.ref_neighbor_words = self._ref_neighbors()
         self.coupled_words = self._support_words()
@@ -355,7 +392,8 @@ class VMC:
         if self.config.sampling_mode == "exact":
             # Exact summation over the whole sorted sector (JAX
             # ``vmc.py:317-346``); sentinel rows pad it to a multiple of 64.
-            dets, words_packed, valid, n_real = self._enumerate_sector(mol, n)
+            dets, words_packed, valid, n_real = self._enumerate_sector(
+                mol, n, perm)
             if n_real > EXACT_MAX_DETS:
                 raise ValueError(f"sector too large for exact summation "
                                  f"({n_real} > {EXACT_MAX_DETS})")
@@ -369,7 +407,7 @@ class VMC:
             return
         if not self._want_sector_membership(mol):
             return
-        dets, words_packed, _, n_real = self._enumerate_sector(mol, n)
+        dets, words_packed, _, n_real = self._enumerate_sector(mol, n, perm)
         idx, pf = self._sector_partner_tables(dets, n_real)
         self.sector_words = words_packed
         self.sector_partner_idx = idx
@@ -440,19 +478,30 @@ class VMC:
 
     def _want_sector_membership(self, mol) -> bool:
         """JAX ``vmc.py:425-443`` in its 'auto' mode, whatever the engine's
-        dynamic membership resolved to."""
+        dynamic membership resolved to; off where the ansatz samples some
+        qudit unmasked (``masking_depth``, 'unmasked'), since its samples
+        can then leave the sector, which has no row for them (JAX keeps it
+        on there and loses every pair of such a sample, its diagonal
+        included: ROADMAP section 3)."""
         if (self.config.membership != "auto"
                 or "membership" in (self.config.engine_overrides or {})
-                or self.ham.qubit_num > 64):
+                or self.ham.qubit_num > 64 or self.anqs.leaves_sector):
             return False  # a named dynamic membership is used as named
         ndet = int(mol.fci_ndet)
         return (ndet <= SECTOR_MAX_DETS
                 and ndet * self.ham.n_groups <= SECTOR_MAX_ENTRIES)
 
-    def _enumerate_sector(self, mol, n):
-        """Sorted sector (uint64 dets), packed words padded with all-ones
-        sentinel rows to a multiple of 64, valid mask, real count."""
+    def _enumerate_sector(self, mol, n, perm=None):
+        """Sorted sector (uint64 dets) in the qubit order of ``perm``,
+        packed words padded with all-ones sentinel rows to a multiple of
+        64, valid mask, real count."""
         dets = sector_determinants(mol.qubit_num, mol.n_alpha, mol.n_beta)
+        if perm is not None:
+            permuted = np.zeros_like(dets)
+            for i, p in enumerate(perm):
+                permuted |= ((dets >> np.uint64(p)) & np.uint64(1)) << (
+                    np.uint64(i))
+            dets = np.sort(permuted)
         bits = ((dets[:, None] >> np.arange(n, dtype=np.uint64)[None, :])
                 & np.uint64(1)).astype(np.int64)
         n_real = len(dets)
@@ -506,7 +555,8 @@ class VMC:
         eff = self.config.replace(**overrides) if overrides else self.config
         samp = SamplingConfig(sample_num=eff.sample_num,
                               mode=eff.sampling_mode,
-                              budget=eff.multinomial_budget)
+                              budget=eff.multinomial_budget,
+                              topk_impl=eff.topk_impl)
         return eff, samp
 
     # ------------------------------------------------------------------
@@ -552,6 +602,62 @@ class VMC:
                 return
         os.makedirs(cache_dir, exist_ok=True)
         torch.save({k: v.cpu() for k, v in fresh.items()}, path)
+
+    # ------------------------------------------------------------------
+    # Replica ensembles (JAX ``vmc.py:681-743``)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def init_ensemble_state(self, n_rep: int) -> EnsembleState:
+        """``n_rep`` independent replicas, replica r seeded ``seed + r``
+        as ``init_state`` seeds a trainer of that seed (the reference's
+        multi-seed series, ``experiments/series.py``): its fresh weights,
+        optimizer and sampler generator. The ansatz keeps its own
+        parameters."""
+        seeds = [self.config.seed + r for r in range(n_rep)]
+        stacked = ensemble_init(
+            self.anqs, [torch.Generator().manual_seed(s) for s in seeds])
+        return EnsembleState(
+            params=stacked, opts=tuple(self._make_opt() for _ in seeds),
+            generators=tuple(torch.Generator(device=self.device)
+                             .manual_seed(s) for s in seeds))
+
+    def _multi_step_ensemble(self, n_steps: int, n_rep: int,
+                             overrides: Optional[dict] = None):
+        """A callable that advances an ``EnsembleState`` of ``n_rep``
+        replicas by ``n_steps`` steps each (under the schedule
+        ``overrides``) and returns (state, metrics), every metric an
+        (n_rep, n_steps) float64 array (JAX's name and layout). Each
+        replica steps as a standalone trainer of its seed would: its
+        parameters are loaded into the ansatz, its optimizer and generator
+        drive ``step``, and the updated parameters go back into the stack.
+        The kernels are called through ``ctypes`` and cannot be vmapped,
+        so the replicas take their steps in turn. The ansatz keeps its own
+        parameters."""
+        if n_steps < 1:
+            raise ValueError(f"n_steps={n_steps}: expected >= 1")
+
+        def call(state: EnsembleState):
+            if len(state.opts) != n_rep:
+                raise ValueError(f"ensemble of {len(state.opts)} replicas, "
+                                 f"expected {n_rep}")
+            rows = []
+            with preserved_parameters(self.anqs) as params:
+                for r in range(n_rep):
+                    with torch.no_grad():
+                        for n, p in params.items():
+                            p.copy_(state.params[n][r])
+                    solo = TrainState(opt=state.opts[r],
+                                      generator=state.generators[r])
+                    rows.append([self.step(solo, overrides=overrides)
+                                 for _ in range(n_steps)])
+                    with torch.no_grad():
+                        for n, p in params.items():
+                            state.params[n][r].copy_(p)
+            metrics = {k: np.array([[row[k] for row in rep] for rep in rows])
+                       for k in rows[0][0]}
+            return state, metrics
+
+        return call
 
     # ------------------------------------------------------------------
     # Multinomial budget and overflow policy (JAX ``vmc.py:794-871``)
@@ -734,9 +840,7 @@ class VMC:
         la_g = torch.where(valid, la_g, 0.0)
         ph_g = torch.where(valid, ph_g, 0.0)
         loss = 2.0 * torch.sum(grad_freqs * (la_g * d_re + ph_g * d_im))
-        grads = dict(
-            zip(params, torch.autograd.grad(loss, list(params.values())))
-        )
+        grads = dict(zip(params, _grad(loss, list(params.values()))))
 
         if cfg.sr is not None:
             grads = sr_transform(self.anqs, params, grads, words, grad_freqs,
@@ -864,7 +968,7 @@ class VMC:
         first = None
         for _ in range(cfg.distill_steps):
             loss = sup_loss()
-            grads = torch.autograd.grad(loss, params)
+            grads = _grad(loss, params)
             loss = loss.detach()
             first = loss if first is None else first
             better = loss < best_l
@@ -1068,6 +1172,14 @@ class VMC:
         return state, history, best
 
 
+def _grad(loss, params):
+    """d loss / d params, zeros for a parameter the loss does not reach
+    (the aux net under a ``sign_structure``), as JAX's grad gives."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
 def _layout(state_dict) -> dict:
     """{name: (shape, dtype)} of a state dict."""
     return {k: (tuple(v.shape), v.dtype) for k, v in state_dict.items()}
@@ -1126,12 +1238,16 @@ def it_targets(la, ph, e_re, e_im, valid, tau: float):
 
 
 def main_path_vmc(device="cuda", hidden_width: int = 512,
-                  run_dir: Optional[str] = None, **overrides) -> VMC:
+                  run_dir: Optional[str] = None,
+                  anqs_options: Optional[dict] = None, sign_structure=None,
+                  **overrides) -> VMC:
     """The main-path workload (JAX ``bench.py:build_vmc("gumbel")``,
     ``examples/n2_convergence.py``): N2/STO-3G, MADE ``hidden_width``,
     qubit_per_qudit 10, Gumbel top-k over the whole 14400-determinant
     sector (14464 rows), sector membership, MinSR top-50, clip 1.0, Adam
-    1e-3, seed 0. ``overrides``: other ``VMCConfig`` fields."""
+    1e-3, seed 0. ``anqs_options``: other ``AnqsConfig`` fields;
+    ``sign_structure``: ``VMC``'s; ``overrides``: other ``VMCConfig``
+    fields."""
     from ..chem.molecule import load_n2
 
     cfg = dict(sample_num=14464, sampling_mode="gumbel", qubit_per_qudit=10,
@@ -1140,23 +1256,35 @@ def main_path_vmc(device="cuda", hidden_width: int = 512,
     return VMC(
         load_n2(),
         VMCConfig(**{**cfg, **overrides}),
-        AnqsConfig(hidden_widths=(hidden_width,),
-                   aux_hidden_widths=(hidden_width,)),
+        AnqsConfig(**{"hidden_widths": (hidden_width,),
+                      "aux_hidden_widths": (hidden_width,),
+                      **(anqs_options or {})}),
         device=device,
         run_dir=run_dir,
+        sign_structure=sign_structure,
     )
 
 
+# The Li2O toy model with the reference's per-layer patterns, the log_psi
+# head, masking depth, bfloat16 activations (``li2o_vmc(anqs_options=...)``;
+# ``chip_smoke.py``'s options leg (d) and ``tools/profile_torch_step.py``'s
+# ``li2o_options``).
+LI2O_OPTIONS = dict(head_mode="log_psi", activation="sanqs_paper",
+                    hidden_widths=(512, 512), bias=(True, True, False),
+                    masking_depth=1, compute_dtype="bfloat16")
+
+
 def li2o_vmc(device="cuda", hidden_width: int = 512,
-             run_dir: Optional[str] = None, **overrides) -> VMC:
+             run_dir: Optional[str] = None,
+             anqs_options: Optional[dict] = None, **overrides) -> VMC:
     """The reference's documented toy workload (its Colab notebook, JAX
     ``examples/li2o_toy_model.py``): Li2O/STO-3G, 30 qubits, MADE
     ``hidden_width``, qubit_per_qudit 6, Gumbel top-k over 8192 unique
     determinants, hash membership (the example's docstring names it; the
     41.4M-determinant sector is far beyond sector membership), MinSR
     top-50, clip 1.0, Adam 3e-3 (the example's schedule holds 3e-3 for its
-    first 1200 steps), seed 0. ``overrides``: other ``VMCConfig``
-    fields."""
+    first 1200 steps), seed 0. ``anqs_options``: other ``AnqsConfig``
+    fields; ``overrides``: other ``VMCConfig`` fields."""
     from ..chem.molecule import load_li2o
 
     cfg = dict(sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
@@ -1165,8 +1293,9 @@ def li2o_vmc(device="cuda", hidden_width: int = 512,
     return VMC(
         load_li2o(),
         VMCConfig(**{**cfg, **overrides}),
-        AnqsConfig(hidden_widths=(hidden_width,),
-                   aux_hidden_widths=(hidden_width,)),
+        AnqsConfig(**{"hidden_widths": (hidden_width,),
+                      "aux_hidden_widths": (hidden_width,),
+                      **(anqs_options or {})}),
         device=device,
         run_dir=run_dir,
     )

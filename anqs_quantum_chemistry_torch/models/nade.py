@@ -3,10 +3,10 @@
 Counterpart of the JAX package's ``models/nade.py``: subnet q sees the
 input encoding ``1 - 2 * bits`` with the qubits of qudits >= q zeroed (a
 static visibility mask, in place of MADE's weight masks), so its output
-depends only on the qudits before q. Tanh hidden layers with biases and,
-from the second hidden layer on, residual connections where the widths
-match -- the JAX package's default pattern. The Q subnets run as a loop of
-small GEMMs. Parameters keep JAX's names (``qudit{q}.w{i}``, ``b{i}``) and
+depends only on the qudits before q. The layers follow MADE's per-layer
+patterns (``made.mlp_apply``: activation, bias, residual, compute dtype;
+JAX ``models/nade.py:25-97``). The Q subnets run as a loop of small
+GEMMs. Parameters keep JAX's names (``qudit{q}.w{i}``, ``b{i}``) and
 ``(fan_in, fan_out)`` layout, so ``convert.params_from_jax`` carries a JAX
 tree across unchanged. Interface-compatible with ``made.MADE``: bits (B, n)
 -> (B, Q, D, C). Float32 throughout; the matmuls multiply at
@@ -16,14 +16,13 @@ tree across unchanged. Interface-compatible with ``made.MADE``: bits (B, n)
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .precision import matmul
+from .made import bias_pattern, check_patterns, glorot_layers, mlp_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +35,10 @@ class NadeSpec:
     n_channels: int = 1
     # 'bfloat16' or None (float32): ``precision.check_precision``'s value.
     matmul_precision: Optional[str] = None
+    activation: object = "tanh"  # str | Tuple[str, ...] | 'sanqs_paper'
+    bias: object = True  # bool | Tuple[bool, ...] (depth + 1 entries)
+    residual: bool = True
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
     @property
     def qudit_num(self) -> int:
@@ -49,21 +52,13 @@ class NadeSpec:
 
 
 def nade_init(spec: NadeSpec, generator: torch.Generator) -> Dict:
-    """Glorot-normal weights and zero biases of every subnet, qudit by
-    qudit and layer by layer (JAX ``nade_init``'s order), on the CPU from
-    ``generator``: ``{"qudit{q}": {"w{i}", "b{i}"}}``."""
-    dims = spec.dims
-    params = {}
-    for q in range(spec.qudit_num):
-        sub = {}
-        for i in range(len(dims) - 1):
-            scale = math.sqrt(2.0 / (dims[i] + dims[i + 1]))
-            sub[f"w{i}"] = scale * torch.randn(
-                dims[i], dims[i + 1], generator=generator, dtype=torch.float32
-            )
-            sub[f"b{i}"] = torch.zeros(dims[i + 1], dtype=torch.float32)
-        params[f"qudit{q}"] = sub
-    return params
+    """Glorot-normal weights and zero biases (where the pattern keeps them)
+    of every subnet, qudit by qudit and layer by layer (JAX ``nade_init``'s
+    order), on the CPU from ``generator``: ``{"qudit{q}": {"w{i}",
+    "b{i}"}}``."""
+    use_bias = bias_pattern(spec.bias, len(spec.dims) - 1)
+    return {f"qudit{q}": glorot_layers(spec.dims, use_bias, generator)
+            for q in range(spec.qudit_num)}
 
 
 def visibility(spec: NadeSpec) -> np.ndarray:
@@ -77,20 +72,13 @@ def visibility(spec: NadeSpec) -> np.ndarray:
 def nade_apply(spec: NadeSpec, params: Dict, vis, bits) -> torch.Tensor:
     """bits (B, n) in {0,1} -> (B, Q, D, C) raw conditional outputs (JAX
     ``nade_apply``); ``vis`` is ``visibility(spec)`` as a tensor."""
-    n_layers = len(spec.hidden_widths)
-    prec = spec.matmul_precision
+    n_weights = len(spec.hidden_widths) + 1
     x = 1.0 - 2.0 * bits.to(torch.float32)
     outs = []
     for q in range(spec.qudit_num):
         sub = params[f"qudit{q}"]
-        h = x * vis[q]
-        for i in range(n_layers):
-            z = torch.tanh(matmul(h, sub[f"w{i}"], prec) + sub[f"b{i}"])
-            if i > 0 and z.shape == h.shape:
-                z = z + h
-            h = z
-        outs.append(matmul(h, sub[f"w{n_layers}"], prec)
-                    + sub[f"b{n_layers}"])
+        weights = [sub[f"w{i}"] for i in range(n_weights)]
+        outs.append(mlp_apply(spec, sub, weights, x * vis[q]))
     out = torch.stack(outs, dim=-2)
     return out.reshape(*bits.shape[:-1], spec.qudit_num, spec.max_qudit_dim,
                        spec.n_channels)
@@ -98,10 +86,12 @@ def nade_apply(spec: NadeSpec, params: Dict, vis, bits) -> torch.Tensor:
 
 class NADE(nn.Module):
     """``nade_apply`` with its parameters, one submodule ``qudit{q}`` a
-    subnet holding ``w{i}`` and ``b{i}``, and the visibility mask."""
+    subnet holding ``w{i}`` and the ``b{i}`` its pattern keeps, and the
+    visibility mask."""
 
     def __init__(self, spec: NadeSpec, generator: torch.Generator):
         super().__init__()
+        check_patterns(spec)
         self.spec = spec
         for q, sub in nade_init(spec, generator).items():
             module = nn.Module()

@@ -17,6 +17,14 @@ products of ``observables/pauli.py``.
   float32 matmul of the rounded operands computes just that.
 
 Other values raise ``ValueError``.
+
+``AnqsConfig.compute_dtype`` is another knob: with 'bfloat16' the JAX nets
+cast each matmul operand to bfloat16 and *store* each layer's activation in
+bfloat16 (``h = z.astype(cdt)``, JAX ``models/made.py:157``), so residual
+adds and the next layer read rounded values. ``store`` rounds a float32
+tensor to the values bfloat16 can hold and keeps it float32; the matmuls
+then stay strict float32, in which products of bfloat16 values are exact.
+Both knobs may be set at once (rounding twice is rounding once).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 FLOAT32 = (None, "default", "float32", "highest")
 PRECISIONS = FLOAT32 + ("bfloat16",)
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_precision(precision) -> Optional[str]:
@@ -40,8 +49,23 @@ def check_precision(precision) -> Optional[str]:
                      f"{PRECISIONS}")
 
 
+def check_compute_dtype(compute_dtype) -> str:
+    """``compute_dtype`` as given; raises ``ValueError`` on a value that is
+    not in ``COMPUTE_DTYPES``."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: expected one of "
+                         f"{COMPUTE_DTYPES}")
+    return compute_dtype
+
+
 def _round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def store(x: torch.Tensor, compute_dtype: str = "float32") -> torch.Tensor:
+    """``x`` as the JAX nets hold it at ``compute_dtype``: rounded to
+    bfloat16 (round to nearest even) and kept float32, or unchanged."""
+    return _round(x) if compute_dtype == "bfloat16" else x
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,

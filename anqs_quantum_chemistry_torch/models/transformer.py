@@ -10,8 +10,15 @@ names and layouts -- ``embed`` (Q, D, d), ``pos`` (Q, d), ``start`` (d),
 ``layer{i}.{wq,wk,wv,wo,ln1_*,ln2_*,ff1,ff1_b,ff2,ff2_b}`` with weights as
 (fan_in, fan_out), ``head`` (d, D*C) and ``head_b`` -- so
 ``convert.params_from_jax`` loads a JAX parameter tree as it is. Float32
-throughout (TF32 is off for the process, ``anqs_quantum_chemistry_torch``);
-the matmuls multiply at ``spec.matmul_precision`` (``precision.py``).
+tensors throughout (TF32 is off for the process,
+``anqs_quantum_chemistry_torch``); the matmuls multiply at
+``spec.matmul_precision`` (``precision.py``). At ``compute_dtype``
+'bfloat16' the operands JAX casts to bfloat16 are rounded where JAX casts
+them (``precision.store``; JAX ``models/transformer.py:130-179``): the
+embedded input, each layer norm's output, the weights, the attention
+weights, the context, the feed-forward activation and the head's input; the
+layer norms, the projections' outputs and the residual stream after the
+first attention block stay float32.
 
 Interface of ``made.MADE``: ``forward(bits (B, n)) -> (B, Q, D, C)``.
 """
@@ -26,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .precision import einsum, matmul
+from .precision import check_compute_dtype, einsum, matmul, store
 
 LN_EPS = 1e-5
 MASKED_LOGIT = -1e30  # causal fill: finite, as in the JAX package
@@ -45,6 +52,7 @@ class TransformerSpec:
     d_ff: int = 256
     # 'bfloat16' or None (float32): ``precision.check_precision``'s value.
     matmul_precision: Optional[str] = None
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
     @property
     def qudit_num(self) -> int:
@@ -113,6 +121,7 @@ class Transformer(nn.Module):
         if spec.d_model % spec.n_heads:
             raise ValueError(f"d_model {spec.d_model} is not a multiple of "
                              f"n_heads {spec.n_heads}")
+        check_compute_dtype(spec.compute_dtype)
         self.spec = spec
         for name, value in transformer_init(spec, generator).items():
             if isinstance(value, dict):
@@ -152,27 +161,31 @@ class Transformer(nn.Module):
         qi = torch.arange(q_num, device=bits.device)
         emb = self.embed[qi[None, :], vals]  # (B, Q, d)
         h = torch.cat([self.start.expand(b, 1, d), emb[:, :q_num - 1]], 1)
-        h = h + self.pos[None]
+        prec, cdt = spec.matmul_precision, spec.compute_dtype
+        h = store(h + self.pos[None], cdt)
         causal = torch.tril(torch.ones(q_num, q_num, dtype=torch.bool,
                                        device=bits.device))
-        prec = spec.matmul_precision
+
+        def mm(x, w):
+            return matmul(store(x, cdt), store(w, cdt), prec)
+
         for layer in range(spec.n_layers):
             p = getattr(self, f"layer{layer}")
             x = _layer_norm(h, p.ln1_scale, p.ln1_bias)
 
             def proj(w):
-                return matmul(x, w, prec).reshape(b, q_num, n_heads, d_head)
+                return mm(x, w).reshape(b, q_num, n_heads, d_head)
 
             qh, kh, vh = proj(p.wq), proj(p.wk), proj(p.wv)
             logits = einsum("bqhe,bkhe->bhqk", qh, kh, prec) / math.sqrt(
                 d_head)
             logits = torch.where(causal, logits, MASKED_LOGIT)
             attn = torch.softmax(logits, dim=-1)
-            ctx = einsum("bhqk,bkhe->bqhe", attn, vh, prec).reshape(
-                b, q_num, d)
-            h = h + matmul(ctx, p.wo, prec)
+            ctx = einsum("bhqk,bkhe->bqhe", store(attn, cdt), vh,
+                         prec).reshape(b, q_num, d)
+            h = h + mm(ctx, p.wo)
             x = _layer_norm(h, p.ln2_scale, p.ln2_bias)
-            ff = F.gelu(matmul(x, p.ff1, prec) + p.ff1_b, approximate="tanh")
-            h = h + matmul(ff, p.ff2, prec) + p.ff2_b
-        out = matmul(h, self.head, prec) + self.head_b
+            ff = F.gelu(mm(x, p.ff1) + p.ff1_b, approximate="tanh")
+            h = h + mm(ff, p.ff2) + p.ff2_b
+        out = mm(h, self.head) + self.head_b
         return out.reshape(b, q_num, spec.max_qudit_dim, spec.n_channels)

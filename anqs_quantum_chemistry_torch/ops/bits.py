@@ -63,6 +63,31 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
     return torch.sum(popcount_word(words), dim=-1)
 
 
+# Set bits of each byte value, counted by Python: the table of
+# ``popcount_hw``, independent of ``popcount_word``'s SWAR.
+_BYTE_POPCOUNT = tuple(bin(v).count("1") for v in range(256))
+
+
+def popcount_hw(words: torch.Tensor) -> torch.Tensor:
+    """``popcount`` by a byte lookup table: the JAX package's
+    ``popcount_hw``, the reference's cross-check mode (hilbert_space.py:
+    158-198 keeps three popcounts)."""
+    table = torch.tensor(_BYTE_POPCOUNT, dtype=torch.int64,
+                         device=words.device)
+    w = words & MASK32
+    return torch.sum(sum(table[(w >> s) & 0xFF] for s in (0, 8, 16, 24)),
+                     dim=-1)
+
+
+def permute_qubits(words: torch.Tensor, perm, qubit_num: int) -> torch.Tensor:
+    """Reorder qubits: output bit ``i`` = input bit ``perm[i]`` (the JAX
+    package's ``permute_qubits``; reference perm/inv_perm,
+    hilbert_space.py:97-104)."""
+    bits = unpack(words, qubit_num)
+    idx = torch.as_tensor(perm, dtype=torch.int64, device=words.device)
+    return pack(bits[..., idx])
+
+
 def parity(words: torch.Tensor) -> torch.Tensor:
     """Parity (popcount mod 2) over the word axis: ``(..., W) -> (...,)``."""
     w = words[..., 0]

@@ -5,7 +5,10 @@ applications/quantum_chemistry/experiments/calculations/sr.py:88-137):
 centered per-sample log-derivatives O over the top-k most probable sampled
 determinants, then the sample-space solve
 
-    grad <- eps^-1 [g - O^dag (eps I + O O^dag)^-1 O g].
+    grad <- eps^-1 [g - O^dag (eps I + O O^dag)^-1 O g],
+
+or, with ``use_reg=False``, the unregularised pseudo-inverse form
+``O^dag (S + floor)^-2 O g`` (reference sr.py:129-135).
 
 Per-sample Jacobians come from ``torch.func.jacrev`` of the batched
 ``log_psi`` through ``functional_call``; complex quantities are carried as
@@ -26,6 +29,7 @@ from torch.func import functional_call, jacrev
 @dataclasses.dataclass(frozen=True)
 class SRConfig:
     max_indices_num: int = 25
+    use_reg: bool = True
     reg_eps: float = 1e-4
 
 
@@ -73,18 +77,25 @@ def sr_transform(anqs, params: Dict[str, torch.Tensor],
     j_ph = j_ph - torch.sum(f[:, None] * j_ph, dim=0, keepdim=True)
     sqrt_f = torch.sqrt(f)[:, None]
     new = minsr_precondition(sqrt_f * j_la, sqrt_f * j_ph, g,
-                             config.reg_eps)
+                             config.reg_eps, config.use_reg)
     return _unflatten(new, grads)
 
 
-def minsr_precondition(o_re, o_im, g, eps: float):
+def minsr_precondition(o_re, o_im, g, eps: float, use_reg: bool = True):
     """The MinSR sample-space solve on an explicit (k, P) O-matrix, in
-    float64; returns float32 like ``g`` (reference sr.py:121-128):
+    float64; returns float32 like ``g``. With ``use_reg`` (reference
+    sr.py:121-128):
 
-        grad <- eps^-1 [g - O^dag (eps I + O O^dag)^-1 O g].
+        grad <- eps^-1 [g - O^dag (eps I + O O^dag)^-1 O g],
 
-    ``eps`` gets the JAX package's relative floor (2^-20 * max diag S), so
-    both packages solve the same system.
+    ``eps`` under the JAX package's relative floor 2^-20 * max diag S, so
+    both packages solve the same system. Without it (reference
+    sr.py:129-135, utils/misc.py:45-52; JAX ``optim/sr.py:170-232``):
+
+        grad <- O^dag (S + floor)^-2 O g,  floor = 2^-14 * max diag S,
+
+    JAX's twice-applied small-ridge stand-in for (O^dag O)^+ g, whose floor
+    truncates the near-zero eigenvalues as the reference's SVD cutoff does.
     """
     k = o_re.shape[0]
     o_re = o_re.to(torch.float64)
@@ -95,12 +106,17 @@ def minsr_precondition(o_re, o_im, g, eps: float):
     block = torch.cat(
         [torch.cat([s_re, -s_im], 1), torch.cat([s_im, s_re], 1)], 0
     )
-    reg = torch.clamp(2.0**-20 * torch.max(torch.diag(block)), min=eps)
+    floor = 2.0 ** (-20 if use_reg else -14) * torch.max(torch.diag(block))
+    reg = torch.clamp(floor, min=eps if use_reg else 0.0)
     m = block + reg * torch.eye(2 * k, dtype=torch.float64, device=g.device)
     rhs = torch.cat([o_re @ g64, o_im @ g64])
     y = torch.linalg.solve(m, rhs)
+    if not use_reg:
+        y = torch.linalg.solve(m, y)
     # O^dag y = (O_re^T - i O_im^T)(y_re + i y_im); real part only.
     ody_re = o_re.T @ y[:k] + o_im.T @ y[k:]
+    if not use_reg:
+        return ody_re.to(g.dtype)
     return ((g64 - ody_re) / reg).to(g.dtype)
 
 

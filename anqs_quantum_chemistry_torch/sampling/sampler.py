@@ -20,6 +20,12 @@ transition/mask tables, so every emitted determinant is physical.
   survive a step; the rest are reported as ``dropped``. The binomial draw
   is ``torch.binomial`` with the caller's generator, or a given
   ``draw(counts, p)`` (the tests' deterministic split).
+
+Both select each step's survivors with ``topk_impl``: 'lax' (``torch.topk``
+on the Gumbel keys, a stable sort on the counts) or 'bisect'
+(``ops.topk.exact_top_k``, ``jax.lax.top_k``'s order, -0.0 below 0.0,
+by a stable sort of order-preserving integer images; JAX
+``_select_top_k``, ``sampling/sampler.py:112-121``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ import torch
 
 from ..models.anqs import ANQS, NEG
 from ..ops import bits as bitops
+from ..ops.topk import exact_top_k
+
+TOPK_IMPLS = ("lax", "bisect")
 
 
 class GumbelSample(NamedTuple):
@@ -120,12 +129,32 @@ def _uniform(shape, device, generator):
     return torch.clamp(u, min=1e-38)
 
 
+def _top_k(x, k: int):
+    """The ``k`` largest of ``x`` and their indices, ties to the lower
+    index (the order of ``jax.lax.top_k``)."""
+    values, idx = torch.sort(x, descending=True, stable=True)
+    return values[:k], idx[:k]
+
+
+def _select_top_k(x, k: int, impl: str):
+    """A step's survivors: the ``k`` largest of the flat candidates ``x``
+    by ``impl`` (``TOPK_IMPLS``); raises ``ValueError`` on another."""
+    if impl == "bisect":
+        return exact_top_k(x, k)
+    if impl != "lax":
+        raise ValueError(f"topk_impl={impl!r}: expected one of {TOPK_IMPLS}")
+    if x.is_floating_point():
+        return torch.topk(x, k)
+    return _top_k(x, k)
+
+
 @torch.no_grad()
 def gumbel_top_k_sample(
     anqs: ANQS,
     sample_num: int,
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
+    topk_impl: str = "lax",
 ) -> GumbelSample:
     """Exactly the ``sample_num`` distinct most-probable-by-Gumbel states."""
     k_cap = sample_num
@@ -161,7 +190,8 @@ def gumbel_top_k_sample(
         child_gumbel = _gumbels_given_max(u, child_logp, gumbel)
         child_gumbel = torch.where(child_logp > 0.5 * NEG, child_gumbel, NEG)
 
-        top_g, top_idx = torch.topk(child_gumbel.reshape(-1), k_out)
+        top_g, top_idx = _select_top_k(child_gumbel.reshape(-1), k_out,
+                                       topk_impl)
         parent = top_idx // d
         cont = top_idx % d
         words = _expand_words_dyn(anqs, words, parent, cont, q)
@@ -182,13 +212,6 @@ def gumbel_top_k_sample(
     norm = torch.logsumexp(torch.where(valid, logp, NEG), dim=0)
     log_probs = torch.where(valid, logp - norm, NEG)
     return GumbelSample(words=words, log_probs=log_probs, valid=valid)
-
-
-def _top_k(x, k: int):
-    """The ``k`` largest of ``x`` and their indices, ties to the lower
-    index (the order of ``jax.lax.top_k``)."""
-    values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
 
 
 def _binomial_bisect(counts, probs, k_bits: int, generator=None,
@@ -228,7 +251,8 @@ def _binomial_bisect(counts, probs, k_bits: int, generator=None,
 
 @torch.no_grad()
 def _multinomial_core(anqs: ANQS, k_cap: int, budget: int, generator=None,
-                      draw: Optional[Callable] = None) -> MultinomialSample:
+                      draw: Optional[Callable] = None,
+                      topk_impl: str = "lax") -> MultinomialSample:
     """``multinomial_sample`` without the budget check. Capacity-scheduled
     like ``gumbel_top_k_sample``: exactly-sized frontiers until the
     frontier saturates at ``k_cap``, then ``k_cap`` rows a step."""
@@ -256,7 +280,7 @@ def _multinomial_core(anqs: ANQS, k_cap: int, budget: int, generator=None,
                             0.0)
         child = _binomial_bisect(counts, probs, k_bits, generator, draw)
         child = torch.where(counts[:, None] > 0, child, 0).reshape(-1)
-        top_c, top_idx = _top_k(child, k_out)
+        top_c, top_idx = _select_top_k(child, k_out, topk_impl)
         dropped = dropped + (torch.sum(child) - torch.sum(top_c))
         parent = top_idx // d
         cont = top_idx % d
@@ -276,13 +300,15 @@ def _multinomial_core(anqs: ANQS, k_cap: int, budget: int, generator=None,
 
 def multinomial_sample(anqs: ANQS, sample_num: int,
                        budget: Optional[int] = None, generator=None,
-                       draw: Optional[Callable] = None) -> MultinomialSample:
+                       draw: Optional[Callable] = None,
+                       topk_impl: str = "lax") -> MultinomialSample:
     """Occupation-count sampling of ``budget`` draws (default
     ``sample_num``) with capacity K = ``sample_num``."""
     budget = int(budget if budget is not None else sample_num)
     if budget > MAX_BUDGET:
         raise ValueError("multinomial budget > 2^30 overflows int32 counts")
-    return _multinomial_core(anqs, sample_num, budget, generator, draw)
+    return _multinomial_core(anqs, sample_num, budget, generator, draw,
+                             topk_impl)
 
 
 def sample_precisely(anqs: ANQS, sample_num: int, target_unique: int,
@@ -309,6 +335,12 @@ class SamplingConfig:
     sample_num: int = 10000
     mode: str = "gumbel"  # 'gumbel' (unique top-k) | 'multinomial'
     budget: Optional[int] = None  # multinomial budget (default sample_num)
+    topk_impl: str = "lax"  # 'lax' | 'bisect' (ops.topk.exact_top_k)
+
+    def __post_init__(self):
+        if self.topk_impl not in TOPK_IMPLS:
+            raise ValueError(f"topk_impl={self.topk_impl!r}: expected one "
+                             f"of {TOPK_IMPLS}")
 
 
 def sample(anqs: ANQS, config: SamplingConfig,
@@ -325,17 +357,17 @@ def sample(anqs: ANQS, config: SamplingConfig,
     generator's draws."""
     if config.mode == "gumbel":
         out = gumbel_top_k_sample(anqs, config.sample_num, generator,
-                                  uniforms)
+                                  uniforms, config.topk_impl)
         weights = torch.where(out.valid, torch.exp(out.log_probs), 0.0)
         stats = {"unique_num": torch.sum(out.valid), "dropped": 0}
         return out.words, weights, out.valid, stats
     if config.mode == "multinomial":
         if budget is None:
             out = multinomial_sample(anqs, config.sample_num, config.budget,
-                                     generator, draw)
+                                     generator, draw, config.topk_impl)
         else:
             out = _multinomial_core(anqs, config.sample_num, int(budget),
-                                    generator, draw)
+                                    generator, draw, config.topk_impl)
         total = torch.clamp(torch.sum(out.counts), min=1)
         weights = out.counts.to(torch.float32) / total
         stats = {"unique_num": torch.sum(out.valid), "dropped": out.dropped}

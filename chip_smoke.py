@@ -244,6 +244,36 @@ counts set to 0 before (e) and read after (f):
   ms a step, peak memory; kernels #1 and #2 (and the tag build) once a
   row block and once for the dense rows each step.
 
+Last, the ansatz and step options of the JAX package (``options_phase``),
+from seed 0 at full width, each leg's step time printed and its launches
+counted from 0 (paths ``options_spin_flip``, ``options_sign``,
+``options_perm``, ``options_li2o``, ``options_ensemble``):
+
+- (a) N2 main path with ``spin_flip_abs``, ``spin_flip_phase`` and
+  ``couple_spin_flip``, 5 steps: over step 0's set, log|psi(flip x)| =
+  log|psi(x)| and psi(flip x) = (-1)^(n_open/2) psi(x) to 2e-5; its
+  ``found_pairs`` equal to a host count and its energy within 1e-4 Ha of
+  the float64 Rayleigh quotient over the set.
+- (b) N2 with the signs of its sector FCI vector (the port's own solve) as
+  a 2^20 ``sign_structure``, 3 steps: every phase its table entry exactly;
+  the energy against the quotient as in (a).
+- (c) N2 in exact summation with ``qubit_perm`` = alpha orbitals first,
+  then beta, 3 steps: the permuted Hamiltonian's sector FCI equal to the
+  unpermuted one to 1e-8 Ha; step 0 within 1e-5 Ha of the float64 quotient
+  over the permuted sector.
+- (d) The Li2O toy model with ``head_mode='log_psi'``, 'sanqs_paper'
+  activations, hidden widths (512, 512), biases (on, on, off),
+  ``masking_depth=1``, ``compute_dtype='bfloat16'``,
+  ``topk_impl='bisect'`` and MinSR without regularisation, 3 steps:
+  bfloat16 storage bit for bit the CPU's and log|psi| within 5e-3 of a CPU
+  copy; ``exact_top_k`` equal to the ordered top-k bit for bit on the last
+  frontier (both timed); finite energies; step 0's ``found_pairs`` equal to
+  a host count (hash membership: masking depth lets samples leave the
+  sector).
+- (e) N2 as a 4-replica ensemble (``init_ensemble_state``,
+  ``_multi_step_ensemble``), 3 steps each: every replica's energies within
+  2e-5 relative of a standalone run at its seed; replicas 0 and 1 apart.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -2578,6 +2608,336 @@ def random_key_table(torch, n_qubits, rng, hash_epb=None, n_keys=8192,
     q = torch.from_numpy(q.astype(np.uint32).view(np.int32)).cuda()
     return tab, [q[:, j].contiguous() for j in range(w)], eng.hash_epb
 
+# ``options_phase``: the ansatz and step options of the JAX package on the
+# N2 main path and the Li2O toy model (steps of each leg).
+OPT_SPIN_STEPS = 5
+OPT_STEPS = 3
+OPT_REPLICAS = 4
+SPIN_FLIP_TOL = 2e-5  # JAX tests/test_spin_flip.py's tolerance
+PERM_FCI_TOL = 1e-8
+ENSEMBLE_RTOL = 2e-5  # JAX tests/test_ensemble_step.py's tolerance
+
+
+def sorted_set(words, valid, la, ph):
+    """A one-word set's valid rows on the host, sorted: (uint64 dets,
+    complex128 psi = exp(la + i ph))."""
+    import numpy as np
+
+    keep = valid.cpu().numpy()
+    dets = words[:, 0].cpu().numpy().astype(np.uint64)[keep]
+    psi = np.exp(la.double().cpu().numpy()[keep]
+                 + 1j * ph.double().cpu().numpy()[keep])
+    order = np.argsort(dets)
+    return dets[order], psi[order]
+
+
+def pairs_in_set(ham, dets):
+    """Ordered pairs (x, x ^ A_m) of the sorted ``dets`` inside them (a
+    binary search of every partner): the step's ``found_pairs``."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.jw import words_to_ints
+
+    partner = dets[:, None] ^ words_to_ints(ham.a_masks)[None, :]
+    idx = np.clip(np.searchsorted(dets, partner), 0, len(dets) - 1)
+    return int(np.sum(dets[idx] == partner))
+
+
+def quotient(h, psi):
+    """The float64 Rayleigh quotient of ``psi`` under the sparse ``h``."""
+    import numpy as np
+
+    return float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
+
+
+def replay_set(vmc, state):
+    """Step 0's own set and amplitudes, drawn with the generator's state
+    restored after, so that the step draws the same uniforms."""
+    gen_state = state.generator.get_state()
+    words, _, valid, _, la, ph, _ = vmc._support_and_eloc(state)
+    state.generator.set_state(gen_state)
+    return words, valid, la, ph
+
+
+def run_steps(torch, vmc, state, n, label):
+    """``n`` steps, each printed with its time; returns (rows, step times,
+    the launches of the steps)."""
+    import statistics
+
+    import numpy as np
+
+    reset_launches()
+    rows, times = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        row = vmc.step(state)
+        times.append(time.perf_counter() - t)
+        rows.append(row)
+        log(f"{label} step {i}: energy {row['energy']:.6f} unique_num "
+            f"{int(row['unique_num'])} found_pairs {int(row['found_pairs'])} "
+            f"grad_norm {row['grad_norm']:.4f} step_s {times[-1]:.4f}")
+    launches = read_launches()
+    for i, row in enumerate(rows):
+        check(np.isfinite(row["energy"]), f"{label} step {i}: energy")
+    log(f"{label}: median step {statistics.median(times[1:]):.4f} s "
+        f"(steps 1-{n - 1}), launches {launches}")
+    return rows, times, launches
+
+
+def options_phase(torch, mol):
+    """The ansatz and step options at full width from seed 0, five legs
+    with their launches counted from 0: (a) N2 with spin-flip
+    symmetrization of log|psi| and the phase and the flip closure of the
+    sample set; (b) N2 with the FCI vector's signs as a fixed sign
+    structure; (c) N2 in exact summation with the alpha orbitals first;
+    (d) the Li2O toy model with the per-layer patterns, the log_psi head,
+    masking depth 1, bfloat16 activations, ``topk_impl='bisect'`` and MinSR
+    without regularisation; (e) N2 as a 4-replica ensemble against
+    standalone runs. Returns ({path: launches}, {leg: median step s})."""
+    import copy
+    import statistics
+
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.chem.fci import (
+        _ground_state,
+        sector_hamiltonian,
+    )
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        LI2O_OPTIONS,
+        li2o_vmc,
+        main_path_vmc,
+    )
+    from anqs_quantum_chemistry_torch.models import precision
+    from anqs_quantum_chemistry_torch.ops import bits as bitops
+    from anqs_quantum_chemistry_torch.ops.topk import exact_top_k
+    from anqs_quantum_chemistry_torch.optim.sr import SRConfig
+    from anqs_quantum_chemistry_torch.sampling import sampler
+
+    t_phase = time.perf_counter()
+    launches, step_s = {}, {}
+    n_real = mol.fci_ndet
+
+    # (a) Spin flip.
+    t_leg = time.perf_counter()
+    vmc = main_path_vmc(device="cuda", couple_spin_flip=True,
+                        anqs_options=dict(spin_flip_abs=True,
+                                          spin_flip_phase=True))
+    state = vmc.init_state()
+    words, valid, la, ph = replay_set(vmc, state)
+    check(int(valid.sum()) == n_real, "spin flip: the set is not the sector")
+    with torch.no_grad():
+        w = words[valid]
+        flipped = bitops.interleave_swap(w, mol.qubit_num)
+        la0, ph0 = vmc.anqs.log_psi(w)
+        la1, ph1 = vmc.anqs.log_psi(flipped)
+    n_open = bitops.popcount(w ^ flipped) // 2
+    sign = 1.0 - 2.0 * ((n_open // 2) % 2).double()
+    amp0 = torch.exp(la0.double())
+    amp1 = torch.exp(la1.double())
+    abs_err = float(torch.max(torch.abs(la1 - la0)))
+    psi_err = max(
+        float(torch.max(torch.abs(amp1 * torch.cos(ph1.double())
+                                  - sign * amp0 * torch.cos(ph0.double())))),
+        float(torch.max(torch.abs(amp1 * torch.sin(ph1.double())
+                                  - sign * amp0 * torch.sin(ph0.double())))))
+    log(f"options (a) spin flip over the {n_real}-row set: max|la(flip x) - "
+        f"la(x)| = {abs_err:.3e}, max|psi(flip x) - (-1)^(n_open/2) "
+        f"psi(x)| = {psi_err:.3e}")
+    check(abs_err <= SPIN_FLIP_TOL, "spin flip: |psi| not flip-invariant")
+    check(psi_err <= SPIN_FLIP_TOL, "spin flip: the sign relation fails")
+    sector_dets, psi = sorted_set(words, valid, la, ph)
+    pairs = pairs_in_set(vmc.ham, sector_dets)
+    h_sector = sector_hamiltonian(vmc.ham, sector_dets)
+    e_ref = quotient(h_sector, psi)
+    rows, times, launches["options_spin_flip"] = run_steps(
+        torch, vmc, state, OPT_SPIN_STEPS, "options (a) spin flip")
+    step_s["spin_flip"] = statistics.median(times[1:])
+    log(f"options (a): step 0 found_pairs {int(rows[0]['found_pairs'])} "
+        f"(host {pairs}), energy {rows[0]['energy']:.6f} (Rayleigh quotient "
+        f"{e_ref:.6f}, |diff| {abs(rows[0]['energy'] - e_ref):.2e} Ha)")
+    check(int(rows[0]["found_pairs"]) == pairs,
+          "spin flip: found_pairs disagrees with the host count")
+    check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
+          "spin flip: energy disagrees with the Rayleigh quotient")
+    check(launches["options_spin_flip"]["fused_matrix_elements"]
+          == OPT_SPIN_STEPS, "spin flip: kernel #1 launches")
+    del vmc, state
+    log(f"options (a) leg: {time.perf_counter() - t_leg:.1f} s")
+
+    # (b) The FCI vector's signs as the sign structure (a 2^20 table).
+    t = t_leg = time.perf_counter()
+    e_fci, coef = _ground_state(h_sector)
+    # The solver's global sign and the signs of coefficients that vanish
+    # by symmetry are arbitrary: fix the largest positive and give the
+    # vanishing ones phase 0, so that every call builds the same table.
+    coef = coef * np.sign(coef[np.argmax(np.abs(coef))])
+    table = np.zeros(1 << mol.qubit_num, np.float32)
+    table[sector_dets.astype(np.int64)] = np.where(
+        coef < -1e-12 * np.max(np.abs(coef)), np.pi, 0.0)
+    fci_s = time.perf_counter() - t
+    log(f"options (b): sector FCI {e_fci:.8f} Ha ({fci_s:.2f} s on the "
+        f"host), {int(np.sum(table == np.pi))} signs pi")
+    vmc = main_path_vmc(device="cuda", sign_structure=table)
+    state = vmc.init_state()
+    words, valid, la, ph = replay_set(vmc, state)
+    want = torch.from_numpy(table).cuda()[words[:, 0][valid]]
+    check(torch.equal(ph[valid], want), "sign structure: a phase is not its "
+          "table entry")
+    dets, psi = sorted_set(words, valid, la, ph)
+    check(np.array_equal(dets, sector_dets), "sign structure: the set is "
+          "not the sector")
+    e_ref = quotient(h_sector, psi)
+    rows, times, launches["options_sign"] = run_steps(
+        torch, vmc, state, OPT_STEPS, "options (b) sign structure")
+    step_s["sign"] = statistics.median(times[1:])
+    log(f"options (b): every phase its table entry; step 0 energy "
+        f"{rows[0]['energy']:.6f} (Rayleigh quotient {e_ref:.6f}, |diff| "
+        f"{abs(rows[0]['energy'] - e_ref):.2e} Ha)")
+    check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
+          "sign structure: energy disagrees with the Rayleigh quotient")
+    del vmc, state
+    log(f"options (b) leg: {time.perf_counter() - t_leg:.1f} s")
+
+    # (c) Exact summation with the alpha orbitals first, then beta.
+    t_leg = time.perf_counter()
+    perm = tuple(range(0, mol.qubit_num, 2)) + tuple(
+        range(1, mol.qubit_num, 2))
+    vmc = main_path_vmc(device="cuda", sampling_mode="exact",
+                        qubit_perm=perm)
+    check(vmc.exact_partner_idx is not None, "perm: no static membership")
+    state = vmc.init_state()
+    words, valid = vmc.exact_words, vmc.exact_valid
+    with torch.no_grad():
+        la, ph = vmc.anqs.log_psi(words)
+    dets, psi = sorted_set(words, valid, la, ph)
+    h_perm = sector_hamiltonian(vmc.ham, dets)
+    e_ref = quotient(h_perm, psi)
+    e_fci_perm, _ = _ground_state(h_perm)
+    log(f"options (c): permuted sector FCI {e_fci_perm:.8f} Ha (unpermuted "
+        f"{e_fci:.8f}, |diff| {abs(e_fci_perm - e_fci):.2e}; the molecule's "
+        f"{mol.fci_energy:.6f})")
+    check(abs(e_fci_perm - e_fci) <= PERM_FCI_TOL,
+          "perm: the permuted Hamiltonian's FCI moved")
+    check(abs(e_fci - mol.fci_energy) <= 1e-6, "N2 sector FCI")
+    rows, times, launches["options_perm"] = run_steps(
+        torch, vmc, state, OPT_STEPS, "options (c) qubit_perm exact")
+    step_s["perm"] = statistics.median(times[1:])
+    log(f"options (c): step 0 {rows[0]['energy']:.6f}, permuted-sector "
+        f"Rayleigh quotient {e_ref:.6f} (|diff| "
+        f"{abs(rows[0]['energy'] - e_ref):.2e} Ha)")
+    check(abs(rows[0]["energy"] - e_ref) <= 1e-5,
+          "perm: exact energy disagrees with the Rayleigh quotient")
+    del vmc, state, h_perm
+    log(f"options (c) leg: {time.perf_counter() - t_leg:.1f} s")
+
+    # (d) Li2O: patterns, log_psi head, masking depth, bfloat16, the
+    # 'bisect' top-k, MinSR without regularisation.
+    t_leg = time.perf_counter()
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
+    check(torch.equal(precision.store(x.cuda(), "bfloat16").cpu(),
+                      precision.store(x, "bfloat16")),
+          "bfloat16 storage rounds otherwise on the card")
+    t = time.perf_counter()
+    vmc = li2o_vmc(device="cuda", anqs_options=LI2O_OPTIONS,
+                   topk_impl="bisect",
+                   sr=SRConfig(max_indices_num=50, use_reg=False))
+    log(f"options (d) Li2O set-up: {time.perf_counter() - t:.2f} s")
+    check(vmc.anqs.aux is None and vmc.sector_words is None,
+          "Li2O options: the log_psi head or the hash path is missing")
+    state = vmc.init_state()
+    words, valid, la, ph = replay_set(vmc, state)
+    cpu_anqs = copy.deepcopy(vmc.anqs).cpu()
+    with torch.no_grad():
+        la_cpu = cpu_anqs.log_psi(words[:256].cpu())[0]
+    la_gap = float(torch.max(torch.abs(la[:256].cpu() - la_cpu)))
+    log(f"options (d): log|psi| of 256 rows on the card vs the CPU: max "
+        f"|diff| {la_gap:.3e} (bfloat16 activations)")
+    check(la_gap <= 5e-3, "bfloat16 net differs between card and CPU")
+    li2o_dets, _ = sorted_set(words, valid, la, ph)
+    li2o_pairs = pairs_in_set(vmc.ham, li2o_dets)
+    n_alpha = np.zeros(len(li2o_dets), np.int64)
+    n_beta = np.zeros(len(li2o_dets), np.int64)
+    for q in range(0, vmc.mol.qubit_num, 2):
+        n_alpha += ((li2o_dets >> np.uint64(q)) & np.uint64(1)).astype(
+            np.int64)
+        n_beta += ((li2o_dets >> np.uint64(q + 1)) & np.uint64(1)).astype(
+            np.int64)
+    outside = int(np.sum((n_alpha != vmc.mol.n_alpha)
+                         | (n_beta != vmc.mol.n_beta)))
+    calls = []
+    select = sampler._select_top_k
+
+    def recording(x, k, impl):
+        calls.append((x, k))
+        return select(x, k, impl)
+
+    sampler._select_top_k = recording
+    try:
+        rows, times, launches["options_li2o"] = run_steps(
+            torch, vmc, state, OPT_STEPS, "options (d) Li2O")
+    finally:
+        sampler._select_top_k = select
+    step_s["li2o"] = statistics.median(times[1:])
+    x_last, k_last = calls[-1]
+    v_b, i_b = exact_top_k(x_last, k_last)
+    v_s, i_s = sampler._top_k(x_last, k_last)
+    same = torch.equal(i_b, i_s) and torch.equal(v_b, v_s)
+    t_b = cuda_ms(lambda: exact_top_k(x_last, k_last), 10)
+    t_s = cuda_ms(lambda: sampler._top_k(x_last, k_last), 10)
+    log(f"options (d): last frontier {x_last.numel()} candidates, top "
+        f"{k_last}: exact_top_k {'equals' if same else 'DIFFERS FROM'} the "
+        f"ordered top-k ({t_b:.3f} ms vs the stable sort's {t_s:.3f} ms); "
+        f"step 0 found_pairs {int(rows[0]['found_pairs'])} (host "
+        f"{li2o_pairs}); {outside} of {len(li2o_dets)} samples outside the "
+        f"(N_alpha, N_beta) sector")
+    check(same, "exact_top_k differs from the ordered top-k")
+    check(int(rows[0]["found_pairs"]) == li2o_pairs,
+          "Li2O options: found_pairs disagrees with the host count")
+    check(launches["options_li2o"] == {"fused_matrix_elements": OPT_STEPS,
+                                       "hash_lookup": OPT_STEPS,
+                                       "hash_tags": OPT_STEPS},
+          f"Li2O options launched {launches['options_li2o']}")
+    del vmc, state, cpu_anqs, calls, x_last
+    log(f"options (d) leg: {time.perf_counter() - t_leg:.1f} s")
+
+    # (e) A 4-replica ensemble against standalone runs of seeds 0-3.
+    t_leg = time.perf_counter()
+    vmc = main_path_vmc(device="cuda")
+    ens = vmc.init_ensemble_state(OPT_REPLICAS)
+    reset_launches()
+    t = time.perf_counter()
+    _, metrics = vmc._multi_step_ensemble(OPT_STEPS, OPT_REPLICAS)(ens)
+    torch.cuda.synchronize()
+    ens_s = time.perf_counter() - t
+    launches["options_ensemble"] = read_launches()
+    e_ens = metrics["energy"]
+    worst = 0.0
+    for r in range(OPT_REPLICAS):
+        vmc.config = vmc.config.replace(seed=r)
+        solo = vmc.init_state()
+        e_solo = [vmc.step(solo)["energy"] for _ in range(OPT_STEPS)]
+        worst = max(worst, float(np.max(np.abs(e_ens[r] - e_solo)
+                                        / np.abs(e_solo))))
+        log(f"options (e) replica {r}: {np.round(e_ens[r], 6).tolist()}, "
+            f"standalone seed {r}: {np.round(e_solo, 6).tolist()}")
+    step_s["ensemble_call"] = ens_s
+    log(f"options (e): {OPT_REPLICAS} replicas x {OPT_STEPS} steps in "
+        f"{ens_s:.3f} s ({ens_s / OPT_STEPS:.4f} s a step of all replicas); "
+        f"max relative |replica - standalone| {worst:.2e}; launches "
+        f"{launches['options_ensemble']}")
+    check(worst <= ENSEMBLE_RTOL, "ensemble replica differs from its "
+          "standalone run")
+    check(not np.allclose(e_ens[0], e_ens[1]), "replicas 0 and 1 agree")
+    check(launches["options_ensemble"]["fused_matrix_elements"]
+          == OPT_STEPS * OPT_REPLICAS, "ensemble: kernel #1 launches")
+    del vmc, ens
+    log(f"options (e) leg: {time.perf_counter() - t_leg:.1f} s")
+    for path, counts in launches.items():
+        check(counts["fused_matrix_elements"] > 0, f"{path}: no kernel #1")
+    log(f"options phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, step_s
+
 
 def cr2_phase(torch):
     """Cr2/SV at 84 qubits (the JAX package's ``examples/cr2_step.py`` and
@@ -2880,6 +3240,7 @@ def main():
     c2h4_sci_launches, c2h4_sci_figures = c2h4_cisd_sci_phase(torch)
     chem_launches, chem_figures = chem_build_phase(torch, args.seed)
     cr2_launches, cr2_figures = cr2_phase(torch)
+    options_launches, options_step_s = options_phase(torch, mol)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -2894,7 +3255,7 @@ def main():
                "li2o_support_ci": sci_launches,
                "c2h4_cisd_sci": c2h4_sci_launches,
                "n2_dissociation": chem_launches,
-               "cr2": cr2_launches}
+               "cr2": cr2_launches, **options_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -2942,6 +3303,7 @@ def main():
     me_entry["cr2_set"] = cr2_figures.pop("kernel1_set")
     hash_entry["layouts"] = cr2_figures.pop("kernel2")
     me_entry["cr2"] = cr2_figures
+    me_entry["options_step_s"] = options_step_s
     me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
                                   me_entry["by_molecule"]["cr2"][
                                       "max_abs_err"])

@@ -129,9 +129,10 @@ def test_pauli_form_matches_integrals(cr2):
 def test_trainer_config_matches_jax():
     """``cr2_config`` (what both entry points build) against the JAX run's
     ``config.json``, every field the two share; the JAX fields the port
-    has no field for hold the values the port always runs at; and the
+    has no field for (the sector-membership thresholds, the port's
+    ``membership``) hold the values the port always runs at; and the
     ansatz against the examples' ``AnqsConfig(hidden_widths=(1024,),
-    logit_cap=8.0)``."""
+    logit_cap=8.0)``, field for field."""
     with open(os.path.join(RUNS, "cr2_train", "config.json")) as f:
         want = json.load(f)
     got = vmc_mod.cr2_config(iter_num=1000).to_dict()
@@ -139,9 +140,9 @@ def test_trainer_config_matches_jax():
         vmc_mod.CR2_ENGINE)
     for key in sorted(set(got) & set(want) - {"sr"}):
         assert got[key] == want[key], key
-    assert {**got["sr"], "use_reg": True} == want["sr"]
+    assert got["sr"] == want["sr"]
     assert {k: want[k] for k in set(want) - set(got)} == {
-        "qubit_perm": None, "sector_membership": "auto", "topk_impl": "lax",
+        "sector_membership": "auto",
         "sector_membership_max_dets": vmc_mod.SECTOR_MAX_DETS,
         "sector_membership_max_entries": vmc_mod.SECTOR_MAX_ENTRIES}
     assert set(got) - set(want) == {"membership", "weights_matmul"}
@@ -149,6 +150,7 @@ def test_trainer_config_matches_jax():
     jax_cfg = dataclasses.asdict(JaxAnqsConfig(hidden_widths=(1024,),
                                                logit_cap=8.0))
     port_cfg = dataclasses.asdict(vmc_mod.CR2_ANQS)
+    assert set(port_cfg) == set(jax_cfg)
     for key in set(port_cfg) & set(jax_cfg):
         assert port_cfg[key] == jax_cfg[key], key
 

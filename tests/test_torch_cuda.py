@@ -422,3 +422,60 @@ def test_prefilter_matches_cpu_on_card(cuda, capacities):
         atol = (1e-6 * float(w.abs().max()) if field[0] == "e" else 1e-6)
         torch.testing.assert_close(g, w, rtol=4e-7 if field[0] == "t"
                                    else 0.0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_spin_flip_step_on_card(cuda):
+    """One N2 main-path step with both spin-flip flags and the flip closure
+    on the card: kernel #1 launches once, every sector row stays in the
+    set, and the energy is finite and within 1e-4 Ha of the same step's
+    Rayleigh quotient (the float64 sector H over the step's own set)."""
+    from anqs_quantum_chemistry_torch.chem.fci import sector_hamiltonian
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+
+    vmc = main_path_vmc(device="cuda", couple_spin_flip=True,
+                        anqs_options=dict(spin_flip_abs=True,
+                                          spin_flip_phase=True))
+    state = vmc.init_state()
+    gen = state.generator.get_state()
+    words, _, valid, _, la, ph, _ = vmc._support_and_eloc(state)
+    state.generator.set_state(gen)
+    fused_matrix_elements.launches = 0
+    row = vmc.step(state)
+    assert fused_matrix_elements.launches == 1
+    mol = vmc.mol
+    assert int(row["unique_num"]) == mol.fci_ndet
+    keep = valid.cpu().numpy()
+    dets = words[:, 0].cpu().numpy().astype(np.uint64)[keep]
+    psi = np.exp(la.double().cpu().numpy()[keep]
+                 + 1j * ph.double().cpu().numpy()[keep])
+    order = np.argsort(dets)
+    dets, psi = dets[order], psi[order]
+    h = sector_hamiltonian(vmc.ham, dets)
+    e_ref = float(np.real(np.vdot(psi, h @ psi)) / np.vdot(psi, psi).real)
+    assert np.isfinite(row["energy"])
+    assert abs(row["energy"] - e_ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gumbel", "counts"])
+def test_exact_top_k_matches_ordered_top_k_on_card(cuda, case):
+    """``exact_top_k`` on the card against the ordered top-k (a stable
+    descending sort) bit for bit, at the Li2O sampler's last frontier
+    (8192 rows x 64 continuations, top 8192): Gumbel keys, 99% NEG fill
+    (the top k reaches the NEG ties),
+    and integer counts with mass ties."""
+    from anqs_quantum_chemistry_torch.ops.topk import exact_top_k
+    from anqs_quantum_chemistry_torch.sampling.sampler import _top_k
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, k = 8192 * 64, 8192
+    if case == "gumbel":
+        x = torch.randn(n, generator=gen, device=cuda)
+        x = torch.where(torch.rand(n, generator=gen, device=cuda) < 0.01,
+                        x, -1e30)
+    else:
+        x = torch.randint(0, 5, (n,), generator=gen, device=cuda)
+    v, i = exact_top_k(x, k)
+    sv, si = _top_k(x, k)
+    assert torch.equal(i, si) and torch.equal(v, sv)

@@ -2,7 +2,8 @@
 ``anqs_quantum_chemistry_torch`` (the transformer and NADE ansatzes, the
 pretraining, the matmul precision, selected CI, the support-CI closures,
 the C2H4 and Li2O campaigns' entry points, and the host chemistry layer
-with direct CI and the dissociation and ladder entry points among them),
+with direct CI and the dissociation and ladder entry points, the ensembles,
+the dense-state oracle and the exact top-k among them),
 ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX)."""
@@ -63,6 +64,9 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.chem.molecule",
     "anqs_quantum_chemistry_torch.experiments.dissociation_curve",
     "anqs_quantum_chemistry_torch.experiments.ladder_rerun",
+    "anqs_quantum_chemistry_torch.models.ensemble",
+    "anqs_quantum_chemistry_torch.models.bf_state",
+    "anqs_quantum_chemistry_torch.ops.topk",
 )
 
 
@@ -72,5 +76,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = out.stdout.split()
-    assert len(walked) >= 45  # every module was walked
+    assert len(walked) >= 61  # every module was walked
     assert set(REQUIRED) <= set(walked)

@@ -1,6 +1,7 @@
 """Where the time of one training step of the PyTorch port goes, on one card.
 
-Usage: python tools/profile_torch_step.py [reps] [n2|li2o|c2h4|li2o_nade|cr2]
+Usage: python tools/profile_torch_step.py [reps]
+    [n2|li2o|c2h4|li2o_nade|cr2|n2_spin_flip|li2o_options]
 
 Builds a training workload -- ``n2`` (default): the main path,
 ``experiments.vmc.main_path_vmc`` (N2, MADE 512, 14464 Gumbel samples,
@@ -16,7 +17,10 @@ cycle (100 supervised Adam steps) alone; ``cr2``:
 ``experiments.vmc.cr2_vmc`` (Cr2/SV, 84 qubits, MADE 1024, 1024 Gumbel
 samples and 64 pinned HF neighbours, prefilter membership in 128-row
 blocks, MinSR top-50; its prefilter stages are timed with the batch as
-one block) -- warms it up with 3
+one block); ``n2_spin_flip``: the main path with both spin-flip flags and
+the flip closure (``chip_smoke.py`` options (a)); ``li2o_options``: the
+toy model with ``experiments.vmc.LI2O_OPTIONS``, ``topk_impl='bisect'`` and
+MinSR without regularisation (options (d)) -- warms it up with 3
 steps (and on until a step drops no rows, the overflow policy acting after
 each step, as ``run`` does), then
 times ``reps`` whole steps on the host clock, and each stage of the step
@@ -125,6 +129,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from anqs_quantum_chemistry_torch.experiments.vmc import (
+        LI2O_OPTIONS,
         c2h4_vmc,
         cr2_vmc,
         li2o_nade_closure_params,
@@ -133,15 +138,27 @@ def main():
         main_path_vmc,
     )
     from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
-    from anqs_quantum_chemistry_torch.optim.sr import sr_transform
+    from anqs_quantum_chemistry_torch.optim.sr import SRConfig, sr_transform
     from anqs_quantum_chemistry_torch.sampling.sampler import sample
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: needs a CUDA device")
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     workload = sys.argv[2] if len(sys.argv) > 2 else "n2"
+
+    def n2_spin_flip(device):
+        return main_path_vmc(device, couple_spin_flip=True,
+                             anqs_options=dict(spin_flip_abs=True,
+                                               spin_flip_phase=True))
+
+    def li2o_options(device):
+        return li2o_vmc(device, anqs_options=LI2O_OPTIONS, topk_impl="bisect",
+                        sr=SRConfig(max_indices_num=50, use_reg=False))
+
     vmc = {"n2": main_path_vmc, "li2o": li2o_vmc, "c2h4": c2h4_vmc,
-           "li2o_nade": li2o_nade_vmc, "cr2": cr2_vmc}[workload]("cuda")
+           "li2o_nade": li2o_nade_vmc, "cr2": cr2_vmc,
+           "n2_spin_flip": n2_spin_flip,
+           "li2o_options": li2o_options}[workload]("cuda")
     state = vmc.init_state()
     if workload == "li2o_nade":
         vmc.anqs.load_state_dict(li2o_nade_closure_params())

@@ -14,11 +14,14 @@ ladder product a+_p a_q and a+_p a+_q a_s a_r into its 2^k XZ strings,
 merges equal (A, B) strings, folds the identity into the constant and
 groups the terms by A. ``z_string_symmetries`` and
 ``symplectic_symmetries`` are the GF(2) nullspaces that give the Z-string
-and the full Pauli symmetry generators. A term with an odd number of Y
-factors (popcount(A & B) odd) would need the JAX container's
-``phase_offsets`` channel, which the port does not have; a real symmetric
-Hamiltonian has none, and the transform raises ``ValueError`` if one is
-left after merging.
+and the full Pauli symmetry generators.
+
+A term with an odd number of Y factors (popcount(A & B) odd) carries a
+factor i that no real weight holds. The container carries it as the JAX
+container does: such terms form a second group with the same A whose
+``phase_offsets`` entry is pi/2 (``applications/spin_systems.py`` builds
+them). The molecular transform never produces one from a real symmetric
+Hamiltonian, and raises ``ValueError`` if one is left after merging.
 """
 
 from __future__ import annotations
@@ -34,16 +37,21 @@ from ..ops.bits import WORD_BITS, n_words
 @dataclasses.dataclass
 class PauliHamiltonian:
     """Terms sorted by flip mask A; ``group_starts`` is the CSR layout of
-    the terms sharing each unique A. Real weights only: the odd-Y
-    (complex-weight) channel of the JAX container does not occur in the
-    molecular Hamiltonians this slice runs."""
+    the terms sharing each A. The weights are real; an odd-Y
+    (imaginary-weight) channel is a second group with the same A and a
+    ``phase_offsets`` entry of pi/2 (JAX ``chem/jw.py:27-52``)."""
 
     qubit_num: int
     constant: float  # identity coefficient + nuclear repulsion
-    a_masks: np.ndarray  # (M, W) uint32 sorted flip masks
+    a_masks: np.ndarray  # (M, W) uint32 sorted flip masks (duplicates
+    #   allowed: the odd-Y channel's group follows its real twin)
     b_words: np.ndarray  # (T, W) uint32 sign masks per term
-    weights: np.ndarray  # (T,) float64
+    weights: np.ndarray  # (T,) float64 (i^#Y signs folded in)
     group_starts: np.ndarray  # (M+1,) int64 CSR offsets into b_words
+    # (M,) float or None: each group's phase, <x ^ A|H_m|x> =
+    # e^(i off) sum_b w (-1)^popcount(x & b). None for a real Hamiltonian
+    # (every molecular one).
+    phase_offsets: object = None
 
     @property
     def n_groups(self) -> int:
@@ -53,19 +61,24 @@ class PauliHamiltonian:
     def n_terms(self) -> int:
         return self.weights.shape[0]
 
-    def dense_matrix_element(self, x_bits: int, y_bits: int) -> float:
-        """Oracle <y|H|x> for tests (python ints, any qubit count)."""
+    def dense_matrix_element(self, x_bits: int, y_bits: int):
+        """Oracle <y|H|x> for tests (python ints, any qubit count): a float
+        for a real Hamiltonian, complex where ``phase_offsets`` is set."""
         flip = x_bits ^ y_bits
         a_ints = words_to_pyints(self.a_masks)
         b_ints = words_to_pyints(self.b_words)
-        val = self.constant if flip == 0 else 0.0
+        cplx = self.phase_offsets is not None
+        val = complex(0.0) if cplx else 0.0
+        if flip == 0:
+            val += self.constant
         m = int(np.searchsorted(a_ints, flip))
         while m < len(a_ints) and a_ints[m] == flip:
+            fac = np.exp(1j * float(self.phase_offsets[m])) if cplx else 1.0
             for t in range(self.group_starts[m], self.group_starts[m + 1]):
                 par = bin(x_bits & b_ints[t]).count("1") % 2
-                val += self.weights[t] * (-1.0 if par else 1.0)
+                val += fac * self.weights[t] * (-1.0 if par else 1.0)
             m += 1
-        return float(val)
+        return complex(val) if cplx else float(val)
 
 
 def ints_to_words(values, qubit_num: int) -> np.ndarray:
@@ -225,7 +238,8 @@ def jordan_wigner_pauli_hamiltonian(
     if odd_y.any():
         raise ValueError(f"{int(odd_y.sum())} Pauli terms with an odd "
                          "number of Y factors: not a real symmetric "
-                         "Hamiltonian (no odd-Y channel in the port)")
+                         "Hamiltonian (the molecular transform builds no "
+                         "odd-Y channel)")
 
     # Identity -> constant.
     is_id = (uniq == 0).all(axis=1)
@@ -323,8 +337,9 @@ def permute_qubits_hamiltonian(ham: PauliHamiltonian,
                                perm) -> PauliHamiltonian:
     """Relabel qubits: new qubit ``i`` carries old qubit ``perm[i]`` (the
     convention of ``ops.bits.permute_qubits``; JAX ``chem/jw.py:379-429``).
-    Each group keeps its terms; the groups are re-sorted by their permuted
-    flip masks, so ``a_masks`` stays canonically ordered. Raises
+    Each group keeps its terms and its phase offset; the groups are
+    re-sorted (stably) by their permuted flip masks, so ``a_masks`` stays
+    canonically ordered. Raises
     ``ValueError`` unless ``perm`` is a permutation of the qubits."""
     n = ham.qubit_num
     perm = np.asarray(perm, dtype=np.int64)
@@ -358,6 +373,8 @@ def permute_qubits_hamiltonian(ham: PauliHamiltonian,
         b_words=np.vstack(b_parts),
         weights=np.concatenate(w_parts),
         group_starts=np.asarray(new_starts, dtype=np.int64),
+        phase_offsets=(None if ham.phase_offsets is None
+                       else np.asarray(ham.phase_offsets)[order]),
     )
 
 

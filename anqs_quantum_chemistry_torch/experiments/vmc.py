@@ -315,19 +315,46 @@ class EnsembleState(NamedTuple):
 
 
 class VMC:
-    """The full stack for one molecule: masker, grouping, ansatz, Pauli
-    engine and the static tables of the exact or sector paths.
-    ``sign_structure``: the ansatz's fixed phase table (``ANQS``), indexed
-    in the trainer's qubit order."""
+    """The full stack for one molecule, or for an explicit Hamiltonian:
+    masker, grouping, ansatz, Pauli engine and the static tables of the
+    exact or sector paths.
 
-    def __init__(self, mol: Molecule, config: VMCConfig = None,
-                 anqs_config: AnqsConfig = None, device="cuda",
-                 run_dir: Optional[str] = None, sign_structure=None):
+    Pass a ``Molecule``, or ``ham`` (a ``PauliHamiltonian``), ``masker``
+    and optionally ``ref_det`` (the reference determinant as an int,
+    default 0) without one: the spin chains of
+    ``applications/spin_systems.py`` (JAX ``vmc.py:199-240``). Without a
+    molecule there is no sector to enumerate: ``sampling_mode='exact'``
+    raises, sector membership is off and the step's membership is the
+    engine's dynamic one; ``qubit_perm`` raises too (it relabels a
+    molecule's Hamiltonian, masker and sector together: relabel an
+    explicit Hamiltonian before passing it). ``sign_structure``: the
+    ansatz's fixed phase table (``ANQS``), indexed in the trainer's qubit
+    order."""
+
+    def __init__(self, mol: Optional[Molecule] = None,
+                 config: VMCConfig = None, anqs_config: AnqsConfig = None,
+                 device="cuda", run_dir: Optional[str] = None,
+                 sign_structure=None, ham=None, masker=None,
+                 ref_det: Optional[int] = None):
         self.mol = mol
         self.config = config or VMCConfig()
         anqs_config = anqs_config or AnqsConfig()
         self.device = torch.device(device)
         perm = self.config.qubit_perm
+        if mol is None:
+            if ham is None or masker is None:
+                raise ValueError("VMC needs a Molecule, or an explicit "
+                                 "ham and masker")
+            if self.config.sampling_mode == "exact":
+                raise ValueError("sampling_mode='exact' needs a Molecule "
+                                 "(sector enumeration)")
+            if perm is not None:
+                raise ValueError("qubit_perm relabels a Molecule's "
+                                 "Hamiltonian and sector; permute an "
+                                 "explicit Hamiltonian before passing it")
+        elif ham is not None or masker is not None:
+            raise ValueError("pass a Molecule or an explicit ham and "
+                             "masker, not both")
         if perm is not None and (self.config.couple_spin_flip
                                  or anqs_config.spin_flip_abs
                                  or anqs_config.spin_flip_phase):
@@ -341,13 +368,17 @@ class VMC:
         if self.config.distill_loss not in DISTILL_LOSSES:
             raise ValueError(f"distill_loss={self.config.distill_loss!r}: "
                              f"expected one of {DISTILL_LOSSES}")
-        self.ham = mol.qubit_ham
-        ref_det = mol.hf_det
-        if perm is not None:
-            self.ham = permute_qubits_hamiltonian(self.ham, perm)
-            ref_det = permute_det(ref_det, perm)
+        if mol is not None:
+            ham = mol.qubit_ham
+            masker = create_masker(mol, self.config.symmetry_level, perm)
+            ref_det = mol.hf_det if ref_det is None else ref_det
+            if perm is not None:
+                ham = permute_qubits_hamiltonian(ham, perm)
+                ref_det = permute_det(ref_det, perm)
+        ref_det = 0 if ref_det is None else int(ref_det)
+        self.ham = ham
         n = self.ham.qubit_num
-        self.masker = create_masker(mol, self.config.symmetry_level, perm)
+        self.masker = masker
         self.grouping = QubitGrouping.create(
             self.masker, qubit_per_qudit=self.config.qubit_per_qudit
         )
@@ -405,7 +436,7 @@ class VMC:
                 self.exact_partner_idx = idx
                 self.exact_partner_found = pf
             return
-        if not self._want_sector_membership(mol):
+        if mol is None or not self._want_sector_membership(mol):
             return
         dets, words_packed, _, n_real = self._enumerate_sector(mol, n, perm)
         idx, pf = self._sector_partner_tables(dets, n_real)

@@ -26,8 +26,17 @@ with a dense fallback for rows over capacity; or by a binary search of the
 sorted set (``membership='search'``, any width, the JAX engine's choice
 above 128 qubits). The
 unbiased full local energy (``local_energy_full``) evaluates the network at
-every partner instead. Amplitudes are real pairs ``(log|psi|, phase)``. Real
-Hamiltonians only (every molecular JW case).
+every partner instead. Amplitudes are real pairs ``(log|psi|, phase)``.
+
+A Hamiltonian with an odd-Y channel (``PauliHamiltonian.phase_offsets``,
+the spin chains of ``applications/spin_systems.py``) gives each group a
+phase: <x ^ A_m|H_m|x> = e^(i off_m) times the real element that kernel #1
+computes. A local energy needs the conjugate direction <x|H|x ^ A_m>, so
+``_combine``, ``_combine_via_t`` and ``local_energy_full`` rotate each
+pair's phase difference by -off_m (``group_phase``, JAX
+``pauli.py:247-263``). The prefilter's per-row compaction carries no such
+channel, and the engine refuses the pair, as JAX's does. For a real
+Hamiltonian ``group_phase`` is None and nothing changes.
 
 Groups come in the Hamiltonian's order, or, where the JAX engine would use
 its ``'grouped'`` matrix elements (``weights_matmul``), in its class-major
@@ -113,6 +122,8 @@ def regroup_by_size_class(ham: PauliHamiltonian) -> PauliHamiltonian:
         b_words=np.asarray(ham.b_words)[terms],
         weights=np.asarray(ham.weights)[terms],
         group_starts=new_starts,
+        phase_offsets=(None if ham.phase_offsets is None
+                       else np.asarray(ham.phase_offsets)[order]),
     )
 
 
@@ -174,13 +185,15 @@ class PauliEngine:
         if membership == "table" and ham.qubit_num > self.MAX_TABLE_QUBITS:
             raise ValueError(f"membership='table' needs <= "
                              f"{self.MAX_TABLE_QUBITS} qubits")
-        offsets = getattr(ham, "phase_offsets", None)
-        if (membership == "prefilter" and offsets is not None
-                and np.any(offsets)):
-            # JAX pauli.py:252-262: the compaction carries no per-group
-            # phase channel (odd-Y, imaginary-weight Hamiltonians).
-            raise ValueError("prefilter membership does not carry a "
-                             "per-group phase channel")
+        has_phase = (ham.phase_offsets is not None
+                     and bool(np.any(ham.phase_offsets)))
+        if membership == "prefilter" and has_phase:
+            # JAX pauli.py:252-262 (an assert there): the compaction
+            # carries no per-group phase channel. 'auto' lands here too
+            # above MAX_TABLE_QUBITS qubits at W <= 4.
+            raise ValueError("prefilter membership does not carry the "
+                             "per-group phase channel of an odd-Y "
+                             "Hamiltonian: use table, hash or search")
         if min(prefilter_row_capacity, prefilter_dense_rows) < 1 or any(
                 chunk is not None and chunk < 1
                 for chunk in (pf_row_chunk, me_chunk)):
@@ -208,6 +221,10 @@ class PauliEngine:
             np.asarray(ham.a_masks).astype(np.int64)
         ).to(device)  # (M, W)
         self.me_tables = build_tables(ham, device)
+        # (M,) float32 phase of each group, None for a real Hamiltonian.
+        self.group_phase = (
+            torch.from_numpy(np.asarray(ham.phase_offsets, np.float32)).to(
+                device) if has_phase else None)
 
     def with_capacities(self, **capacities) -> "PauliEngine":
         """A copy of this engine with other membership capacities
@@ -231,7 +248,9 @@ class PauliEngine:
         elements do not depend on the rows beside it).
 
         Group sums are symmetric under x <-> x^A for a real Hamiltonian, so
-        signs are evaluated on the source x only."""
+        signs are evaluated on the source x only; an odd-Y group's sum is
+        antisymmetric, which its phase offset accounts for
+        (``group_phase``)."""
         chunk = self.me_chunk
         if chunk is None or words.shape[0] <= chunk:
             return fused_matrix_elements(words, self.me_tables)
@@ -612,12 +631,20 @@ class PauliEngine:
                 torch.sum(amp_p * torch.sin(dph), dim=1),
                 torch.sum(found, dim=1))
 
+    def _phase_difference(self, ph_p, phase):
+        """(B, M) phase of psi(x ^ A_m) / psi(x), less each group's phase
+        offset where the Hamiltonian has an odd-Y channel."""
+        dph = ph_p - phase[:, None]
+        if self.group_phase is not None:
+            dph = dph - self.group_phase[None, :]
+        return dph
+
     def _combine_via_t(self, me, la_p, ph_p, found, log_abs, phase, valid):
         """Amplitude-form partner sums computed once; the ratio-form local
         energy is e = t / a_x with a row-level exponent clip on 1/a_x (JAX
         ``pauli.py:1104``). The sector path uses it, as JAX's does; the
         dynamic paths use ``_combine``."""
-        dph = ph_p - phase[:, None]
+        dph = self._phase_difference(ph_p, phase)
         amp_p = torch.where(found, torch.exp(la_p) * me, 0.0)
         s_re = torch.sum(amp_p * torch.cos(dph), dim=1)
         s_im = torch.sum(amp_p * torch.sin(dph), dim=1)
@@ -638,7 +665,7 @@ class PauliEngine:
         which JAX's dynamic paths use."""
         ratio = torch.exp(torch.clamp(
             torch.where(found, la_p, 0.0) - log_abs[:, None], -60.0, 60.0))
-        dph = ph_p - phase[:, None]
+        dph = self._phase_difference(ph_p, phase)
         contrib = torch.where(found, me * ratio, 0.0)
         e_re = torch.sum(contrib * torch.cos(dph), dim=1) + self.constant
         e_im = torch.sum(contrib * torch.sin(dph), dim=1)
@@ -674,7 +701,7 @@ class PauliEngine:
         ph_p = ph_p.reshape(b, m)
         me = self.matrix_elements(words)
         ratio = torch.exp(torch.clamp(la_p - log_abs[:, None], -60.0, 60.0))
-        dph = ph_p - phase[:, None]
+        dph = self._phase_difference(ph_p, phase)
         e_re = torch.sum(me * ratio * torch.cos(dph), dim=1) + self.constant
         e_im = torch.sum(me * ratio * torch.sin(dph), dim=1)
         return LocalEnergies(

@@ -274,6 +274,34 @@ counted from 0 (paths ``options_spin_flip``, ``options_sign``,
   ``_multi_step_ensemble``), 3 steps each: every replica's energies within
   2e-5 relative of a standalone run at its seed; replicas 0 and 1 apart.
 
+Last, the spin chains (``spin_phase``: ``VMC(ham=, masker=, ref_det=)``
+on ``applications/spin_systems.py``'s Hamiltonians), from seed 0, each
+path's launches counted from 0 (paths ``spin_dm6``, ``spin_xxz8``,
+``spin_tfi10``, ``spin_tfi64``, ``spin_dm40``):
+
+- (a) Three trainings through ``run()`` with the settings and bounds of
+  the JAX package's tests (qubit_per_qudit 2, MADE 64, lr 1e-2, windows of
+  50): the XY+DM chain at 6 sites (64 samples, 800 steps; best within 1%
+  of ``exact_ground_energy``), XXZ at 8 sites in Sz = 0 from the Neel
+  state (128 samples, 1200 steps; 1%), the critical TFI chain at 10 sites
+  (1024 samples, 1000 steps; 0.5%, last ``energy_var`` < 0.1); each best
+  above the exact energy less 1e-3; ms a step.
+- (b) The open TFI chain at 64 sites (W 2) at full width (MADE 512,
+  qubit_per_qudit 4, 8192 Gumbel samples, MinSR top 50, clip 1.0, Adam
+  1e-3; the main net's output layer scaled by ``SPIN_SHARPEN`` so that
+  the set holds connected pairs), 'auto' membership (prefilter: kernels
+  #1 and #2 twice a step), 5 steps: step 0's ``found_pairs`` equal to a host count and its energy
+  within 1e-4 Ha of the float64 Rayleigh quotient over its set; every
+  energy at or above the free-fermion E0 = -81.1259801 less 1e-4 of |E0|.
+- (c) The XY+DM chain at 40 sites (W 2, two groups on each flip mask: the
+  real and the odd-Y channel), the same net and sampler under hash
+  membership, 5 steps: 'auto' membership refused; step 0's pairs, its
+  quotient and every row's e_re and e_im (to 1e-4 of max|e|) against a
+  float64 complex host oracle (``host_local_energies``); each step's mean
+  imaginary energy within 1e-5 of max(|E|, 1 Ha); every energy at or
+  above the free-fermion E0 = -58.5609429 less 1e-4 of |E0|; kernel #1 on
+  the set bit for bit against its plain version, timed.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -288,7 +316,8 @@ import sys
 import time
 
 T_START = time.monotonic()
-TIME_LIMIT_S = 300.0
+# The script's own guard: half the 1200 s within which a run must exit.
+TIME_LIMIT_S = 600.0
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 5
 EXACT_STEPS = 3
@@ -1264,9 +1293,20 @@ def c2h4_set(torch, vmc, generator):
 
 def host_pairs_and_rayleigh(ham, words, valid, la, ph):
     """(connected pairs, float64 Rayleigh quotient) of a two-word set on the
-    host: every ordered pair (x, y) of the set's valid rows with x ^ y a flip
-    mask A_m (the diagonal included), its element <y|H|x> summed term by
-    term in float64, and psi = exp(la + i ph) over the set."""
+    host (``host_local_energies``)."""
+    pairs, energy, _ = host_local_energies(ham, words, valid, la, ph)
+    return pairs, energy
+
+
+def host_local_energies(ham, words, valid, la, ph):
+    """(connected pairs, float64 Rayleigh quotient, complex128 local
+    energies of the valid rows in their order) of a two-word set on the
+    host: every ordered pair (x, y) of the set's valid rows with x ^ y a
+    flip mask (the diagonal included), counted once for each group of that
+    mask, as the engine counts ``found_pairs``; its element <y|H|x> summed
+    term by term in float64, each group's sum turned by its phase offset
+    (``PauliHamiltonian.phase_offsets``, the odd-Y channel); psi = exp(la
+    + i ph) over the set, and E_loc(x) = (H_set psi)(x) / psi(x)."""
     import numpy as np
     import scipy.sparse
 
@@ -1276,34 +1316,47 @@ def host_pairs_and_rayleigh(ham, words, valid, la, ph):
     dets = words_to_ints(words.cpu().numpy()[keep])
     psi = np.exp(la.double().cpu().numpy()[keep]
                  + 1j * ph.double().cpu().numpy()[keep])
-    a = words_to_ints(ham.a_masks)
-    order = np.argsort(a)
-    a_sorted = a[order]
+    # Groups by distinct flip mask (the odd-Y channel repeats a mask).
+    masks, group_mask = np.unique(words_to_ints(ham.a_masks),
+                                  return_inverse=True)
+    mask_groups = np.argsort(group_mask, kind="stable")
+    mask_count = np.bincount(group_mask, minlength=len(masks))
+    mask_first = np.cumsum(mask_count) - mask_count
     n = len(dets)
-    src, dst, grp = [], [], []
+    src, dst, mask = [], [], []
     for r in range(0, n, 1024):
         x = dets[r:r + 1024, None] ^ dets[None, :]
-        pos = np.clip(np.searchsorted(a_sorted, x), 0, len(a) - 1)
-        i, j = np.nonzero(a_sorted[pos] == x)
+        pos = np.clip(np.searchsorted(masks, x), 0, len(masks) - 1)
+        i, j = np.nonzero(masks[pos] == x)
         src.append(i + r)
         dst.append(j)
-        grp.append(order[pos[i, j]])
-    src, dst, grp = (np.concatenate(v) for v in (src, dst, grp))
+        mask.append(pos[i, j])
+    src, dst, mask = (np.concatenate(v) for v in (src, dst, mask))
+    # One (pair, group) entry for each group of the pair's mask.
+    per_pair = mask_count[mask]
+    entry = np.repeat(np.arange(len(src)), per_pair)
+    grp = mask_groups[np.repeat(mask_first[mask] - (np.cumsum(per_pair)
+                                                     - per_pair), per_pair)
+                      + np.arange(int(per_pair.sum()))]
     starts = np.asarray(ham.group_starts, np.int64)
     sizes = np.diff(starts)[grp]
-    pair = np.repeat(np.arange(len(src)), sizes)
+    pair = np.repeat(np.arange(len(grp)), sizes)
     term = (np.repeat(starts[grp] - (np.cumsum(sizes) - sizes), sizes)
             + np.arange(int(sizes.sum())))
-    par = dets[src][pair] & words_to_ints(ham.b_words)[term]
+    par = dets[src[entry]][pair] & words_to_ints(ham.b_words)[term]
     for shift in (32, 16, 8, 4, 2, 1):
         par = par ^ (par >> np.uint64(shift))
     sign = 1.0 - 2.0 * (par & np.uint64(1)).astype(np.float64)
     me = np.bincount(pair, weights=sign * np.asarray(ham.weights)[term],
-                     minlength=len(src))
-    h = scipy.sparse.csr_matrix((me, (dst, src)), shape=(n, n))
+                     minlength=len(grp)).astype(np.complex128)
+    if ham.phase_offsets is not None:
+        me = me * np.exp(1j * np.asarray(ham.phase_offsets, np.float64)[grp])
+    h = scipy.sparse.csr_matrix((me, (dst[entry], src[entry])),
+                                shape=(n, n))
+    h_psi = h @ psi
     norm = np.vdot(psi, psi).real
-    energy = np.real(np.vdot(psi, h @ psi)) / norm + ham.constant
-    return len(src), float(energy)
+    energy = np.real(np.vdot(psi, h_psi)) / norm + ham.constant
+    return len(grp), float(energy), h_psi / psi + ham.constant
 
 
 def _profile_tool():
@@ -2939,6 +2992,299 @@ def options_phase(torch, mol):
     return launches, step_s
 
 
+# The spin chains (``spin_phase``): three trainings to the exact energy
+# with the settings and bounds of the JAX package's tests (name: sites,
+# samples, iterations, relative bound above E0), each at qubit_per_qudit 2,
+# MADE 64, lr 1e-2, seed 0, windows of 50 steps; then two chains at full
+# width (MADE 512, qubit_per_qudit 4, 8192 Gumbel samples, MinSR top 50,
+# clip 1.0, Adam 1e-3, seed 0) for SPIN_STEPS steps each: the open TFI
+# chain at 64 sites (j = h = 1, 'auto' membership: prefilter) and the XY+DM
+# chain at 40 sites (jxy 1, d 0.6, hash membership). Their exact ground
+# energies are those of free fermions (``tfi_free_fermion_e0``,
+# ``dm_free_fermion_e0``; equal to the dense diagonalisation at 8-12 and
+# 4-10 sites to 1e-13), pinned here to seven decimals.
+SPIN_TRAININGS = (
+    ("dm6", 6, 64, 800, 0.01),  # JAX tests/test_spin_systems.py:191-215
+    ("xxz8", 8, 128, 1200, 0.01),  # JAX tests/test_oracles.py:232-261
+    ("tfi10", 10, 1024, 1000, 0.005),  # JAX tests/test_oracles.py:199-229
+)
+SPIN_WINDOW = 50
+SPIN_STEPS = 5
+SPIN_SAMPLES = 8192
+TFI64_E0 = -81.1259801
+DM40_E0 = -58.5609429
+SPIN_E_TOL = 1e-4  # relative: the set's quotient is never below E0
+SPIN_RQ_TOL = 1e-4  # Ha: step 0's energy against the host's quotient
+SPIN_ELOC_TOL = 1e-4  # of max|e|: the engine's float32 against float64
+# Of max(|E|, 1 Ha): a Hermitian H restricted to a set has a real
+# quotient (the floor keeps a step whose energy passes near 0 from asking
+# for more than float32 can give; a phase turned the wrong way gives
+# imaginary parts of the order of the local energies).
+SPIN_IMAG_TOL = 1e-5
+# At the seed's own weights the full-width nets spread their 8192 samples
+# over 2^40 or 2^64 states, and the set holds no connected pair besides
+# the diagonal, so (b) and (c) would check nothing of the off-diagonal
+# elements. The main net's output layer is scaled by this factor after
+# init_state: the conditionals sharpen, the set gathers around the mode,
+# and it holds thousands of pairs (3536 for DM-40, 648 off the diagonal
+# for TFI-64 on the CPU at seed 0).
+SPIN_SHARPEN = 16.0
+
+
+def tfi_free_fermion_e0(n, j=1.0, h=1.0):
+    """The open TFI chain's ground energy, -1/2 sum sigma_k over the
+    singular values of A - B (A_ii = 2h, A_{i,i+-1} = -j, B_{i,i+1} = -j,
+    B_{i+1,i} = j)."""
+    import numpy as np
+
+    off = np.full(n - 1, -j)
+    a = np.diag(np.full(n, 2.0 * h)) + np.diag(off, 1) + np.diag(off, -1)
+    b = np.diag(off, 1) - np.diag(off, -1)
+    return -0.5 * float(np.linalg.svd(a - b, compute_uv=False).sum())
+
+
+def dm_free_fermion_e0(n, jxy=1.0, d=0.6):
+    """The open XY+DM chain's ground energy: an XX chain with hopping 2
+    sqrt(jxy^2 + d^2), the sum of the negative eigenvalues of its n x n
+    tridiagonal."""
+    import numpy as np
+
+    t = np.full(n - 1, 2.0 * np.hypot(jxy, d))
+    ev = np.linalg.eigvalsh(np.diag(t, 1) + np.diag(t, -1))
+    return float(ev[ev < 0].sum())
+
+
+def spin_system(name, n):
+    """(Hamiltonian, masker, reference determinant) of a spin chain of the
+    phase: the XY+DM chain (idle masker), XXZ at Sz = 0 from the Neel state,
+    or the TFI chain (idle masker), each from 0 but XXZ."""
+    from anqs_quantum_chemistry_torch.applications import spin_systems as ss
+    from anqs_quantum_chemistry_torch.symmetries import (
+        Masker,
+        idle_symmetry,
+        particle_number_symmetry,
+    )
+
+    if name.startswith("dm"):
+        return ss.dm_chain_hamiltonian(n), Masker([idle_symmetry(n)]), 0
+    if name.startswith("xxz"):
+        return (ss.heisenberg_xxz_hamiltonian(n),
+                Masker([particle_number_symmetry(n, n // 2)]),
+                sum(1 << i for i in range(0, n, 2)))
+    return ss.tfi_hamiltonian(n), Masker([idle_symmetry(n)]), 0
+
+
+def spin_vmc(name, n, **cfg):
+    """A ``VMC`` on a spin chain of the phase, on the card."""
+    from anqs_quantum_chemistry_torch.experiments.vmc import VMC, VMCConfig
+    from anqs_quantum_chemistry_torch.models.anqs import AnqsConfig
+
+    ham, masker, ref_det = spin_system(name, n)
+    width = cfg.pop("width")
+    return VMC(ham=ham, masker=masker, ref_det=ref_det,
+               config=VMCConfig(sampling_mode="gumbel", seed=0,
+                                symmetry_level="no_sym", **cfg),
+               anqs_config=AnqsConfig(hidden_widths=(width,)),
+               device="cuda")
+
+
+def spin_steps(torch, vmc, label, e0):
+    """``SPIN_STEPS`` steps from the seed's weights with the main net's
+    output layer scaled by ``SPIN_SHARPEN``, the overflow policy after each
+    as ``run`` acts; every energy finite and not below ``e0`` (less
+    SPIN_E_TOL of |e0|), no row dropped, step 0's set holding connected
+    pairs off the diagonal. Returns (rows, step 0's set (words, valid, la,
+    ph), median step ms, launches)."""
+    import statistics
+
+    import numpy as np
+
+    state = vmc.init_state()
+    depth = len(vmc.anqs.config.hidden_widths)
+    out_layer = dict(vmc.anqs.main.named_parameters())
+    with torch.no_grad():
+        for name in (f"w{depth}", f"b{depth}"):
+            out_layer[name].mul_(SPIN_SHARPEN)
+    snap = replay_set(vmc, state)
+    reset_launches()
+    rows, step_ms = [], []
+    for i in range(SPIN_STEPS):
+        t = time.perf_counter()
+        row = vmc.step(state)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        rows.append(row)
+        log(f"{label} step {i}: energy {row['energy']:.6f} energy_imag "
+            f"{row['energy_imag']:.3e} unique_num {int(row['unique_num'])} "
+            f"found_pairs {int(row['found_pairs'])} pf_dropped_rows "
+            f"{int(row['pf_dropped_rows'])} table_overflow "
+            f"{int(row['table_overflow'])} step_ms {step_ms[-1]:.1f}")
+        vmc._handle_overflow({**row, "iter_idx": i})
+    launches = read_launches()
+    for i, row in enumerate(rows):
+        check(np.isfinite(row["energy"]), f"{label} step {i}: energy")
+        check(row["energy"] >= e0 - SPIN_E_TOL * abs(e0),
+              f"{label} step {i}: energy {row['energy']} below E0 {e0}")
+        check(int(row["pf_dropped_rows"]) == 0
+              and int(row["table_overflow"]) == 0,
+              f"{label} step {i}: membership dropped rows or keys")
+        check(int(row["unique_num"]) == SPIN_SAMPLES,
+              f"{label} step {i}: unique_num {row['unique_num']}")
+    diagonal = 0 if vmc.ham.a_masks[0].any() else SPIN_SAMPLES
+    check(int(rows[0]["found_pairs"]) > diagonal,
+          f"{label}: step 0's set holds no pair off the diagonal")
+    median = statistics.median(step_ms[1:])
+    log(f"{label}: median step {median:.1f} ms (steps 1-{SPIN_STEPS - 1}), "
+        f"launches {launches}")
+    return rows, snap, median, launches
+
+
+def spin_phase(torch):
+    """The spin chains on the card, with the launches of each path counted
+    from 0: (a) the XY+DM chain at 6 sites, XXZ at 8 (Sz = 0) and the
+    critical TFI chain at 10 trained through ``VMC.run`` to within the JAX
+    tests' bounds of ``exact_ground_energy``; (b) the open TFI chain at 64
+    sites at full width (output layer sharpened: ``spin_steps``), 'auto'
+    membership (prefilter: both kernels), step
+    0's pairs and energy against the host and every energy at or above the
+    free-fermion E0; (c) the XY+DM chain at 40 sites at full width under
+    hash membership, the odd-Y phase channel: step 0's pairs and every
+    row's e_re and e_im against a float64 complex host oracle, the mean
+    imaginary energy 0, every energy at or above the free-fermion E0,
+    'auto' refused, kernel #1 on its duplicate flip masks equal to its
+    plain version. Returns ({path: launches}, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.applications.spin_systems import (
+        exact_ground_energy,
+    )
+    from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
+    from anqs_quantum_chemistry_torch.optim.sr import SRConfig
+
+    t_phase = time.perf_counter()
+    launches, figures = {}, {}
+
+    # (a) Trainings to the exact energy.
+    for name, n, sample_num, iters, rel in SPIN_TRAININGS:
+        vmc = spin_vmc(name, n, sample_num=sample_num,
+                       qubit_per_qudit=2, lr=1e-2, iter_num=iters, width=64)
+        e_exact = exact_ground_energy(vmc.ham)
+        reset_launches()
+        t = time.perf_counter()
+        _, history, best = vmc.run(checkpoint_every=None,
+                                   steps_per_call=SPIN_WINDOW, log_every=0)
+        run_s = time.perf_counter() - t
+        launches[f"spin_{name}"] = read_launches()
+        gap = best["energy"] - e_exact
+        ms = 1e3 * run_s / iters
+        figures[name] = {"exact": e_exact, "best": best["energy"],
+                         "gap": gap, "ms_per_step": ms,
+                         "last_energy_var": history[-1]["energy_var"]}
+        log(f"spin (a) {name}: best {best['energy']:.6f} at iter "
+            f"{best['iter']}, exact {e_exact:.6f}, gap {gap:+.3e} "
+            f"({gap / abs(e_exact):+.2e} of |E0|; bound {rel:g}), last "
+            f"energy_var {history[-1]['energy_var']:.3e}, {iters} steps in "
+            f"{run_s:.1f} s ({ms:.2f} ms a step), launches "
+            f"{launches[f'spin_{name}']}")
+        check(len(history) == iters, f"spin {name}: {len(history)} rows")
+        check(best["energy"] < e_exact + rel * abs(e_exact),
+              f"spin {name}: best {best['energy']} not within {rel:g} of "
+              f"{e_exact}")
+        check(best["energy"] > e_exact - 1e-3,
+              f"spin {name}: best {best['energy']} below the exact energy")
+        if name.startswith("tfi"):
+            check(history[-1]["energy_var"] < 0.1,
+                  f"spin {name}: last energy_var {history[-1]['energy_var']}")
+        check(launches[f"spin_{name}"] == {"fused_matrix_elements": iters,
+                                           "hash_lookup": 0, "hash_tags": 0},
+              f"spin {name}: launches {launches[f'spin_{name}']}")
+        del vmc
+
+    full = dict(sample_num=SPIN_SAMPLES, qubit_per_qudit=4, lr=1e-3,
+                grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
+                width=512)
+
+    # (b) TFI-64, real channel, prefilter membership.
+    e0 = tfi_free_fermion_e0(64)
+    log(f"spin (b) TFI-64 free-fermion E0 {e0:.7f} (pinned {TFI64_E0})")
+    check(abs(e0 - TFI64_E0) < 1e-6, "TFI-64 E0")
+    t = time.perf_counter()
+    vmc = spin_vmc("tfi64", 64, membership="auto", **full)
+    check(vmc.engine.membership == "prefilter",
+          f"TFI-64 'auto' is {vmc.engine.membership}")
+    check(vmc.engine.group_phase is None, "TFI-64 has a phase channel")
+    log(f"spin (b) TFI-64 set-up {time.perf_counter() - t:.2f} s: "
+        f"{vmc.ham.n_groups} groups, {vmc.ham.n_terms} terms")
+    rows, snap, figures["tfi64_step_ms"], launches["spin_tfi64"] = (
+        spin_steps(torch, vmc, "spin (b) TFI-64", e0))
+    pairs, e_ref = host_pairs_and_rayleigh(vmc.ham, *snap)
+    log(f"spin (b) TFI-64 step 0 on the host: found_pairs {pairs}, "
+        f"Rayleigh quotient {e_ref:.6f} (|step - ref| "
+        f"{abs(rows[0]['energy'] - e_ref):.2e})")
+    check(int(rows[0]["found_pairs"]) == pairs,
+          "TFI-64: found_pairs disagrees with the host count")
+    check(abs(rows[0]["energy"] - e_ref) <= SPIN_RQ_TOL,
+          "TFI-64: energy disagrees with the Rayleigh quotient")
+    check(launches["spin_tfi64"] == {
+        "fused_matrix_elements": 2 * SPIN_STEPS,
+        "hash_lookup": 2 * SPIN_STEPS, "hash_tags": 2 * SPIN_STEPS},
+        f"TFI-64 launches {launches['spin_tfi64']}")
+    figures["tfi64_energies"] = [r["energy"] for r in rows]
+    del vmc, snap
+
+    # (c) DM-40, the odd-Y channel, hash membership.
+    e0 = dm_free_fermion_e0(40)
+    log(f"spin (c) DM-40 free-fermion E0 {e0:.7f} (pinned {DM40_E0})")
+    check(abs(e0 - DM40_E0) < 1e-6, "DM-40 E0")
+    vmc = spin_vmc("dm40", 40, membership="hash", **full)
+    check(vmc.engine.group_phase is not None, "DM-40: no phase channel")
+    try:
+        PauliEngine(vmc.ham, device="cuda", membership="auto")
+    except ValueError as e:
+        log(f"spin (c) DM-40 'auto' membership refused: {e}")
+    else:
+        raise SmokeFailure("DM-40: 'auto' (prefilter) accepted the odd-Y "
+                           "channel")
+    rows, snap, figures["dm40_step_ms"], launches["spin_dm40"] = (
+        spin_steps(torch, vmc, "spin (c) DM-40", e0))
+    words, valid, la, ph = snap
+    with torch.no_grad():
+        e = vmc.engine.local_energy_proxy(words, la, ph, valid)
+    pairs, e_ref, e_host = host_local_energies(vmc.ham, words, valid, la, ph)
+    keep = valid.cpu().numpy()
+    e_re = e.e_re.double().cpu().numpy()[keep]
+    e_im = e.e_im.double().cpu().numpy()[keep]
+    scale = float(np.max(np.abs(e_host)))
+    err = max(float(np.max(np.abs(e_re - e_host.real))),
+              float(np.max(np.abs(e_im - e_host.imag))))
+    log(f"spin (c) DM-40 step 0 on the host: found_pairs {pairs} (step "
+        f"{int(rows[0]['found_pairs'])}), Rayleigh quotient {e_ref:.6f} "
+        f"(step {rows[0]['energy']:.6f}), max|e - host| over "
+        f"{int(keep.sum())} rows {err:.3e} (max|e| {scale:.3f})")
+    check(int(rows[0]["found_pairs"]) == pairs == int(e.found_pairs),
+          "DM-40: found_pairs disagrees with the host count")
+    check(err <= SPIN_ELOC_TOL * scale,
+          "DM-40: local energies disagree with the complex host oracle")
+    check(abs(rows[0]["energy"] - e_ref) <= SPIN_RQ_TOL,
+          "DM-40: energy disagrees with the Rayleigh quotient")
+    for i, row in enumerate(rows):
+        check(abs(row["energy_imag"])
+              <= SPIN_IMAG_TOL * max(abs(row["energy"]), 1.0),
+              f"DM-40 step {i}: mean imaginary energy {row['energy_imag']}")
+    check(launches["spin_dm40"] == {
+        "fused_matrix_elements": SPIN_STEPS, "hash_lookup": SPIN_STEPS,
+        "hash_tags": SPIN_STEPS}, f"DM-40 launches {launches['spin_dm40']}")
+    figures["dm40_energies"] = [r["energy"] for r in rows]
+    figures["dm40_eloc_err"] = err
+    # Kernel #1 on the duplicate flip masks, at the step's shapes.
+    figures["kernel1_dm40"] = me_figures(torch, "DM-40 (duplicate masks)",
+                                         words, vmc.engine.me_tables,
+                                         reps=20, plain_reps=3)
+    del vmc, snap, words, e
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"spin phase: {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def cr2_phase(torch):
     """Cr2/SV at 84 qubits (the JAX package's ``examples/cr2_step.py`` and
     ``cr2_train.py`` at full width, ``experiments.vmc.cr2_vmc``): (a) the
@@ -3241,6 +3587,7 @@ def main():
     chem_launches, chem_figures = chem_build_phase(torch, args.seed)
     cr2_launches, cr2_figures = cr2_phase(torch)
     options_launches, options_step_s = options_phase(torch, mol)
+    spin_launches, spin_figures = spin_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -3255,7 +3602,7 @@ def main():
                "li2o_support_ci": sci_launches,
                "c2h4_cisd_sci": c2h4_sci_launches,
                "n2_dissociation": chem_launches,
-               "cr2": cr2_launches, **options_launches}
+               "cr2": cr2_launches, **options_launches, **spin_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -3304,6 +3651,8 @@ def main():
     hash_entry["layouts"] = cr2_figures.pop("kernel2")
     me_entry["cr2"] = cr2_figures
     me_entry["options_step_s"] = options_step_s
+    me_entry["by_molecule"]["dm40"] = spin_figures.pop("kernel1_dm40")
+    me_entry["spin"] = spin_figures
     me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
                                   me_entry["by_molecule"]["cr2"][
                                       "max_abs_err"])

@@ -110,8 +110,9 @@ def test_word_codecs_match_jax():
 def test_odd_y_terms_raise():
     """Integrals without the symmetry v[p,q,r,s] = v[r,s,p,q] make a
     non-Hermitian H whose XZ form keeps terms with an odd number of Y
-    factors: the JAX container's odd-Y channel, which the port lacks, so
-    the transform raises rather than return them as real weights."""
+    factors. The container carries an odd-Y channel (``phase_offsets``),
+    but the molecular transform builds none, as the JAX package's does
+    not: it raises rather than return such terms as real weights."""
     h1, v = symmetric_integrals(12, list(range(12)), seed=11)
     v = v.copy()
     v[0, 2, 4, 6] += 0.3

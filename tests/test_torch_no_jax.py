@@ -3,10 +3,13 @@
 pretraining, the matmul precision, selected CI, the support-CI closures,
 the C2H4 and Li2O campaigns' entry points, and the host chemistry layer
 with direct CI and the dissociation and ladder entry points, the ensembles,
-the dense-state oracle and the exact top-k among them),
-``chip_smoke.py`` and
+the dense-state oracle and the exact top-k, the spin chains, the run-series
+and result-processing tools and the last three example entry points among
+them), ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
-JAX package cannot be imported (the machine with the card has no JAX)."""
+JAX package cannot be imported (the machine with the card has no JAX).
+The result-processing tools also run where pandas and matplotlib cannot be
+imported (that machine has neither)."""
 
 import os
 import subprocess
@@ -67,7 +70,36 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.models.ensemble",
     "anqs_quantum_chemistry_torch.models.bf_state",
     "anqs_quantum_chemistry_torch.ops.topk",
+    "anqs_quantum_chemistry_torch.applications",
+    "anqs_quantum_chemistry_torch.applications.spin_systems",
+    "anqs_quantum_chemistry_torch.experiments.series",
+    "anqs_quantum_chemistry_torch.experiments.processing",
+    "anqs_quantum_chemistry_torch.experiments.summarize_runs",
+    "anqs_quantum_chemistry_torch.experiments.li2o_toy_model",
+    "anqs_quantum_chemistry_torch.experiments.toy_model_walkthrough",
 )
+
+# Imports and runs the processing tools and summarize_runs over an empty
+# tree and one run where pandas and matplotlib cannot be imported.
+NO_PANDAS_PROBE = r"""
+import os, sys, tempfile
+for name in ("pandas", "matplotlib"):
+    sys.modules[name] = None
+from anqs_quantum_chemistry_torch.experiments import processing
+from anqs_quantum_chemistry_torch.experiments import summarize_runs
+root = tempfile.mkdtemp()
+assert processing.load_results(root) == {} and processing.harvest(root) == []
+os.makedirs(os.path.join(root, "a"))
+with open(os.path.join(root, "a", "result.csv"), "w") as f:
+    f.write("energy,iter_idx,wall_time\n-1.0,0,0.5\n-1.5,1,1.0\n")
+summarize_runs.main(["summarize_runs", root])
+try:
+    processing.plot_dissociation_curve("unused.csv")
+except ImportError:
+    pass
+else:
+    raise AssertionError("plotting without matplotlib did not raise")
+"""
 
 
 def test_port_imports_no_jax():
@@ -76,5 +108,14 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = out.stdout.split()
-    assert len(walked) >= 61  # every module was walked
+    assert len(walked) >= 68  # every module was walked
     assert set(REQUIRED) <= set(walked)
+
+
+def test_processing_needs_no_pandas_or_matplotlib():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", NO_PANDAS_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "2 iters, best E -1.500000, 1000.0 ms/iter" in out.stdout

@@ -1,8 +1,8 @@
 """One training step of the JAX package and of the PyTorch port from the
 same weights and sampler uniforms, for the option parity tests
 (``test_torch_ansatz_options.py``, ``test_torch_spin_flip.py``,
-``test_torch_qubit_perm.py``). The step is SGD at lr 1, so the JAX update
-is minus its gradient."""
+``test_torch_qubit_perm.py``, ``test_torch_spin_systems.py``). The step is
+SGD at lr 1, so the JAX update is minus its gradient."""
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +33,24 @@ def step_pair(name, cfg, acfg, jax_cfg=None, sign_structure=None):
             sign_structure=sign_structure)
     if sign_structure is not None:
         jv.anqs.sign_structure = jnp.asarray(sign_structure)
+    return _step_both(jv, v, cfg)
+
+
+def step_pair_explicit(jax_system, system, cfg, acfg):
+    """``step_pair`` on an explicit Hamiltonian: ``jax_system`` and
+    ``system`` are the ``ham``, ``masker`` and ``ref_det`` keywords of the
+    JAX and the port ``VMC``."""
+    cfg = dict(cfg, opt_type="sgd", lr=1.0)
+    jv = jvmc.VMC(config=jvmc.VMCConfig(
+        engine_overrides={"table_pairs_per_row": 1}, **cfg),
+        anqs_config=JaxAnqsConfig(**acfg), **jax_system)
+    v = VMC(config=VMCConfig(**cfg), anqs_config=AnqsConfig(**acfg),
+            device="cpu", **system)
+    return _step_both(jv, v, cfg)
+
+
+def _step_both(jv, v, cfg):
+    """One step of each trainer from JAX's initial weights and uniforms."""
     p0, o0, key = jv.init_state()
     state = v.init_state()
     v.anqs.load_state_dict(params_from_jax(to_np(p0)))

@@ -28,6 +28,19 @@ the step's own local energies define). ``init_state()`` and
 ``step(state)`` take single steps; ``init_ensemble_state(n_rep)`` and
 ``_multi_step_ensemble(n_steps, n_rep)`` advance replicas seeded ``seed +
 r``, each as a run of its own would.
+
+Data parallel (``VMC(..., mesh=...)``, JAX ``vmc.py:203-248,971-975``): one
+process a rank of a ``parallel.mesh.Mesh``, every rank running the same
+program. The support is sampled (the Gumbel frontier sharded over the
+ranks), augmented and sorted replicated, every rank's generator seeded
+alike; then each rank takes its row block (``shard_rows``): log psi, kernel
+#1 and the local energies run on it, the engine resolving membership from
+the set gathered whole or, under 'hash_dist', from its bucket-sharded table.
+The estimators all-reduce numerators and denominators (never per-rank
+means), the maxima and minima of log|psi| reduce by MAX and MIN, the loss
+gradient is the sum of the ranks' gradients, and MinSR runs replicated on
+the gathered set, so every rank takes the same optimizer step (checked
+after each step). Rank 0 writes the run's files.
 """
 
 from __future__ import annotations
@@ -54,6 +67,8 @@ from ..ops import keys
 from ..optim.adam import FlatAdam
 from ..optim.pretrain import pack_dets
 from ..optim.sr import SRConfig, clip_grad_norm, sr_transform
+from ..parallel.mesh import (all_gather_rows, all_reduce, replicate,
+                             shard_rows)
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
 from ..utils.config import Config, Schedule
@@ -75,7 +90,8 @@ BEST_SAVE_INTERVAL_S = 10.0
 # and so the keys ``VMCConfig.engine_overrides`` may hold.
 ENGINE_OVERRIDE_KEYS = ("prefilter_row_capacity", "prefilter_dense_rows",
                         "pf_row_chunk", "hash_extra_bits", "membership",
-                        "weights_matmul", "me_chunk", "hash_epb")
+                        "weights_matmul", "me_chunk", "hash_epb",
+                        "dist_entry_slack", "dist_query_slack")
 DISTILL_LOSSES = ("ce", "logmse")
 # The cycle's metrics, in the order JAX's ``run`` appends them to a row.
 DISTILL_COLUMNS = ("distill_loss_first", "distill_loss_last",
@@ -157,7 +173,7 @@ class VMCConfig(Config):
     save_best_model: bool = False
     extra_best_dirs: Tuple[str, ...] = ()
     # The engine's dynamic membership ('auto' | 'table' | 'hash' |
-    # 'prefilter' | 'search'). With
+    # 'prefilter' | 'search' | 'hash_dist'). With
     # 'auto' the step uses the precomputed partner connectivity of the
     # (N_alpha, N_beta) sector where it fits the limits above; otherwise
     # (and with any named membership) it sorts the sample set and the
@@ -175,7 +191,8 @@ class VMCConfig(Config):
     engine_overrides: Optional[dict] = None
     # Membership overflow (table_overflow + pf_dropped_rows above the
     # threshold): 'escalate' doubles the hash bucket count (and, under
-    # prefilter membership, both prefilter capacities) and rebuilds the
+    # prefilter membership, both prefilter capacities; under hash_dist,
+    # both routing slacks) and rebuilds the
     # engine, at most max_overflow_escalations times, then raises;
     # 'raise' raises; 'ignore' logs nothing and goes on.
     overflow_policy: str = "escalate"
@@ -319,6 +336,9 @@ class VMC:
     masker, grouping, ansatz, Pauli engine and the static tables of the
     exact or sector paths.
 
+    ``mesh``: the rank's ``parallel.mesh.Mesh`` for data-parallel training
+    (module docstring); the trainer then runs on ``mesh.device``.
+
     Pass a ``Molecule``, or ``ham`` (a ``PauliHamiltonian``), ``masker``
     and optionally ``ref_det`` (the reference determinant as an int,
     default 0) without one: the spin chains of
@@ -335,11 +355,13 @@ class VMC:
                  config: VMCConfig = None, anqs_config: AnqsConfig = None,
                  device="cuda", run_dir: Optional[str] = None,
                  sign_structure=None, ham=None, masker=None,
-                 ref_det: Optional[int] = None):
+                 ref_det: Optional[int] = None, mesh=None):
         self.mol = mol
         self.config = config or VMCConfig()
         anqs_config = anqs_config or AnqsConfig()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(
+            device)
         perm = self.config.qubit_perm
         if mol is None:
             if ham is None or masker is None:
@@ -389,7 +411,7 @@ class VMC:
         ).to(self.device)
         self._overflow_escalations = 0
         self._mult_budget = None
-        self.engine = PauliEngine(self.ham, device=self.device,
+        self.engine = PauliEngine(self.ham, device=self.device, mesh=mesh,
                                   **_engine_kwargs(self.config))
         self.sampling_config = self._step_configs()[1]
         self._schedules = tuple(
@@ -405,7 +427,7 @@ class VMC:
         self.coupled_words = self._support_words()
 
         self.run_dir = run_dir
-        if run_dir:
+        if run_dir and self._writer:
             os.makedirs(run_dir, exist_ok=True)
             # JAX's keys, and the ansatz's config (``matmul_precision``
             # with it) under "anqs".
@@ -451,6 +473,22 @@ class VMC:
             pos = np.full(1 << n, -1, dtype=np.int64)
             pos[dets.astype(np.int64)] = np.arange(n_real, dtype=np.int64)
             self.sector_pos = torch.from_numpy(pos).to(self.device)
+
+    @property
+    def _writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _barrier(self):
+        if self._sharded:
+            self.mesh.barrier()
+
+    def _psum(self, x):
+        return all_reduce(x, self.mesh)
 
     def _couples(self, cfg: VMCConfig = None) -> bool:
         """Whether a coupling augments each step's determinant set."""
@@ -626,13 +664,17 @@ class VMC:
         tag = hashlib.sha256(sig.encode()).hexdigest()[:16]
         path = os.path.join(cache_dir, f"init_{tag}.pt")
         fresh = self.anqs.state_dict()
+        cached = None
         if os.path.exists(path):
             cached = torch.load(path, map_location="cpu", weights_only=True)
-            if _layout(cached) == _layout(fresh):
-                self.anqs.load_state_dict(cached)
-                return
-        os.makedirs(cache_dir, exist_ok=True)
-        torch.save({k: v.cpu() for k, v in fresh.items()}, path)
+        # Every rank has read (or seeded alike) before rank 0 writes.
+        self._barrier()
+        if cached is not None and _layout(cached) == _layout(fresh):
+            self.anqs.load_state_dict(cached)
+        elif self._writer:
+            os.makedirs(cache_dir, exist_ok=True)
+            torch.save({k: v.cpu() for k, v in fresh.items()}, path)
+        self._barrier()
 
     # ------------------------------------------------------------------
     # Replica ensembles (JAX ``vmc.py:681-743``)
@@ -738,7 +780,11 @@ class VMC:
         if eng.membership == "prefilter":
             caps["prefilter_row_capacity"] = 2 * eng.prefilter_row_capacity
             caps["prefilter_dense_rows"] = 2 * eng.prefilter_dense_rows
-        if eng.membership in ("hash", "prefilter"):
+        if eng.membership == "hash_dist":
+            # JAX vmc.py:856-859.
+            caps["dist_entry_slack"] = 2.0 * eng.dist_entry_slack
+            caps["dist_query_slack"] = 2.0 * eng.dist_query_slack
+        if eng.membership in ("hash", "prefilter", "hash_dist"):
             caps["hash_extra_bits"] = eng.hash_extra_bits + 1
         logging.warning("%s -> escalation #%d: rebuilding engine with %s",
                         msg, self._overflow_escalations, caps)
@@ -754,7 +800,8 @@ class VMC:
                  samp: SamplingConfig = None, uniforms=None, draw=None):
         """Sample (or take the enumerated sector as) the unique-determinant
         support, add the couplings' rows, and order it as its membership
-        needs: (words, weights, valid, stats). Launches no kernel."""
+        needs: (words, weights, valid, stats), this rank's rows under a
+        mesh. Launches no kernel."""
         cfg = cfg or self.config
         samp = samp or self.sampling_config
         if samp.mode == "exact":
@@ -767,15 +814,15 @@ class VMC:
                       if samp.mode == "multinomial" else None)
             words, weights, valid, stats = sample(
                 self.anqs, samp, generator, uniforms, budget=budget,
-                draw=draw,
+                draw=draw, mesh=self.mesh,
             )
         couples = self._couples(cfg)
         words, weights, valid = self._augment(cfg, words, weights, valid)
-        if self._use_static(samp):
-            return words, weights, valid, stats
-        # Invalid rows become all-ones sentinels that never match.
-        words = torch.where(valid[:, None], words, bitops.MASK32)
-        if not (self.sector_pos is not None and samp.mode == "gumbel"
+        if not self._use_static(samp):
+            # Invalid rows become all-ones sentinels that never match.
+            words = torch.where(valid[:, None], words, bitops.MASK32)
+        if not self._use_static(samp) and not (
+                self.sector_pos is not None and samp.mode == "gumbel"
                 and not couples):
             # Canonical order (JAX ``vmc.py:941-966``): only Gumbel samples
             # on the sector position map skip it; their rows are unique,
@@ -784,7 +831,8 @@ class VMC:
             words, _, weights, valid = keys.sort_words(words, weights, valid)
             if couples:
                 valid = valid & keys.unique_mask(words)
-        return words, weights, valid, stats
+        # This rank's rows (JAX ``vmc.py:971-975``).
+        return (*shard_rows((words, weights, valid), self.mesh), stats)
 
     def _use_static(self, samp: SamplingConfig) -> bool:
         return samp.mode == "exact" and self.exact_partner_idx is not None
@@ -802,8 +850,9 @@ class VMC:
             la, ph = self.anqs.log_psi(words)
             if self._use_static(samp):
                 e = self.engine.local_energy_static(
-                    words, la, ph, valid, self.exact_partner_idx,
-                    self.exact_partner_found,
+                    words, la, ph, valid, *shard_rows(
+                        (self.exact_partner_idx, self.exact_partner_found),
+                        self.mesh),
                 )
             elif self.sector_words is not None:
                 e = self.engine.local_energy_sector(
@@ -826,37 +875,48 @@ class VMC:
         words, weights, valid, stats, la, ph, e = self._support_and_eloc(
             state, cfg, samp, uniforms, draw
         )
+        psum = self._psum
         theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
+        theor_sum = psum(torch.sum(theor))
         if cfg.use_theor_freqs:
             # Born weights; float64 estimators in the overflow-free
             # numerator form (p_x E_x = a_x t_x; p_x |E_x|^2 = |t_x|^2). At
             # |E| ~ 100 Ha the float32 cancellation in sum|t|^2 - |mean|^2
-            # is ~1e-3 Ha^2.
-            freqs = theor / torch.clamp(torch.sum(theor), min=1e-30)
+            # is ~1e-3 Ha^2. Under a mesh the sums are all-reduced, never
+            # the ranks' means.
+            freqs = theor / torch.clamp(theor_sum, min=1e-30)
             a_x = torch.where(valid, torch.exp(la), 0.0).to(torch.float64)
             t_re = e.t_re.to(torch.float64)
             t_im = e.t_im.to(torch.float64)
-            denom = torch.clamp(torch.sum(a_x**2), min=1e-300)
-            mean_re64 = torch.sum(a_x * t_re) / denom
-            mean_im64 = torch.sum(a_x * t_im) / denom
-            var = (torch.sum(t_re**2 + t_im**2) / denom
+            sums = psum(torch.stack([
+                torch.sum(a_x**2), torch.sum(a_x * t_re),
+                torch.sum(a_x * t_im), torch.sum(t_re**2 + t_im**2)]))
+            denom = torch.clamp(sums[0], min=1e-300)
+            mean_re64 = sums[1] / denom
+            mean_im64 = sums[2] / denom
+            var = (sums[3] / denom
                    - mean_re64**2 - mean_im64**2).to(torch.float32)
             mean_re = mean_re64.to(torch.float32)
             mean_im = mean_im64.to(torch.float32)
         else:
             # The sampler's own weights (multinomial: counts / total).
-            freqs = weights / torch.clamp(torch.sum(weights), min=1e-30)
-            mean_re, mean_im, var = mc_estimate(e.e_re, e.e_im, freqs)
+            freqs = weights / torch.clamp(psum(torch.sum(weights)),
+                                          min=1e-30)
+            mean_re, mean_im, var = mc_estimate(e.e_re, e.e_im, freqs,
+                                                self.mesh)
         d_re = torch.where(valid, e.e_re - mean_re, 0.0)
         d_im = torch.where(valid, e.e_im - mean_im, 0.0)
 
+        # max and -min of log|psi| in one MAX reduction.
+        la_max, neg_la_min = all_reduce(torch.stack([
+            torch.max(torch.where(valid, la, -torch.inf)),
+            -torch.min(torch.where(valid, la, torch.inf))]), self.mesh, "max")
         temp = cfg.grad_weight_temperature
         if cfg.use_theor_freqs and temp != 1.0:
-            la_max = torch.max(torch.where(valid, la, -torch.inf))
             tempered = torch.where(
                 valid, torch.exp((2.0 / temp) * (la - la_max)), 0.0
             )
-            grad_freqs = tempered / torch.clamp(torch.sum(tempered),
+            grad_freqs = tempered / torch.clamp(psum(torch.sum(tempered)),
                                                 min=1e-30)
         else:
             grad_freqs = freqs
@@ -871,11 +931,20 @@ class VMC:
         la_g = torch.where(valid, la_g, 0.0)
         ph_g = torch.where(valid, ph_g, 0.0)
         loss = 2.0 * torch.sum(grad_freqs * (la_g * d_re + ph_g * d_im))
-        grads = dict(zip(params, _grad(loss, list(params.values()))))
+        grads = _grad(loss, list(params.values()))
+        if self._sharded:
+            # The loss gradient: the sum of the ranks' gradients.
+            flat = psum(torch.cat([g.reshape(-1) for g in grads]))
+            grads = list(torch.split(flat, [g.numel() for g in grads]))
+            grads = [g.reshape(p.shape)
+                     for g, p in zip(grads, params.values())]
+        grads = dict(zip(params, grads))
 
         if cfg.sr is not None:
-            grads = sr_transform(self.anqs, params, grads, words, grad_freqs,
-                                 cfg.sr)
+            # MinSR runs replicated on the whole set.
+            sr_words, sr_freqs = replicate((words, grad_freqs), self.mesh)
+            grads = sr_transform(self.anqs, params, grads, sr_words,
+                                 sr_freqs, cfg.sr)
         if cfg.grad_clip_norm is not None:
             grads, _ = clip_grad_norm(grads, cfg.grad_clip_norm)
         if cfg.grad_renorm:
@@ -885,29 +954,32 @@ class VMC:
             grads = {n: g / torch.clamp(norm, min=1e-30)
                      for n, g in grads.items()}
 
-        # HF-projected local energy: E_loc at the HF row if it was sampled.
+        # HF-projected local energy: E_loc at the HF row if it was sampled;
+        # the set size and ipr beside it in one reduction.
         hf_match = torch.all(words == self.hf_words[0][None, :], dim=1) & valid
-        hf_e = torch.where(
-            torch.any(hf_match),
-            torch.sum(torch.where(hf_match, e.e_re, 0.0)),
-            torch.nan,
-        )
-        n_valid = torch.sum(valid)
+        counts = psum(torch.stack([
+            torch.sum(torch.where(hf_match, e.e_re, 0.0)).to(torch.float64),
+            torch.sum(hf_match).to(torch.float64),
+            torch.sum(valid).to(torch.float64),
+            torch.sum(freqs**2).to(torch.float64)]))
+        hf_e = torch.where(counts[1] > 0, counts[0].to(torch.float32),
+                           torch.nan)
+        n_valid = counts[2].to(torch.int64)
         metrics.update({
             "energy": mean_re,
             "energy_imag": mean_im,
             "energy_var": var,
             "unique_num": n_valid,
-            "sampled_prob": torch.sum(theor),
+            "sampled_prob": theor_sum,
             "found_pairs": e.found_pairs,
             "hf_proj_energy": hf_e,
             "grad_norm": torch.linalg.vector_norm(
                 torch.cat([g.reshape(-1) for g in grads.values()])
             ),
-            "max_log_abs": torch.max(torch.where(valid, la, -torch.inf)),
-            "ipr": torch.sum(freqs**2),
+            "max_log_abs": la_max,
+            "ipr": counts[3].to(torch.float32),
             "dropped": torch.as_tensor(stats["dropped"]),
-            "min_log_abs": torch.min(torch.where(valid, la, torch.inf)),
+            "min_log_abs": -neg_la_min,
             "found_ratio": e.found_pairs
             / torch.clamp(n_valid * self.engine.n_groups, min=1),
             "table_overflow": torch.as_tensor(e.table_overflow),
@@ -918,11 +990,29 @@ class VMC:
     def _full_energy(self, words, la, ph, valid):
         """The unbiased full energy of a sample (mean, imaginary part,
         variance) under its Born weights, at the weights that gave (la, ph)
-        (JAX ``vmc.py:1232-1253``)."""
+        (JAX ``vmc.py:1232-1253``); on this rank's rows under a mesh."""
         e = self.engine.local_energy_full(self.anqs, words, la, ph, valid)
         theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
-        freqs = theor / torch.clamp(torch.sum(theor), min=1e-30)
-        return mc_estimate(e.e_re, e.e_im, freqs)
+        freqs = theor / torch.clamp(self._psum(torch.sum(theor)), min=1e-30)
+        return mc_estimate(e.e_re, e.e_im, freqs, self.mesh)
+
+    def check_replicas(self):
+        """Raise ``RuntimeError`` unless every rank of the mesh holds the
+        same parameters (a no-op without one). One all-gather of a 16-byte
+        checksum a rank: the int64 sums of the parameters' float32 bit
+        patterns, plain and weighted by position (wrapping). Entries that
+        differ at one position always change the weighted sum."""
+        if not self._sharded:
+            return
+        bits = torch.cat([p.detach().float().reshape(-1).view(torch.int32)
+                          for p in self.anqs.parameters()]).to(torch.int64)
+        pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+        sums = torch.stack([torch.sum(bits), torch.sum(bits * pos)])
+        every = all_gather_rows(sums[None], self.mesh, self.mesh.size)
+        if not bool(torch.all(every == every[0])):
+            raise RuntimeError(
+                f"parameters differ across the {self.mesh.size} ranks: "
+                f"checksums {every.tolist()}")
 
     def step(self, state: TrainState, uniforms=None, overrides=None,
              draw=None, full_energy: bool = False) -> dict:
@@ -934,6 +1024,7 @@ class VMC:
         metrics, grads = self._grads_and_metrics(state, uniforms, cfg, samp,
                                                  draw, full_energy)
         state.opt.step(list(grads.values()), cfg)
+        self.check_replicas()
         with torch.no_grad():
             metrics["hf_log_abs"] = self.anqs.log_psi(self.hf_words)[0][0]
         names = sorted(metrics)
@@ -964,11 +1055,14 @@ class VMC:
         evaluation of the final parameters. The ansatz ends holding the
         best of them. Returns ``distill_loss_first``, ``distill_loss_last``
         (the lowest loss) and ``distill_energy`` (the support's Born energy)
-        as device scalars: the cycle reads nothing back to the host."""
+        as device scalars: the cycle reads nothing back to the host. Under
+        a mesh the cycle runs replicated on the set gathered whole."""
         cfg = cfg or self.config
         words, _, valid, _, la, ph, e = self._support_and_eloc(
             state, cfg, samp, uniforms, draw)
-        la_t, ph_t, m_re = it_targets(la, ph, e.e_re, e.e_im, valid,
+        words, valid, la, ph, e_re, e_im = replicate(
+            (words, valid, la, ph, e.e_re, e.e_im), self.mesh)
+        la_t, ph_t, m_re = it_targets(la, ph, e_re, e_im, valid,
                                       cfg.distill_tau)
 
         def soft(logits):
@@ -1090,7 +1184,9 @@ class VMC:
         every that many iterations. ``profile_iters=(start, stop)``: a
         ``torch.profiler`` trace of those iterations in
         ``<run_dir>/profile``. ``init_params``: a state dict to start from
-        (fresh optimizer)."""
+        (fresh optimizer). Under a mesh every rank trains and reads the
+        resume, and rank 0 alone writes the files and logs, every rank
+        waiting at a barrier after each row's writes."""
         iter_num = iter_num or self.config.iter_num
         start_iter = 0
         if resume_from:
@@ -1134,8 +1230,17 @@ class VMC:
                     row.setdefault(k, dpend.pop(k, float("nan")))
             row = {k: row[k] for k in _csv_columns(row)}
             history.append(row)
-            if row["energy"] < best["energy"]:
+            new_best = row["energy"] < best["energy"]
+            if new_best:
                 best.update({"energy": row["energy"], "iter": it})
+            if self._writer:
+                write_row(it, row, new_best)
+            self._barrier()  # the other ranks wait for rank 0's files
+            if on_iter is not None:
+                on_iter(it, row)
+
+        def write_row(it, row, new_best):
+            if new_best:
                 if self.run_dir:
                     np.save(os.path.join(self.run_dir, "best_energy.npy"),
                             np.array([best["energy"], best["iter"]]))
@@ -1156,14 +1261,13 @@ class VMC:
             if log_every and it % log_every == 0:
                 logging.info("iter %d energy %.6f unique_num %d", it,
                              row["energy"], int(row["unique_num"]))
-            if on_iter is not None:
-                on_iter(it, row)
 
         period = self.config.full_energy_period
         profiler = None
         it = start_iter
         while it < iter_num:
             if (profile_iters and profiler is None and self.run_dir
+                    and self._writer
                     and profile_iters[0] <= it <= profile_iters[1]):
                 profiler = _start_profiler(self.device)
             overrides = self._schedule_overrides(it)
@@ -1271,14 +1375,14 @@ def it_targets(la, ph, e_re, e_im, valid, tau: float):
 def main_path_vmc(device="cuda", hidden_width: int = 512,
                   run_dir: Optional[str] = None,
                   anqs_options: Optional[dict] = None, sign_structure=None,
-                  **overrides) -> VMC:
+                  mesh=None, **overrides) -> VMC:
     """The main-path workload (JAX ``bench.py:build_vmc("gumbel")``,
     ``examples/n2_convergence.py``): N2/STO-3G, MADE ``hidden_width``,
     qubit_per_qudit 10, Gumbel top-k over the whole 14400-determinant
     sector (14464 rows), sector membership, MinSR top-50, clip 1.0, Adam
     1e-3, seed 0. ``anqs_options``: other ``AnqsConfig`` fields;
     ``sign_structure``: ``VMC``'s; ``overrides``: other ``VMCConfig``
-    fields."""
+    fields; ``mesh``: ``VMC``'s."""
     from ..chem.molecule import load_n2
 
     cfg = dict(sample_num=14464, sampling_mode="gumbel", qubit_per_qudit=10,
@@ -1293,6 +1397,7 @@ def main_path_vmc(device="cuda", hidden_width: int = 512,
         device=device,
         run_dir=run_dir,
         sign_structure=sign_structure,
+        mesh=mesh,
     )
 
 
@@ -1307,7 +1412,8 @@ LI2O_OPTIONS = dict(head_mode="log_psi", activation="sanqs_paper",
 
 def li2o_vmc(device="cuda", hidden_width: int = 512,
              run_dir: Optional[str] = None,
-             anqs_options: Optional[dict] = None, **overrides) -> VMC:
+             anqs_options: Optional[dict] = None, mesh=None,
+             **overrides) -> VMC:
     """The reference's documented toy workload (its Colab notebook, JAX
     ``examples/li2o_toy_model.py``): Li2O/STO-3G, 30 qubits, MADE
     ``hidden_width``, qubit_per_qudit 6, Gumbel top-k over 8192 unique
@@ -1315,7 +1421,8 @@ def li2o_vmc(device="cuda", hidden_width: int = 512,
     41.4M-determinant sector is far beyond sector membership), MinSR
     top-50, clip 1.0, Adam 3e-3 (the example's schedule holds 3e-3 for its
     first 1200 steps), seed 0. ``anqs_options``: other ``AnqsConfig``
-    fields; ``overrides``: other ``VMCConfig`` fields."""
+    fields; ``mesh``: ``VMC``'s; ``overrides``: other ``VMCConfig``
+    fields."""
     from ..chem.molecule import load_li2o
 
     cfg = dict(sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
@@ -1329,6 +1436,7 @@ def li2o_vmc(device="cuda", hidden_width: int = 512,
                       **(anqs_options or {})}),
         device=device,
         run_dir=run_dir,
+        mesh=mesh,
     )
 
 

@@ -24,7 +24,11 @@ CUDA kernel on the card), or cheap-first through the same table
 candidates, and exact verification of the survivors by the lookup kernel,
 with a dense fallback for rows over capacity; or by a binary search of the
 sorted set (``membership='search'``, any width, the JAX engine's choice
-above 128 qubits). The
+above 128 qubits); or from a bucket table sharded over the ranks of a
+data-parallel mesh (``membership='hash_dist'``,
+``parallel/dist_membership.py``: each rank owns nb / D buckets, entries and
+queries are routed to their owners, and kernel #2 answers on each shard;
+``mesh=None`` is one shard). The
 unbiased full local energy (``local_energy_full``) evaluates the network at
 every partner instead. Amplitudes are real pairs ``(log|psi|, phase)``.
 
@@ -37,6 +41,13 @@ pair's phase difference by -off_m (``group_phase``, JAX
 ``pauli.py:247-263``). The prefilter's per-row compaction carries no such
 channel, and the engine refuses the pair, as JAX's does. For a real
 Hamiltonian ``group_phase`` is None and nothing changes.
+
+Under a mesh (``mesh``, ``parallel/mesh.py``) every local-energy method
+takes this rank's rows of the set: kernel #1 and the combine run on them.
+'hash_dist' keeps its table sharded; every other membership (table, hash,
+prefilter, search, sector, static) builds its table from the set gathered
+whole (``replicate``) and queries this rank's rows only. ``found_pairs``,
+``table_overflow`` and ``pf_dropped_rows`` come back summed over the ranks.
 
 Groups come in the Hamiltonian's order, or, where the JAX engine would use
 its ``'grouped'`` matrix elements (``weights_matmul``), in its class-major
@@ -57,11 +68,11 @@ from ..ops import bits as bitops
 from ..ops import hash_lookup as hashops
 from ..ops import keys
 from ..ops.matrix_elements import build_tables, fused_matrix_elements
+from ..parallel.dist_membership import hash_membership_dist
+from ..parallel.mesh import all_reduce, replicate
 
 NEG = -1e30
-MEMBERSHIPS = ("auto", "table", "hash", "prefilter", "search")
-# Memberships of the JAX engine that the port does not have yet.
-UNPORTED_MEMBERSHIPS = ("hash_dist",)
+MEMBERSHIPS = ("auto", "table", "hash", "prefilter", "search", "hash_dist")
 # Key words up to which the hash and prefilter memberships run (128 qubits:
 # JAX ``pauli.py:813``, ``:959``).
 MAX_HASH_WORDS = 4
@@ -141,9 +152,13 @@ class PauliEngine:
                  prefilter_dense_rows: int = 256,
                  pf_row_chunk: Optional[int] = None,
                  me_chunk: Optional[int] = None,
-                 hash_epb: Optional[int] = None):
+                 hash_epb: Optional[int] = None,
+                 mesh=None,
+                 dist_entry_slack: float = 4.0,
+                 dist_query_slack: float = 1.5):
         """``membership``: 'auto' | 'table' | 'hash' | 'prefilter' |
-        'search', the dynamic membership of ``local_energy_proxy``; 'auto'
+        'search' | 'hash_dist', the dynamic membership of
+        ``local_energy_proxy``; 'auto'
         resolves as the JAX engine's does: to 'table' up to
         ``MAX_TABLE_QUBITS`` qubits, and above that to 'prefilter' (W <= 4)
         or 'search'. ``hash_extra_bits``: extra log2 bucket-count bits of
@@ -157,12 +172,13 @@ class PauliEngine:
         candidates kept a row (``prefilter_row_capacity``), rows over it
         re-done over all groups (``prefilter_dense_rows``), and the rows a
         block of the fingerprint, compaction and verification stages
-        (``pf_row_chunk``; None: one block)."""
+        (``pf_row_chunk``; None: one block). ``mesh``: the data-parallel
+        ``parallel.mesh.Mesh`` whose rank's rows the methods take (module
+        docstring; its one axis stands for JAX's ``mesh_axis``);
+        ``dist_entry_slack`` and ``dist_query_slack``: the routing
+        capacities of 'hash_dist' (JAX's defaults), which the trainer's
+        overflow policy doubles."""
         n_words = bitops.n_words(ham.qubit_num)
-        if membership in UNPORTED_MEMBERSHIPS:
-            raise NotImplementedError(
-                f"membership={membership!r} is not ported (ROADMAP item 6)"
-            )
         if membership not in MEMBERSHIPS:
             raise ValueError(f"membership={membership!r}: expected one of "
                              f"{MEMBERSHIPS}")
@@ -174,7 +190,7 @@ class PauliEngine:
                 membership = "table"
             else:
                 membership = "prefilter" if n_words <= 4 else "search"
-        elif membership in ("hash", "prefilter") and (
+        elif membership in ("hash", "prefilter", "hash_dist") and (
                 n_words > MAX_HASH_WORDS):
             raise ValueError(f"{membership} membership supports <= "
                              f"{32 * MAX_HASH_WORDS} qubits")
@@ -187,11 +203,11 @@ class PauliEngine:
                              f"{self.MAX_TABLE_QUBITS} qubits")
         has_phase = (ham.phase_offsets is not None
                      and bool(np.any(ham.phase_offsets)))
-        if membership == "prefilter" and has_phase:
-            # JAX pauli.py:252-262 (an assert there): the compaction
-            # carries no per-group phase channel. 'auto' lands here too
-            # above MAX_TABLE_QUBITS qubits at W <= 4.
-            raise ValueError("prefilter membership does not carry the "
+        if membership in ("prefilter", "hash_dist") and has_phase:
+            # JAX pauli.py:252-262 (an assert there): these paths carry no
+            # per-group phase channel. 'auto' lands here too above
+            # MAX_TABLE_QUBITS qubits at W <= 4.
+            raise ValueError(f"{membership} membership does not carry the "
                              "per-group phase channel of an odd-Y "
                              "Hamiltonian: use table, hash or search")
         if min(prefilter_row_capacity, prefilter_dense_rows) < 1 or any(
@@ -213,6 +229,9 @@ class PauliEngine:
         self.pf_row_chunk = pf_row_chunk
         self.me_chunk = me_chunk
         self.hash_epb = hash_epb or (32 if n_words <= 2 else 16)
+        self.mesh = mesh
+        self.dist_entry_slack = float(dist_entry_slack)
+        self.dist_query_slack = float(dist_query_slack)
         self.qubit_num = ham.qubit_num
         self.constant = float(ham.constant)
         self.n_groups = ham.n_groups
@@ -229,18 +248,56 @@ class PauliEngine:
     def with_capacities(self, **capacities) -> "PauliEngine":
         """A copy of this engine with other membership capacities
         (``hash_extra_bits``, ``prefilter_row_capacity``,
-        ``prefilter_dense_rows``), sharing its device tables: what the
+        ``prefilter_dense_rows``, ``dist_entry_slack``,
+        ``dist_query_slack``), sharing its device tables: what the
         trainer's overflow escalation rebuilds, without recutting kernel
         #1's tables on the host."""
-        unknown = set(capacities) - {"hash_extra_bits",
-                                     "prefilter_row_capacity",
-                                     "prefilter_dense_rows"}
+        kinds = {"hash_extra_bits": int, "prefilter_row_capacity": int,
+                 "prefilter_dense_rows": int, "dist_entry_slack": float,
+                 "dist_query_slack": float}
+        unknown = set(capacities) - set(kinds)
         if unknown:
             raise ValueError(f"not a capacity: {sorted(unknown)}")
         eng = copy.copy(self)
         for name, value in capacities.items():
-            setattr(eng, name, int(value))
+            setattr(eng, name, kinds[name](value))
         return eng
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the methods take one rank's rows of a mesh of D > 1."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _whole_set(self, rows):
+        """(The whole set gathered from every rank's rows, the index of
+        this rank's first row in it); ``rows`` itself and 0 unless
+        sharded. The rows are blocks as ``shard_rows`` cuts them."""
+        if not self.sharded:
+            return rows, 0
+        n = torch.tensor(rows[0].shape[0], device=rows[0].device)
+        total = int(all_reduce(n, self.mesh))
+        start, stop = self.mesh.row_range(total)
+        if stop - start != rows[0].shape[0]:
+            raise ValueError(f"rank {self.mesh.rank}: {rows[0].shape[0]} "
+                             f"rows, not its block of {total}")
+        return replicate(tuple(rows), self.mesh, total), start
+
+    def _reduced(self, out: "LocalEnergies",
+                 overflow_summed: bool = False) -> "LocalEnergies":
+        """``out`` with ``found_pairs``, ``table_overflow`` and
+        ``pf_dropped_rows`` summed over the ranks (``table_overflow``
+        as it is where ``overflow_summed``)."""
+        if not self.sharded:
+            return out
+        counts = torch.stack([torch.as_tensor(
+            v, device=out.e_re.device).to(torch.int64) for v in (
+                out.found_pairs, out.table_overflow, out.pf_dropped_rows)])
+        summed = all_reduce(counts, self.mesh)
+        return out._replace(
+            found_pairs=summed[0],
+            table_overflow=(out.table_overflow if overflow_summed
+                            else summed[1]),
+            pf_dropped_rows=summed[2])
 
     def matrix_elements(self, words) -> torch.Tensor:
         """(B, W) packed sources -> (B, M) elements <x ^ A_m | H | x>, in
@@ -265,12 +322,17 @@ class PauliEngine:
         ``partner_idx`` (B, M) are the partners' rows of ``words`` and
         ``partner_found`` whether they are in it, so partner amplitudes are
         plain gathers. JAX's 64-pair row table (a TPU lane layout) is not
-        needed for them. Summed with ``_combine``, as JAX's is."""
+        needed for them. Summed with ``_combine``, as JAX's is. Sharded,
+        ``partner_idx`` and ``partner_found`` are this rank's rows of the
+        basis's tables, indices into the whole basis."""
         me = self.matrix_elements(words)
-        la_p = torch.where(valid, log_abs, NEG)[partner_idx]
-        ph_p = torch.where(valid, phase, 0.0)[partner_idx]
+        (_, la_all, ph_all, v_all), _ = self._whole_set(
+            (words, log_abs, phase, valid))
+        la_p = torch.where(v_all, la_all, NEG)[partner_idx]
+        ph_p = torch.where(v_all, ph_all, 0.0)[partner_idx]
         found = partner_found & (la_p > 0.5 * NEG) & valid[:, None]
-        return self._combine(me, la_p, ph_p, found, log_abs, phase, valid)
+        return self._reduced(
+            self._combine(me, la_p, ph_p, found, log_abs, phase, valid))
 
     def local_energy_sector(
         self, words, log_abs, phase, valid,
@@ -284,29 +346,33 @@ class PauliEngine:
         of the partners' static sector indices."""
         me = self.matrix_elements(words)
         n_sector = sector_words.shape[0]
+        (w_all, la_all, ph_all, v_all), start = self._whole_set(
+            (words, log_abs, phase, valid))
         if sector_pos is not None:
-            key32 = words[:, 0]
-            safe_key = valid & (key32 < sector_pos.shape[0])
+            key32 = w_all[:, 0]
+            safe_key = v_all & (key32 < sector_pos.shape[0])
             sidx = torch.where(
                 safe_key, sector_pos[torch.where(safe_key, key32, 0)], -1
             )
             sfound = sidx >= 0
         else:
-            sidx, sfound = keys.searchsorted_words(sector_words, words)
-        ok = valid & sfound
-        safe_s = torch.clamp(sidx, 0, n_sector - 1)
-        pidx = partner_idx[safe_s]  # (B, M)
-        pfnd = partner_found[safe_s] & ok[:, None]
-        slot = torch.where(ok, sidx, n_sector)
+            sidx, sfound = keys.searchsorted_words(sector_words, w_all)
+        ok_all = v_all & sfound
+        slot = torch.where(ok_all, sidx, n_sector)
         tab = torch.full((n_sector + 1, 2), NEG, dtype=torch.float32,
                          device=words.device)
-        tab[slot, 0] = torch.where(ok, log_abs, NEG)
-        tab[slot, 1] = phase
+        tab[slot, 0] = torch.where(ok_all, la_all, NEG)
+        tab[slot, 1] = ph_all
+        own = slice(start, start + words.shape[0])
+        ok = ok_all[own]
+        safe_s = torch.clamp(sidx[own], 0, n_sector - 1)
+        pidx = partner_idx[safe_s]  # (B, M)
+        pfnd = partner_found[safe_s] & ok[:, None]
         rows = tab[pidx]  # (B, M, 2)
         la_p, ph_p = rows[..., 0], rows[..., 1]
         found = pfnd & (la_p > 0.5 * NEG)
-        return self._combine_via_t(me, la_p, ph_p, found, log_abs, phase,
-                                   valid)
+        return self._reduced(self._combine_via_t(me, la_p, ph_p, found,
+                                                 log_abs, phase, valid))
 
     # ------------------------------------------------------------------
     # Dynamic membership
@@ -357,33 +423,41 @@ class PauliEngine:
 
         ``sorted_words`` rows of invalid entries must hold words that can
         never match (the VMC step writes all-ones sentinels)."""
+        rows = (sorted_words, log_abs, phase, valid)
+        if self.membership == "hash_dist":
+            return self._proxy_via_hash_dist(*rows)
+        whole, start = self._whole_set(rows)
         if self.membership == "table":
-            return self._proxy_via_table2(sorted_words, log_abs, phase, valid)
-        if self.membership == "prefilter":
-            return self._proxy_via_prefilter(sorted_words, log_abs, phase,
-                                             valid)
-        if self.membership == "search":
-            return self._proxy_via_search(sorted_words, log_abs, phase, valid)
-        return self._proxy_via_hash(sorted_words, log_abs, phase, valid)
+            out = self._proxy_via_table2(rows, whole)
+        elif self.membership == "prefilter":
+            out = self._proxy_via_prefilter(rows, whole, start)
+        elif self.membership == "search":
+            out = self._proxy_via_search(rows, whole)
+        else:
+            out = self._proxy_via_hash(rows, whole, start)
+        return self._reduced(out)
 
-    def _proxy_via_search(self, words, log_abs, phase, valid):
-        """Membership by a binary search of every partner x ^ A_m in the
-        sorted set itself (JAX ``pauli.py:477-494``), any word count, in
-        row blocks of about ``SEARCH_QUERY_CHUNK`` partners so that the
-        (rows, M, W) query array stays bounded. The set's invalid rows hold
-        sentinels that no partner equals."""
+    def _proxy_via_search(self, rows, whole):
+        """Membership by a binary search of every partner x ^ A_m of the
+        ``rows`` in the sorted ``whole`` set (JAX ``pauli.py:477-494``), any
+        word count, in row blocks of about ``SEARCH_QUERY_CHUNK`` partners
+        so that the (rows, M, W) query array stays bounded. The set's
+        invalid rows hold sentinels that no partner equals."""
+        words, log_abs, phase, valid = rows
+        w_all, la_all, ph_all, _ = whole
         b, w = words.shape
+        n_all = w_all.shape[0]
         m = self.n_groups
         step = max(1, SEARCH_QUERY_CHUNK // m)
         parts = []
         for s in range(0, b, step):
-            rows = words[s:s + step]
-            xp = (rows[:, None, :] ^ self.a_words[None, :, :]).reshape(-1, w)
-            idx, found = keys.searchsorted_words(words, xp)
-            shape = (rows.shape[0], m)
-            safe = torch.clamp(idx, 0, b - 1).reshape(shape)
+            block = words[s:s + step]
+            xp = (block[:, None, :] ^ self.a_words[None, :, :]).reshape(-1, w)
+            idx, found = keys.searchsorted_words(w_all, xp)
+            shape = (block.shape[0], m)
+            safe = torch.clamp(idx, 0, n_all - 1).reshape(shape)
             parts.append(self._combine(
-                self.matrix_elements(rows), log_abs[safe], phase[safe],
+                self.matrix_elements(block), la_all[safe], ph_all[safe],
                 found.reshape(shape) & valid[s:s + step, None],
                 log_abs[s:s + step], phase[s:s + step], valid[s:s + step]))
         return LocalEnergies(
@@ -391,34 +465,46 @@ class PauliEngine:
                for f in ("e_re", "e_im", "t_re", "t_im")},
             found_pairs=sum(p.found_pairs for p in parts))
 
-    def _proxy_via_table2(self, words, log_abs, phase, valid):
-        """Direct-address membership with a (2^n, 2) table: one (q, 2) row
-        gather per query (JAX ``pauli.py:678-710``). Out-of-range keys
-        (sentinels) are written to a spare last row, which no query
-        reads."""
+    def _proxy_via_table2(self, rows, whole):
+        """Direct-address membership with a (2^n, 2) table of the ``whole``
+        set: one (q, 2) row gather per query of the ``rows`` (JAX
+        ``pauli.py:678-710``). Out-of-range keys (sentinels) are written to
+        a spare last row, which no query reads."""
+        words, log_abs, phase, valid = rows
+        w_all, la_all, ph_all, v_all = whole
         size = 1 << self.qubit_num
-        keys_flat = words[:, 0]
-        safe = valid & (keys_flat < size)
+        keys_flat = w_all[:, 0]
+        safe = v_all & (keys_flat < size)
         kf = torch.where(safe, keys_flat, size)
         tab = torch.full((size + 1, 2), NEG, dtype=torch.float32,
                          device=words.device)
-        tab[kf, 0] = torch.where(safe, log_abs, NEG)
-        tab[kf, 1] = phase
+        tab[kf, 0] = torch.where(safe, la_all, NEG)
+        tab[kf, 1] = ph_all
         q = words[:, 0][:, None] ^ self.a_words[:, 0][None, :]  # (B, M)
         in_range = q < size
-        rows = tab[torch.where(in_range, q, 0)]  # (B, M, 2)
-        la_p = torch.where(in_range, rows[..., 0], NEG)
+        got = tab[torch.where(in_range, q, 0)]  # (B, M, 2)
+        la_p = torch.where(in_range, got[..., 0], NEG)
         found = (la_p > 0.5 * NEG) & valid[:, None]
         me = self.matrix_elements(words)
-        return self._combine(me, la_p, rows[..., 1], found, log_abs, phase,
+        return self._combine(me, la_p, got[..., 1], found, log_abs, phase,
                              valid)
 
-    def _proxy_via_hash(self, words, log_abs, phase, valid):
-        """Membership via bucketed hash rows, any qubit count up to 64 (JAX
-        ``pauli.py:728-776``, the ``lookup_kernel='pallas'`` branch): build
-        the bucket table from the sampled set, then look every partner
-        x ^ A_m up in it (``ops/hash_lookup.py``)."""
-        tab, _, overflow = self._hash_build(words, log_abs, phase, valid)
+    def _build_whole(self, whole, start, n_rows, with_fp=False):
+        """``_hash_build`` of the ``whole`` set; sharded, its overflow
+        counts only the entries of this rank's ``n_rows`` rows from
+        ``start``, so that the sum over the ranks is the set's."""
+        kw = {"with_fp": True} if with_fp else {}
+        if self.sharded:
+            kw["rows"] = (start, start + n_rows)
+        return self._hash_build(*whole, **kw)
+
+    def _proxy_via_hash(self, rows, whole, start):
+        """Membership via bucketed hash rows, any qubit count up to 128
+        (JAX ``pauli.py:728-776``, the ``lookup_kernel='pallas'`` branch):
+        build the bucket table from the ``whole`` set, then look every
+        partner x ^ A_m of the ``rows`` up in it (``ops/hash_lookup.py``)."""
+        words, log_abs, phase, valid = rows
+        tab, _, overflow = self._build_whole(whole, start, words.shape[0])
         la_p, ph_p, found = hashops.hash_lookup(
             tab, *self._hash_queries(words), entries=self.hash_epb)
         shape = (words.shape[0], self.n_groups)
@@ -427,6 +513,24 @@ class PauliEngine:
         out = self._combine(me, la_p.reshape(shape), ph_p.reshape(shape),
                             found, log_abs, phase, valid)
         return out._replace(table_overflow=overflow)
+
+    def _proxy_via_hash_dist(self, words, log_abs, phase, valid):
+        """Membership via the bucket table sharded over the mesh (JAX
+        ``pauli.py:778-797``; ``parallel/dist_membership.py``): kernel #2
+        on each rank's shard answers the routed partners, kernel #1 runs
+        on this rank's rows, then the same ``_combine`` as 'hash'. E is
+        ``hash_epb`` (JAX's hash_dist keeps its default); the bucket count
+        honours ``hash_extra_bits``."""
+        la_p, ph_p, overflow = hash_membership_dist(
+            self.mesh, words, log_abs, phase, valid, self.a_words,
+            epb=self.hash_epb, entry_slack=self.dist_entry_slack,
+            query_slack=self.dist_query_slack,
+            hash_extra_bits=self.hash_extra_bits)
+        found = (la_p > 0.5 * NEG) & valid[:, None]
+        me = self.matrix_elements(words)
+        out = self._combine(me, la_p, ph_p, found, log_abs, phase, valid)
+        return self._reduced(out._replace(table_overflow=overflow),
+                             overflow_summed=True)
 
     def _hash_queries(self, words):
         """The (B * M,) key words of every partner x ^ A_m as int32 bits,
@@ -437,7 +541,8 @@ class PauliEngine:
         return tuple((w32[:, None, i] ^ a32[None, :, i]).reshape(-1)
                      for i in range(words.shape[1]))
 
-    def _hash_build(self, words, log_abs, phase, valid, with_fp=False):
+    def _hash_build(self, words, log_abs, phase, valid, with_fp=False,
+                    rows=None):
         """Scatter (key, log|psi|, phase) entries of the valid rows into
         planar bucket rows (JAX ``pauli.py:799-870``): E = ``hash_epb``
         entries a bucket. Returns (table (nb, (K + 2) E) float32, nb,
@@ -451,8 +556,9 @@ class PauliEngine:
         (NEG = empty), [(K + 1) E, (K + 2) E) phase. Entries are ranked
         within their bucket by a stable sort over bucket ids; buckets are
         sized to ~25% average load, so a bucket of more than E entries is a
-        Poisson tail, counted in the overflow. Invalid and overflowing rows
-        go to a spare last row, cut off at the end."""
+        Poisson tail, counted in the overflow (of the (start, stop) range
+        ``rows`` of the set only, where given). Invalid and overflowing
+        rows go to a spare last row, cut off at the end."""
         b, w = words.shape
         dev = words.device
         epb = self.hash_epb
@@ -460,13 +566,7 @@ class PauliEngine:
                    + self.hash_extra_bits)
         cols = self._padded_cols(tuple(words[:, i] for i in range(w)))
         bucket = torch.where(valid, self._bucket_hash(cols) & (nb - 1), nb)
-        iota = torch.arange(b, device=dev)
-        sorted_b, sorted_i = torch.sort(bucket, stable=True)
-        run_start = torch.ones(b, dtype=torch.bool, device=dev)
-        run_start[1:] = sorted_b[1:] != sorted_b[:-1]
-        start_idx = torch.cummax(torch.where(run_start, iota, 0), 0).values
-        rank = torch.empty_like(iota)
-        rank[sorted_i] = iota - start_idx
+        rank = keys.rank_in_group(bucket)
         overflow = valid & (rank >= epb)
         ok = valid & ~overflow
         row = torch.where(ok, bucket, nb)
@@ -481,7 +581,8 @@ class PauliEngine:
             valid, log_abs, NEG).view(torch.int32)
         tab[row, lane + (nk + 1) * epb] = phase.to(torch.float32).view(
             torch.int32)
-        overflow_count = torch.sum(overflow).to(torch.int32)
+        counted = overflow if rows is None else overflow[rows[0]:rows[1]]
+        overflow_count = torch.sum(counted).to(torch.int32)
         if not with_fp:
             return tab[:nb].view(torch.float32), nb, overflow_count
         fptab = torch.zeros((nb + 1, epb), dtype=torch.int32, device=dev)
@@ -531,8 +632,9 @@ class PauliEngine:
         shape = (words.shape[0], -1)
         return la.reshape(shape), ph.reshape(shape), found.reshape(shape)
 
-    def _proxy_via_prefilter(self, words, log_abs, phase, valid):
-        """Cheap-first membership (JAX ``pauli.py:907-1084``):
+    def _proxy_via_prefilter(self, rows, whole, start):
+        """Cheap-first membership (JAX ``pauli.py:907-1084``) of the
+        ``rows`` against the ``whole`` set:
 
         1. fingerprint pass over all (B, M) partners (``_fp_candidates``,
            plain torch: XLA in the JAX package, not Pallas);
@@ -550,13 +652,16 @@ class PauliEngine:
 
         Stages 1-3a run in blocks of ``pf_row_chunk`` rows. The dense buffer
         holds min(``prefilter_dense_rows``, B) rows: at most B rows can be
-        over capacity, so the result is JAX's."""
+        over capacity, so the result is JAX's. Sharded, the buffer takes the
+        set's first rows over capacity as one process would, wherever they
+        lie (``_dense_rows``)."""
+        words, log_abs, phase, valid = rows
         b = words.shape[0]
         m = self.n_groups
         dev = words.device
         c_row = min(self.prefilter_row_capacity, m)
-        tab, nb, build_overflow, fptab = self._hash_build(
-            words, log_abs, phase, valid, with_fp=True)
+        tab, nb, build_overflow, fptab = self._build_whole(
+            whole, start, b, with_fp=True)
         keys_m = m - torch.arange(m, dtype=torch.int32, device=dev)
 
         sums, counts = [], []
@@ -577,7 +682,9 @@ class PauliEngine:
 
         # Stage 3b: the rows over capacity, up to the dense buffer's size.
         over = valid & (row_count > c_row)
-        rows_buf, row_ok, safe_rows = self._dense_rows(over)
+        n_all = whole[0].shape[0]
+        before = self._flagged_before(over)
+        rows_buf, row_ok, safe_rows = self._dense_rows(over, n_all, before)
         rw = words[safe_rows]
         la2, ph2, found2 = self._lookup_rows(tab, rw)
         dense = self._combine_rows(self.matrix_elements(rw), la2, ph2,
@@ -593,7 +700,10 @@ class PauliEngine:
         ratio_scale = torch.exp(torch.clamp(
             -torch.where(valid, log_abs, 0.0), -60.0, 60.0))
         a_x = torch.where(valid, torch.exp(log_abs), 0.0)
-        dropped = torch.sum(over) - self.prefilter_dense_rows
+        # This rank's flagged rows beyond the buffer's r places.
+        r_buf = min(self.prefilter_dense_rows, n_all)
+        dropped = torch.clamp(torch.sum(over) - max(r_buf - before, 0),
+                              min=0)
         return LocalEnergies(
             e_re=torch.where(valid, s_re * ratio_scale + self.constant, 0.0),
             e_im=torch.where(valid, s_im * ratio_scale, 0.0),
@@ -601,17 +711,30 @@ class PauliEngine:
             t_re=torch.where(valid, self.constant * a_x + s_re, 0.0),
             t_im=torch.where(valid, s_im, 0.0),
             table_overflow=build_overflow,
-            pf_dropped_rows=torch.clamp(dropped, min=0),
+            pf_dropped_rows=dropped,
         )
 
-    def _dense_rows(self, over):
+    def _flagged_before(self, over) -> int:
+        """How many rows of the ranks before this one are flagged (0
+        unless sharded): where this rank's flagged rows start in the set's
+        order."""
+        if not self.sharded:
+            return 0
+        counts = replicate(torch.sum(over).reshape(1), self.mesh,
+                           self.mesh.size)
+        return int(torch.sum(counts[:self.mesh.rank]))
+
+    def _dense_rows(self, over, n_all=None, before: int = 0):
         """The dense fallback's row buffer: the first r =
-        min(``prefilter_dense_rows``, B) rows flagged ``over``, in order,
-        then filler. Returns (r row indices, B for filler; which are rows;
-        the indices clamped into range)."""
+        min(``prefilter_dense_rows``, ``n_all``, default B) rows of the set
+        flagged ``over``, in order, then filler; ``before`` flagged rows
+        of the set precede these B (``_flagged_before``), so a rank's
+        buffer keeps its own rows among the set's first r. Returns (r row
+        indices, B for filler; which are rows; the indices clamped into
+        range)."""
         b = over.shape[0]
-        r_buf = min(self.prefilter_dense_rows, b)
-        pos = torch.cumsum(over.to(torch.int64), 0) - 1
+        r_buf = min(self.prefilter_dense_rows, b if n_all is None else n_all)
+        pos = torch.cumsum(over.to(torch.int64), 0) - 1 + before
         rows_buf = torch.full((r_buf + 1,), b, dtype=torch.int64,
                               device=over.device)
         rows_buf[torch.where(over & (pos < r_buf), pos, r_buf)] = (
@@ -687,7 +810,8 @@ class PauliEngine:
         """Full local energies (JAX ``pauli.py:1164-1208``): psi evaluated
         through the network at every connected x ^ A_m of every row, in
         chunks of ``amp_chunk`` partners (a row's result does not depend on
-        the chunk it falls in), not only at the sampled ones."""
+        the chunk it falls in), not only at the sampled ones. Sharded, on
+        this rank's rows."""
         b, w = words.shape
         m = self.n_groups
         xp = (words[:, None, :] ^ self.a_words[None, :, :]).reshape(-1, w)
@@ -704,20 +828,22 @@ class PauliEngine:
         dph = self._phase_difference(ph_p, phase)
         e_re = torch.sum(me * ratio * torch.cos(dph), dim=1) + self.constant
         e_im = torch.sum(me * ratio * torch.sin(dph), dim=1)
-        return LocalEnergies(
+        return self._reduced(LocalEnergies(
             e_re=torch.where(valid, e_re, 0.0),
             e_im=torch.where(valid, e_im, 0.0),
             found_pairs=torch.tensor(b * m, device=words.device),
-        )
+        ))
 
 
-def mc_estimate(values_re, values_im, weights) -> Tuple:
+def mc_estimate(values_re, values_im, weights, mesh=None) -> Tuple:
     """Weighted Monte-Carlo mean and variance (JAX ``pauli.py:1211-1219``;
     reference MonteCarloEstimator, compute_local_energies.py:47-62).
-    ``weights`` must sum to 1 over valid rows (invalid rows weight 0)."""
-    mean_re = torch.sum(weights * values_re)
-    mean_im = torch.sum(weights * values_im)
-    var = torch.sum(
-        weights * ((values_re - mean_re) ** 2 + (values_im - mean_im) ** 2)
-    )
-    return mean_re, mean_im, var
+    ``weights`` must sum to 1 over valid rows (invalid rows weight 0).
+    Under a ``mesh`` the rows are this rank's and the sums are all-reduced
+    (never the ranks' means)."""
+    mean = all_reduce(torch.stack([torch.sum(weights * values_re),
+                                   torch.sum(weights * values_im)]), mesh)
+    var = all_reduce(torch.sum(
+        weights * ((values_re - mean[0]) ** 2 + (values_im - mean[1]) ** 2)
+    ), mesh)
+    return mean[0], mean[1], var

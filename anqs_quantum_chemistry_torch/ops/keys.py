@@ -79,3 +79,19 @@ def searchsorted_words(sorted_words, queries):
     at = sorted_words[lo.clamp(0, b - 1)]
     found = (lo < b) & lex_eq(at, queries)
     return lo, found
+
+
+def rank_in_group(group):
+    """Stable 0-based rank of each element among the elements of equal
+    ``group`` value, in index order (JAX ``parallel/dist_membership.py``
+    ``_rank_in_group``): a stable sort by group, then position less the
+    start of its run."""
+    n = group.shape[0]
+    iota = torch.arange(n, device=group.device)
+    sorted_g, sorted_i = torch.sort(group, stable=True)
+    run_start = torch.ones(n, dtype=torch.bool, device=group.device)
+    run_start[1:] = sorted_g[1:] != sorted_g[:-1]
+    start = torch.cummax(torch.where(run_start, iota, 0), 0).values
+    rank = torch.empty_like(iota)
+    rank[sorted_i] = iota - start
+    return rank

@@ -21,6 +21,15 @@ transition/mask tables, so every emitted determinant is physical.
   is ``torch.binomial`` with the caller's generator, or a given
   ``draw(counts, p)`` (the tests' deterministic split).
 
+With a data-parallel ``mesh`` (``parallel/mesh.py``), ``gumbel_top_k_sample``
+shards the full-capacity frontier (JAX ``sampler.py:152-214``): from the
+saturation step on, each rank runs the network on its row block of the
+frontier, with its rows of the step's (K, D) uniforms, drawn whole from the
+generator that every rank seeds alike (so the stream is the single-process
+one); the children's log-probabilities and Gumbels are all-gathered, the
+top-K, the expansion and the memo run replicated, and the frontier stays
+whole on every rank. Multinomial sampling runs replicated, as in JAX.
+
 Both select each step's survivors with ``topk_impl``: 'lax' (``torch.topk``
 on the Gumbel keys, a stable sort on the counts) or 'bisect'
 (``ops.topk.exact_top_k``, ``jax.lax.top_k``'s order, -0.0 below 0.0,
@@ -38,6 +47,7 @@ import torch
 from ..models.anqs import ANQS, NEG
 from ..ops import bits as bitops
 from ..ops.topk import exact_top_k
+from ..parallel.mesh import replicate, shard_rows
 
 TOPK_IMPLS = ("lax", "bisect")
 
@@ -155,8 +165,10 @@ def gumbel_top_k_sample(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
     topk_impl: str = "lax",
+    mesh=None,
 ) -> GumbelSample:
-    """Exactly the ``sample_num`` distinct most-probable-by-Gumbel states."""
+    """Exactly the ``sample_num`` distinct most-probable-by-Gumbel states;
+    ``mesh``: shard the full-capacity frontier (module docstring)."""
     k_cap = sample_num
     d = anqs.max_dim
     device = anqs.trans_tables.device
@@ -182,13 +194,20 @@ def gumbel_top_k_sample(
         if tuple(u.shape) != shapes[q]:
             raise ValueError(f"step {q}: uniforms {tuple(u.shape)}, "
                              f"expected {shapes[q]}")
-        alive = logp > 0.5 * NEG
+        rows = (words, memo, logp, gumbel, u)
+        if q >= q_sat:
+            rows = shard_rows(rows, mesh)
+        b_words, b_memo, b_logp, b_gumbel, b_u = rows
         cond = anqs.cond_for_qudit_dyn(
-            words, q, anqs.mask_tables[q][memo], alive=alive
+            b_words, q, anqs.mask_tables[q][b_memo],
+            alive=b_logp > 0.5 * NEG,
         )
-        child_logp = torch.clamp(logp[:, None] + 2.0 * cond, min=NEG)
-        child_gumbel = _gumbels_given_max(u, child_logp, gumbel)
+        child_logp = torch.clamp(b_logp[:, None] + 2.0 * cond, min=NEG)
+        child_gumbel = _gumbels_given_max(b_u, child_logp, b_gumbel)
         child_gumbel = torch.where(child_logp > 0.5 * NEG, child_gumbel, NEG)
+        if q >= q_sat:
+            child_logp, child_gumbel = replicate((child_logp, child_gumbel),
+                                                 mesh, k_cap)
 
         top_g, top_idx = _select_top_k(child_gumbel.reshape(-1), k_out,
                                        topk_impl)
@@ -346,7 +365,8 @@ class SamplingConfig:
 def sample(anqs: ANQS, config: SamplingConfig,
            generator: Optional[torch.Generator] = None,
            uniforms: Optional[Sequence[torch.Tensor]] = None,
-           budget: Optional[int] = None, draw: Optional[Callable] = None):
+           budget: Optional[int] = None, draw: Optional[Callable] = None,
+           mesh=None):
     """Unified entry: returns (words, weights, valid, stats dict).
 
     ``weights`` are normalized frequencies: the theoretical |psi|^2
@@ -354,10 +374,11 @@ def sample(anqs: ANQS, config: SamplingConfig,
     counts / total in multinomial mode. ``budget`` overrides the
     multinomial budget (the trainer's adaptive ``sample_precisely``);
     ``uniforms`` (Gumbel) and ``draw`` (multinomial) replace the
-    generator's draws."""
+    generator's draws. ``mesh`` shards the Gumbel frontier (module
+    docstring); the returned set is whole on every rank."""
     if config.mode == "gumbel":
         out = gumbel_top_k_sample(anqs, config.sample_num, generator,
-                                  uniforms, config.topk_impl)
+                                  uniforms, config.topk_impl, mesh)
         weights = torch.where(out.valid, torch.exp(out.log_probs), 0.0)
         stats = {"unique_num": torch.sum(out.valid), "dropped": 0}
         return out.words, weights, out.valid, stats

@@ -302,6 +302,30 @@ path's launches counted from 0 (paths ``spin_dm6``, ``spin_xxz8``,
   above the free-fermion E0 = -58.5609429 less 1e-4 of |E0|; kernel #1 on
   the set bit for bit against its plain version, timed.
 
+Then the data-parallel path (``mesh``; ``experiments/dryrun_multichip.py``'s
+legs, each rank a spawned process of a ``torch.distributed`` group, the
+kernels built by this script before the spawn): NCCL at 1 rank, then gloo
+at 4 ranks sharing the card and, in the same spawn, at 2 (a sub-group of
+its first two ranks; gloo's collectives stage the card's tensors through
+the host; NCCL takes one rank a card):
+
+- ``li2o``: the Li2O toy model's state at seed 0 (8192 Gumbel samples of
+  MADE 512), its local energies under 'hash_dist' (each rank's bucket
+  shard answered by kernel #2, kernel #1 on its rows) gathered, equal bit
+  for bit to one process's 'hash';
+- ``n2``: the N2 flagship (``main_path_vmc``) one step on the mesh against
+  one process, every metric within 1e-4 + 3e-4 |a|, then 3 steps more;
+- at 2 ranks ``n2_run`` (N2 through ``run()``, 6 steps in windows of 3,
+  the full energy and a checkpoint every 3; rank 0's ``result.csv``
+  against one process's rows, every column within 1e-5 + 1e-4 |a|), and
+  at 2 and 4 ranks ``li2o_tight`` (Li2O's
+  membership with both routing slacks at 1.0: overflow reported, no false
+  hit, equal values where found).
+
+Every rank reports its launches of kernels #1, #2 and the tag build in each
+leg (each nonzero where the leg runs the kernel) and its ms a step; the
+ranks share one card, so those times are no scaling figure.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -456,6 +480,20 @@ CR2_CHECK_ROWS = 128  # kernel #1 against its plain version
 CR2_LOOKUP_ROWS = 32  # rows of the set whose partners query kernel #2
 CR2_STEPS = 3
 CR2_SEED = 0  # numpy seed of the random key tables
+# The data-parallel phase: (backend, plan) of each spawn, a plan's entries
+# (ranks, legs) run in turn on the spawn's first ranks.
+MESH_RUNS = (
+    ("nccl", ((1, ("li2o", "n2")),)),
+    ("gloo", ((4, ("li2o", "n2", "li2o_tight")),
+              (2, ("li2o", "n2", "n2_run", "li2o_tight")))),
+)
+# Kernels each leg must launch on every rank.
+MESH_KERNELS = {
+    "li2o": ("fused_matrix_elements", "hash_lookup", "hash_tags"),
+    "n2": ("fused_matrix_elements",),
+    "n2_run": ("fused_matrix_elements",),
+    "li2o_tight": ("hash_lookup", "hash_tags"),
+}
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -3486,6 +3524,60 @@ def cr2_phase(torch):
     return launches, figures
 
 
+def mesh_phase(torch):
+    """The data-parallel legs of ``MESH_RUNS``; returns (launches by path,
+    figures)."""
+    from anqs_quantum_chemistry_torch.experiments import dryrun_multichip
+
+    t0 = time.perf_counter()
+    by_path, figures = {}, {}
+    for backend, plan in MESH_RUNS:
+        t = time.perf_counter()
+        try:
+            spawned = dryrun_multichip.launch(plan, backend, "cuda", "full")
+        except Exception as exc:  # a rank failed: its traceback says why
+            raise SmokeFailure(f"mesh {backend} {plan}: {exc}")
+        log(f"mesh: {backend}, {len(spawned)} rank(s) spawned: "
+            f"{time.perf_counter() - t:.1f} s")
+        for n_ranks, legs in plan:
+            mesh_figures(f"mesh_{backend}{n_ranks}", legs,
+                         [rep[n_ranks] for rep in spawned[:n_ranks]],
+                         by_path, figures)
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"mesh phase: {figures['phase_s']:.1f} s")
+    return by_path, figures
+
+
+def mesh_figures(tag, legs, reports, by_path, figures):
+    """Log and check each leg's reports of a mesh (one a rank); add its
+    launches summed over the ranks to ``by_path`` and its times to
+    ``figures``."""
+    for leg in legs:
+        for rank, rep in enumerate(reports):
+            r = rep[leg]
+            extra = {k: v for k, v in r.items()
+                     if k not in ("launches", "ms", "leg_s",
+                                  "later_energies", "energies")}
+            log(f"  {leg} rank {rank}: {r['ms']:.2f} ms a step, "
+                f"leg {r['leg_s']:.1f} s, launches {r['launches']}, "
+                f"{extra}")
+            for kernel in MESH_KERNELS[leg]:
+                check(r["launches"][kernel] > 0,
+                      f"{tag} {leg} rank {rank}: {kernel} not launched")
+        by_path[f"{tag}_{leg}"] = {
+            k: sum(rep[leg]["launches"][k] for rep in reports)
+            for k in reports[0][leg]["launches"]}
+        figures[f"{tag}_{leg}_ms"] = [rep[leg]["ms"] for rep in reports]
+        figures[f"{tag}_{leg}_s"] = reports[0][leg]["leg_s"]
+        for one in ("solo_ms", "hash_ms"):  # the same work, one process
+            if one in reports[0][leg]:
+                figures[f"{tag}_{leg}_{one}"] = [
+                    rep[leg][one] for rep in reports]
+        if "max_diff" in reports[0][leg]:
+            figures[f"{tag}_{leg}_max_diff"] = reports[0][leg][
+                "max_diff"]
+
+
 def main():
     import argparse
 
@@ -3588,6 +3680,7 @@ def main():
     cr2_launches, cr2_figures = cr2_phase(torch)
     options_launches, options_step_s = options_phase(torch, mol)
     spin_launches, spin_figures = spin_phase(torch)
+    mesh_launches, mesh_figures = mesh_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -3602,7 +3695,8 @@ def main():
                "li2o_support_ci": sci_launches,
                "c2h4_cisd_sci": c2h4_sci_launches,
                "n2_dissociation": chem_launches,
-               "cr2": cr2_launches, **options_launches, **spin_launches}
+               "cr2": cr2_launches, **options_launches, **spin_launches,
+               **mesh_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -3653,6 +3747,7 @@ def main():
     me_entry["options_step_s"] = options_step_s
     me_entry["by_molecule"]["dm40"] = spin_figures.pop("kernel1_dm40")
     me_entry["spin"] = spin_figures
+    me_entry["mesh"] = mesh_figures
     me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
                                   me_entry["by_molecule"]["cr2"][
                                       "max_abs_err"])

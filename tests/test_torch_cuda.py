@@ -508,3 +508,18 @@ def test_exact_top_k_matches_ordered_top_k_on_card(cuda, case):
     v, i = exact_top_k(x, k)
     sv, si = _top_k(x, k)
     assert torch.equal(i, si) and torch.equal(v, sv)
+
+
+@pytest.mark.cuda
+def test_hash_dist_one_nccl_rank_matches_hash_on_card(cuda):
+    """'hash_dist' on a one-rank NCCL mesh (a spawned rank, the dry run's
+    ``li2o`` leg): the Li2O toy model's local energies equal one process's
+    'hash' bit for bit, kernel #2 answering on the rank's one shard."""
+    from anqs_quantum_chemistry_torch.experiments.dryrun_multichip import (
+        launch,
+    )
+
+    (report,) = launch(((1, ("li2o",)),), "nccl", "cuda")
+    launches = report[1]["li2o"]["launches"]
+    assert launches["hash_lookup"] >= 1 and launches["hash_tags"] >= 1
+    assert launches["fused_matrix_elements"] == 1

@@ -141,8 +141,9 @@ def test_run_interleaves_cycles_under_jax_header(tmp_path):
 def test_engine_overrides():
     """The overrides reach the engine (the Li2O campaign's prefilter
     capacities, and the escalation doubles them); a ``membership`` key
-    turns sector membership off; ``me_chunk`` and ``hash_epb`` reach the
-    engine; keys the port's engine lacks, a
+    turns sector membership off; ``me_chunk``, ``hash_epb`` and the
+    'hash_dist' routing slacks reach the engine; keys the port's engine
+    lacks (``mesh`` is the trainer's own argument), a
     contradicting ``membership`` / ``weights_matmul`` and an unknown
     distillation loss raise."""
     vmc = li2o_nade_vmc(device="cpu", engine_overrides={
@@ -171,8 +172,11 @@ def test_engine_overrides():
         "membership": "hash", "me_chunk": 64, "hash_epb": 16}, **H2_CFG),
         cfg, device="cpu").engine
     assert (eng.me_chunk, eng.hash_epb) == (64, 16)
-    for bad in ({"dist_entry_slack": 4.0}, {"lookup_kernel": "pallas"},
-                {"mesh": None}):
+    eng = VMC(mol, VMCConfig(engine_overrides={
+        "membership": "hash_dist", "dist_entry_slack": 2.0,
+        "dist_query_slack": 3.0}, **H2_CFG), cfg, device="cpu").engine
+    assert (eng.dist_entry_slack, eng.dist_query_slack) == (2.0, 3.0)
+    for bad in ({"lookup_kernel": "pallas"}, {"mesh": None}):
         with pytest.raises(ValueError, match=next(iter(bad))):
             VMC(mol, VMCConfig(engine_overrides=bad, **H2_CFG), cfg,
                 device="cpu")

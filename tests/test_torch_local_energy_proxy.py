@@ -169,16 +169,16 @@ def _one_term_ham(qubit_num):
 
 
 def test_unported_memberships_raise():
-    """The JAX membership the port still lacks, 'hash_dist', raises
-    ``NotImplementedError`` when named; 'hash' and 'prefilter' above 128
-    qubits (JAX's assertion) and names of neither package raise
+    """Every membership of the JAX engine is ported: 'hash_dist' builds
+    (one shard without a mesh); 'hash', 'prefilter' and 'hash_dist' above
+    128 qubits (JAX's assertion) and names of neither package raise
     ``ValueError``. 'auto' resolves as JAX's does: Li2O (30 qubits) and W
     3-4 to 'prefilter', W > 4 to 'search', and each of those runs
     ``local_energy_proxy``."""
     mol = load_li2o()  # 30 qubits: the JAX engine's 'auto' -> 'prefilter'
     assert PauliEngine(mol.qubit_ham, device="cpu").membership == "prefilter"
-    with pytest.raises(NotImplementedError, match="hash_dist"):
-        PauliEngine(mol.qubit_ham, device="cpu", membership="hash_dist")
+    eng = PauliEngine(mol.qubit_ham, device="cpu", membership="hash_dist")
+    assert eng.membership == "hash_dist" and eng.mesh is None
     with pytest.raises(ValueError):
         PauliEngine(mol.qubit_ham, device="cpu", membership="table")
     with pytest.raises(ValueError):
@@ -186,7 +186,7 @@ def test_unported_memberships_raise():
     for n, resolved in ((70, "prefilter"), (130, "search")):
         ham = _one_term_ham(n)
         if n > 128:
-            for membership in ("hash", "prefilter"):
+            for membership in ("hash", "prefilter", "hash_dist"):
                 with pytest.raises(ValueError, match="128 qubits"):
                     PauliEngine(ham, device="cpu", membership=membership)
         eng = PauliEngine(ham, device="cpu")

@@ -287,15 +287,15 @@ def test_it_targets_match_jax():
 
 
 def test_unported_paths_raise():
-    """What the port does not have yet raises ``NotImplementedError``: the
-    'hash_dist' membership ('search' is ported: it builds). The NADE
-    ansatz is ported (it builds); a net type of neither package raises
+    """Every membership of the JAX engine is ported: 'search' and
+    'hash_dist' (one shard without a mesh) build. The NADE ansatz is
+    ported (it builds); a net type of neither package raises
     ``ValueError``."""
     _, mol = molecules("LiH")
     anqs = AnqsConfig(hidden_widths=(8,))
-    with pytest.raises(NotImplementedError, match="hash_dist"):
-        VMC(mol, VMCConfig(**CFG, membership="hash_dist"), anqs,
+    v = VMC(mol, VMCConfig(**CFG, membership="hash_dist"), anqs,
             device="cpu")
+    assert v.engine.membership == "hash_dist" and v.engine.mesh is None
     VMC(mol, VMCConfig(**CFG, membership="search"), anqs, device="cpu")
     VMC(mol, VMCConfig(**CFG), AnqsConfig(net_type="nade"), device="cpu")
     with pytest.raises(ValueError, match="net_type"):

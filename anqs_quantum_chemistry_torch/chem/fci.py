@@ -41,7 +41,7 @@ _U = np.uint64
 
 # The largest (N_alpha, N_beta) sector this module builds and diagonalises:
 # 2^16 determinants, the JAX ``VMCConfig.sector_membership_max_dets``
-# default, which the VMC trainer's sector membership shares.
+# default (the trainer's own limit is that ``VMCConfig`` field).
 SECTOR_MAX_DETS = 1 << 16
 
 

@@ -29,6 +29,13 @@ the step's own local energies define). ``init_state()`` and
 ``_multi_step_ensemble(n_steps, n_rep)`` advance replicas seeded ``seed +
 r``, each as a run of its own would.
 
+The measurement surface that JAX's benchmark and profiling tools call:
+``_multi_step(n_steps)`` (a window of steps returning stacked metrics),
+``step_cost_analysis()`` (the counted flops, transcendentals and bytes of
+one step, ``utils/cost.py``) and ``profile_stages(reps)`` (ms of each stage
+of a step, each alone). ``VMCConfig.sector_membership`` switches the
+sector path 'auto', 'on' or 'off', with JAX's limits.
+
 Data parallel (``VMC(..., mesh=...)``, JAX ``vmc.py:203-248,971-975``): one
 process a rank of a ``parallel.mesh.Mesh``, every rank running the same
 program. The support is sampled (the Gumbel frontier sharded over the
@@ -56,7 +63,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..chem.fci import SECTOR_MAX_DETS, sector_determinants
+from ..chem.fci import sector_determinants
 from ..chem.jw import permute_det, permute_qubits_hamiltonian
 from ..chem.molecule import Molecule
 from ..models.anqs import ANQS, AnqsConfig
@@ -71,13 +78,14 @@ from ..parallel.mesh import (all_gather_rows, all_reduce, replicate,
                              shard_rows)
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
+from ..utils import cost
 from ..utils.config import Config, Schedule
 from .preparation import create_masker
 
-# Sector membership is built up to these sizes (the JAX ``VMCConfig``
-# defaults): sector determinants (``SECTOR_MAX_DETS``, shared with
-# ``chem/fci.py``), and determinants x groups of the partner tables.
-SECTOR_MAX_ENTRIES = 48_000_000
+# ``VMCConfig.sector_membership``'s values (JAX ``vmc.py:425-443``), and
+# the largest sector that 'on' builds tables for (JAX asserts it).
+SECTOR_MODES = ("auto", "on", "off", True, False)
+SECTOR_ON_MAX_DETS = 1 << 20
 # Exact summation enumerates at most this many determinants (JAX
 # ``vmc.py:326``).
 EXACT_MAX_DETS = 1 << 20
@@ -140,6 +148,20 @@ class VMCConfig(Config):
     # fixed), so a step needs no sort and no membership search (off when a
     # coupling below augments the set).
     exact_static_membership: bool = True
+    # Sampled-mode sector membership ('auto' | 'on' | 'off', or True /
+    # False; JAX ``vmc.py:116-126``): partner sector indices of every
+    # (sector det, group) pair built at set-up, so that a step's membership
+    # is a lookup of each sample in the (N_alpha, N_beta) sector. 'auto'
+    # builds them where the sector holds at most
+    # ``sector_membership_max_dets`` determinants and the tables at most
+    # ``sector_membership_max_entries`` (dets x groups) entries, unless a
+    # dynamic membership is named (``membership`` or ``engine_overrides``)
+    # or the ansatz can sample outside the sector; 'on' always builds them
+    # (``ValueError`` above ``SECTOR_ON_MAX_DETS`` determinants or with an
+    # ansatz that leaves the sector); 'off' never. Never above 64 qubits.
+    sector_membership: str = "auto"
+    sector_membership_max_dets: int = 1 << 16
+    sector_membership_max_entries: int = 48_000_000
     # Couplings: determinants added to every step's set with zero sample
     # weight (Born weights supply |psi|^2), before the canonical sort, with
     # duplicates dropped after it (JAX ``vmc.py:901-971``): the
@@ -173,11 +195,10 @@ class VMCConfig(Config):
     save_best_model: bool = False
     extra_best_dirs: Tuple[str, ...] = ()
     # The engine's dynamic membership ('auto' | 'table' | 'hash' |
-    # 'prefilter' | 'search' | 'hash_dist'). With
-    # 'auto' the step uses the precomputed partner connectivity of the
-    # (N_alpha, N_beta) sector where it fits the limits above; otherwise
-    # (and with any named membership) it sorts the sample set and the
-    # engine resolves partners from the set itself.
+    # 'prefilter' | 'search' | 'hash_dist'). Where sector membership is
+    # off (``sector_membership``; a named membership turns its 'auto' off)
+    # the step sorts the sample set and the engine resolves partners from
+    # the set itself.
     membership: str = "auto"
     # The engine's group order ('auto' | 'split' | 'grouped'; the JAX
     # engine's ``weights_matmul``).
@@ -185,8 +206,8 @@ class VMCConfig(Config):
     # Extra ``PauliEngine`` keywords (JAX's field): any of
     # ``ENGINE_OVERRIDE_KEYS`` (another key raises); a ``membership`` or
     # ``weights_matmul`` here must agree with the field of that name unless
-    # the field is 'auto', and a ``membership`` key turns sector membership
-    # off (JAX ``vmc.py:436``). The overflow policy escalates from these
+    # the field is 'auto', and a ``membership`` key turns 'auto' sector
+    # membership off (JAX ``vmc.py:436``). The overflow policy escalates from these
     # capacities.
     engine_overrides: Optional[dict] = None
     # Membership overflow (table_overflow + pf_dropped_rows above the
@@ -387,6 +408,10 @@ class VMC:
             raise ValueError(f"overflow_policy="
                              f"{self.config.overflow_policy!r}: expected one "
                              f"of {OVERFLOW_POLICIES}")
+        if self.config.sector_membership not in SECTOR_MODES:
+            raise ValueError(f"sector_membership="
+                             f"{self.config.sector_membership!r}: expected "
+                             f"one of {SECTOR_MODES}")
         if self.config.distill_loss not in DISTILL_LOSSES:
             raise ValueError(f"distill_loss={self.config.distill_loss!r}: "
                              f"expected one of {DISTILL_LOSSES}")
@@ -546,19 +571,34 @@ class VMC:
         return tuple(torch.cat(p) for p in zip(*parts))
 
     def _want_sector_membership(self, mol) -> bool:
-        """JAX ``vmc.py:425-443`` in its 'auto' mode, whatever the engine's
-        dynamic membership resolved to; off where the ansatz samples some
-        qudit unmasked (``masking_depth``, 'unmasked'), since its samples
-        can then leave the sector, which has no row for them (JAX keeps it
-        on there and loses every pair of such a sample, its diagonal
-        included: ROADMAP section 3)."""
-        if (self.config.membership != "auto"
-                or "membership" in (self.config.engine_overrides or {})
-                or self.ham.qubit_num > 64 or self.anqs.leaves_sector):
-            return False  # a named dynamic membership is used as named
+        """``config.sector_membership`` as JAX ``vmc.py:425-443`` reads it,
+        with one guard more: where the ansatz samples some qudit unmasked
+        (``masking_depth``, 'unmasked'), its samples can leave the sector,
+        which has no row for them, so 'auto' is off there and 'on' raises
+        ``ValueError`` (JAX keeps the sector path and loses every pair of
+        such a sample, its diagonal included: ROADMAP section 3). 'on'
+        also raises above ``SECTOR_ON_MAX_DETS`` determinants."""
+        cfg = self.config
+        mode = cfg.sector_membership
+        if mode in ("off", False) or self.ham.qubit_num > 64:
+            return False
         ndet = int(mol.fci_ndet)
-        return (ndet <= SECTOR_MAX_DETS
-                and ndet * self.ham.n_groups <= SECTOR_MAX_ENTRIES)
+        if mode in ("on", True):
+            if self.anqs.leaves_sector:
+                raise ValueError(
+                    "sector_membership='on' with an ansatz that samples "
+                    "outside the sector (masking_depth or 'unmasked')")
+            if ndet > SECTOR_ON_MAX_DETS:
+                raise ValueError(f"sector too large for sector membership "
+                                 f"({ndet} > {SECTOR_ON_MAX_DETS})")
+            return True
+        if (cfg.membership != "auto"
+                or "membership" in (cfg.engine_overrides or {})
+                or self.anqs.leaves_sector):
+            return False  # a named dynamic membership is used as named
+        return (ndet <= cfg.sector_membership_max_dets
+                and ndet * self.ham.n_groups
+                <= cfg.sector_membership_max_entries)
 
     def _enumerate_sector(self, mol, n, perm=None):
         """Sorted sector (uint64 dets) in the qubit order of ``perm``,
@@ -676,6 +716,24 @@ class VMC:
             torch.save({k: v.cpu() for k, v in fresh.items()}, path)
         self._barrier()
 
+    def _multi_step(self, n_steps: int, overrides: Optional[dict] = None):
+        """A callable that advances a ``TrainState`` by ``n_steps`` steps
+        under the schedule ``overrides`` and returns (state, metrics),
+        every metric an (n_steps,) float64 array (JAX ``vmc.py:643-684``:
+        its names, stacked over the window). The steps are ``step`` calls,
+        so a window equals that many ``step`` calls bit for bit, each
+        reading its metrics back."""
+        if n_steps < 1:
+            raise ValueError(f"n_steps={n_steps}: expected >= 1")
+
+        def run(state: TrainState):
+            rows = [self.step(state, overrides=overrides)
+                    for _ in range(n_steps)]
+            return state, {k: np.array([row[k] for row in rows])
+                           for k in rows[0]}
+
+        return run
+
     # ------------------------------------------------------------------
     # Replica ensembles (JAX ``vmc.py:681-743``)
     # ------------------------------------------------------------------
@@ -702,33 +760,30 @@ class VMC:
         (n_rep, n_steps) float64 array (JAX's name and layout). Each
         replica steps as a standalone trainer of its seed would: its
         parameters are loaded into the ansatz, its optimizer and generator
-        drive ``step``, and the updated parameters go back into the stack.
+        drive ``_multi_step``, and the updated parameters go back into the
+        stack.
         The kernels are called through ``ctypes`` and cannot be vmapped,
         so the replicas take their steps in turn. The ansatz keeps its own
         parameters."""
-        if n_steps < 1:
-            raise ValueError(f"n_steps={n_steps}: expected >= 1")
+        window = self._multi_step(n_steps, overrides)
 
         def call(state: EnsembleState):
             if len(state.opts) != n_rep:
                 raise ValueError(f"ensemble of {len(state.opts)} replicas, "
                                  f"expected {n_rep}")
-            rows = []
+            reps = []
             with preserved_parameters(self.anqs) as params:
                 for r in range(n_rep):
                     with torch.no_grad():
                         for n, p in params.items():
                             p.copy_(state.params[n][r])
-                    solo = TrainState(opt=state.opts[r],
-                                      generator=state.generators[r])
-                    rows.append([self.step(solo, overrides=overrides)
-                                 for _ in range(n_steps)])
+                    reps.append(window(TrainState(
+                        opt=state.opts[r], generator=state.generators[r]))[1])
                     with torch.no_grad():
                         for n, p in params.items():
                             state.params[n][r].copy_(p)
-            metrics = {k: np.array([[row[k] for row in rep] for rep in rows])
-                       for k in rows[0][0]}
-            return state, metrics
+            return state, {k: np.stack([m[k] for m in reps])
+                           for k in reps[0]}
 
         return call
 
@@ -1034,6 +1089,128 @@ class VMC:
         return dict(zip(names, values))
 
     # ------------------------------------------------------------------
+    # The measurement surface (JAX ``vmc.py:610-641,1255-1393``)
+    # ------------------------------------------------------------------
+    def step_cost_analysis(self, overrides: Optional[dict] = None) -> dict:
+        """The work of one training step under the schedule
+        ``overrides``, counted op by op (``utils/cost.py``: XLA's
+        conventions; the kernels by their own counts, alike on the card
+        and the CPU).
+
+        JAX compiles its step without running it and reads XLA's counts of
+        the compiled program; this runs one step under a
+        ``cost.WorkCounter`` and counts the work the port's step executes,
+        as XLA's counts JAX's compiled step. Whether a benchmark divides by
+        it, or by a count of the algorithm's own work, is the benchmark's
+        decision: MinSR's Jacobians, filed under 'minsr_jacobians/', take k
+        times the backward work of JAX's per-row form (``optim/sr.py``).
+        The step runs on a fresh optimizer and a generator seeded
+        ``config.seed``, as ``init_state`` makes them but at the ansatz's
+        current weights; the weights, the multinomial budget and the
+        engine (its overflow escalations) are restored after it, so the
+        caller's training does not advance.
+
+        Returns {'flops', 'transcendentals', 'bytes accessed'} (JAX's key
+        names), 'by_source' ({source: counts}, the most flops first: aten
+        ops by name, the kernels as 'fused_matrix_elements', 'hash_tags'
+        and 'hash_lookup') and 'device'."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.seed)
+        counter = cost.WorkCounter()
+        saved = (self._mult_budget, self.engine, self._overflow_escalations)
+        with preserved_parameters(self.anqs):
+            try:
+                with counter:
+                    self.step(TrainState(opt=self._make_opt(), generator=gen),
+                              overrides=overrides)
+            finally:
+                (self._mult_budget, self.engine,
+                 self._overflow_escalations) = saved
+        return {**counter.totals(), "by_source": counter.by_source(),
+                "device": str(self.device)}
+
+    def profile_stages(self, reps: int = 10) -> dict:
+        """Milliseconds of each stage of a training step, each stage run
+        alone (JAX ``vmc.py:1255-1393``: its stages, keys and branches):
+        ``sample_ms`` (not in exact mode), ``sort_ms``, ``log_psi_ms``,
+        ``matrix_elements_ms``, ``local_energy_ms`` (by the static, sector
+        or proxy path, as the step takes it), ``grad_ms`` (log psi forward
+        and backward under the Born weights) and, with ``sr``, ``sr_ms``;
+        and ``device``. JAX's protocol: a warm-up call, then ``reps``
+        calls, call i on the batch rolled by i + 1 where the stage takes
+        one; the mean of the ``reps``, timed with CUDA events on a CUDA
+        device and with the host clock on the CPU. The batch is the
+        exact sector, or one canonically sorted sample of the current
+        weights drawn from a generator seeded ``seed + 1`` (JAX draws it
+        from ``PRNGKey(1)`` at fresh weights). Nothing of the trainer
+        changes. Raises ``ValueError`` under a mesh of several ranks (a
+        stage runs on one process's rows)."""
+        if self._sharded:
+            raise ValueError("profile_stages times one process's stages: "
+                             "not under a mesh of several ranks")
+        anqs, engine, cfg = self.anqs, self.engine, self.config
+        samp = self.sampling_config
+        timed = _stage_timer(self.device, reps)
+        res = {}
+        with torch.no_grad():
+            if samp.mode == "exact":
+                sw, sv = self.exact_words, self.exact_valid
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    cfg.seed + 1)
+                budget = (self._mult_budget
+                          or int(cfg.multinomial_budget or cfg.sample_num)
+                          if samp.mode == "multinomial" else None)
+
+                def draw(i=0):
+                    return sample(anqs, samp, gen, budget=budget)
+
+                res["sample_ms"] = timed(draw)
+                words, _, valid, _ = draw()
+                words = torch.where(valid[:, None], words, bitops.MASK32)
+                sw, _, sv = keys.sort_words(words, valid)
+            la, ph = anqs.log_psi(sw)
+
+            def rolled(i):
+                return torch.roll(sw, i + 1, 0)
+
+            res["sort_ms"] = timed(lambda i: keys.sort_words(rolled(i), sv))
+            res["log_psi_ms"] = timed(lambda i: anqs.log_psi(rolled(i)))
+            res["matrix_elements_ms"] = timed(
+                lambda i: engine.matrix_elements(rolled(i)))
+            if self.exact_partner_idx is not None:
+                def eloc(i):
+                    return engine.local_energy_static(
+                        sw, la, ph, sv, self.exact_partner_idx,
+                        self.exact_partner_found)
+            elif self.sector_words is not None:
+                def eloc(i):
+                    return engine.local_energy_sector(
+                        sw, la, ph, sv, self.sector_words,
+                        self.sector_partner_idx, self.sector_partner_found,
+                        sector_pos=self.sector_pos)
+            else:
+                def eloc(i):
+                    return engine.local_energy_proxy(sw, la, ph, sv)
+            res["local_energy_ms"] = timed(eloc)
+            freqs = torch.where(sv, torch.exp(2.0 * la), 0.0)
+            freqs = freqs / torch.clamp(torch.sum(freqs), min=1e-30)
+        params = dict(anqs.named_parameters())
+
+        def grad(i):
+            la2, ph2 = anqs.log_psi(sw)
+            return _grad(torch.sum(freqs * (la2 + ph2)), list(params.values()))
+
+        res["grad_ms"] = timed(grad)
+        if cfg.sr is not None:
+            g0 = dict(zip(params, _grad(torch.sum(freqs * anqs.log_psi(sw)[0]),
+                                        list(params.values()))))
+            res["sr_ms"] = timed(lambda i: sr_transform(
+                anqs, params, g0, sw, freqs, cfg.sr))
+        res["device"] = str(self.device)
+        return res
+
+    # ------------------------------------------------------------------
     # Distillation-interleaved VMC (JAX ``vmc.py:1123-1230``)
     # ------------------------------------------------------------------
     def make_distill_opt(self) -> FlatAdam:
@@ -1313,6 +1490,32 @@ def _grad(loss, params):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(params, grads)]
+
+
+def _stage_timer(device, reps: int):
+    """``timed(fn)``: ``fn(0)`` once, then the mean ms of ``fn(i)`` for i
+    in range(``reps``) -- by CUDA events on a CUDA device, by the host
+    clock on the CPU."""
+    if reps < 1:
+        raise ValueError(f"reps={reps}: expected >= 1")
+
+    def timed(fn) -> float:
+        fn(0)
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(reps):
+                fn(i)
+            stop.record()
+            stop.synchronize()
+            return start.elapsed_time(stop) / reps
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    return timed
 
 
 def _layout(state_dict) -> dict:

@@ -316,6 +316,13 @@ class ANQS(nn.Module):
 
     forward = log_psi
 
+    def amplitude(self, words) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Complex amplitudes of ``words`` as a (re, im) pair of float32
+        tensors (JAX ``models/anqs.py:341-345``)."""
+        la, ph = self.log_psi(words)
+        mag = torch.exp(la)
+        return mag * torch.cos(ph), mag * torch.sin(ph)
+
     def main_log_abs_raw(self, words):
         """Raw (B, Q, D) conditional log-abs of the main net, soft-capped
         by ``logit_cap``, before masking and normalization (the sampler
@@ -343,6 +350,12 @@ class ANQS(nn.Module):
         if self.aux is None:
             return self.main(x)[..., 1]
         return math.pi * self.aux(x)[..., 0]
+
+    def cond_for_qudit(self, words, q: int, mask):
+        """Masked+normalized conditional log-abs of qudit ``q`` for prefix
+        ``words`` (JAX ``models/anqs.py:381-389``): ``cond_for_qudit_dyn``
+        without the live-row gating."""
+        return self.cond_for_qudit_dyn(words, q, mask)
 
     def cond_for_qudit_dyn(self, words, q: int, mask, alive=None):
         """Masked+normalized conditional log-abs of qudit ``q`` for prefix

@@ -29,6 +29,11 @@ The kernel decides most misses from a one-byte tag a slot, which
 call: the top byte of the slot key's ``bucket_hash`` moved into 1..255,
 and 0 for an empty slot (``hash_tags_plain``). The tags only decide which
 slots the kernel reads, never the result.
+
+Both report their work to an active ``utils.cost.WorkCounter``
+(``lookup_work``, ``tags_work``) whichever implementation runs; a lookup
+of at least one query reports the tag build it needs on the card on the
+CPU too.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import ctypes
 
 import torch
 
+from ..utils import cost
 from . import cuda_build
 from .bits import MASK32
 
@@ -193,10 +199,31 @@ def tags_in_shared_memory(n_buckets: int, entries: int = ENTRIES) -> bool:
             and n_bytes % 16 == 0)
 
 
+def tags_work(tab: torch.Tensor, entries: int = ENTRIES) -> int:
+    """Bytes of a tag build: the table read and the (nb, E) tags written
+    once (no flops)."""
+    return tab.numel() * 4 + tab.shape[0] * entries
+
+
+def lookup_work(tab: torch.Tensor, cols, entries: int = ENTRIES) -> int:
+    """Bytes of a lookup, as the kernel table's bound counts them: 4 B a
+    given query word, the table and its tags read once, 9 B of output a
+    query (no flops)."""
+    n = cols[0].shape[0]
+    given = sum(q is not None for q in cols)
+    return 4 * n * given + tab.numel() * 4 + tab.shape[0] * entries + 9 * n
+
+
 def hash_tags(tab: torch.Tensor, entries: int = ENTRIES) -> torch.Tensor:
     """(nb, (K + 2) E) float32 bucket table -> (nb, E) uint8 slot tags
     (``hash_tags_plain``)."""
     k = key_words(tab, entries)
+    cost.report("hash_tags", bytes_accessed=tags_work(tab, entries))
+    with cost.suspended():
+        return _hash_tags(tab, k, entries)
+
+
+def _hash_tags(tab, k, entries):
     if tab.device.type == "cpu":
         return hash_tags_plain(tab, entries)
     if tab.device.type != "cuda":
@@ -221,6 +248,15 @@ def hash_lookup(tab: torch.Tensor, *q_cols, entries: int = ENTRIES):
     (log|psi| (N,) float32, phase (N,) float32, found (N,) bool)."""
     k = key_words(tab, entries)
     cols = _columns(q_cols, k)
+    if cols[0].shape[0]:
+        cost.report("hash_tags", bytes_accessed=tags_work(tab, entries))
+        cost.report("hash_lookup",
+                    bytes_accessed=lookup_work(tab, cols, entries))
+    with cost.suspended():
+        return _hash_lookup(tab, cols, k, entries)
+
+
+def _hash_lookup(tab, cols, k, entries):
     if tab.device.type == "cpu":
         return hash_lookup_plain(tab, *cols, entries=entries)
     if tab.device.type != "cuda":
@@ -236,7 +272,7 @@ def hash_lookup(tab: torch.Tensor, *q_cols, entries: int = ENTRIES):
     found = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return la, ph, found
-    tags = hash_tags(tab, entries)
+    tags = _hash_tags(tab, k, entries)
     ptrs = [None if q is None else q.data_ptr() for q in cols]
     ptrs += [None] * (4 - len(ptrs))
     with torch.cuda.device(dev):

@@ -7,7 +7,8 @@ Pallas kernel ``ops/pallas_kernels.py`` ``fused_matrix_elements`` computes
 (``PauliEngine.matrix_elements``, ``weights_matmul='pallas'``). On a CUDA
 tensor it launches ``csrc/fused_me.cu`` or raises; on a CPU tensor it runs
 ``matrix_elements_plain``. It counts its launches in
-``fused_matrix_elements.launches``.
+``fused_matrix_elements.launches``, and reports the function's work to an
+active ``utils.cost.WorkCounter`` (``me_work``) whichever of the two runs.
 
 ``matrix_elements_plain`` is the JAX package's ``'split'`` form in torch:
 unpack, sign matmul, ``mod 2``, then the three bf16 residual splits of the
@@ -30,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import cost
 from . import bits as bitops
 from . import cuda_build
 
@@ -254,9 +256,28 @@ def _library():
     return lib
 
 
+def me_work(n_rows: int, n_words: int, tables: MatrixElementTables):
+    """(flops, bytes) of the function on ``n_rows`` rows of ``n_words``
+    words, as the kernel table's bound counts them: three float64 FMAs a
+    (row, term) pair; each operand read once -- 4 B a 32-bit word, a
+    term's W sign-mask words and three bf16 splits (4W + 6 B), the group
+    offsets -- and the (B, M) float32 output written once."""
+    n_terms = tables.splits.shape[1]
+    return (6 * n_rows * n_terms,
+            4 * n_rows * n_words + n_terms * (4 * n_words + 6)
+            + 4 * tables.group_starts.numel() + 4 * n_rows * tables.n_groups)
+
+
 def fused_matrix_elements(words: torch.Tensor,
                           tables: MatrixElementTables) -> torch.Tensor:
     """(B, W) int64 packed sources -> (B, M) float32 matrix elements."""
+    if words.shape[0]:
+        cost.report("fused_matrix_elements", *me_work(*words.shape, tables))
+    with cost.suspended():
+        return _fused_matrix_elements(words, tables)
+
+
+def _fused_matrix_elements(words, tables):
     if words.device.type == "cpu":
         return matrix_elements_plain(words, tables)
     if words.device.type != "cuda":

@@ -25,6 +25,8 @@ from typing import Dict, Tuple
 import torch
 from torch.func import functional_call, jacrev
 
+from ..utils import cost
+
 
 @dataclasses.dataclass(frozen=True)
 class SRConfig:
@@ -55,7 +57,10 @@ def _per_sample_jacobians(anqs, params: Dict[str, torch.Tensor], words
         return functional_call(anqs, p, (words,))
 
     detached = {n: t.detach() for n, t in params.items()}
-    jac_la, jac_ph = jacrev(both)(detached)
+    # jacrev backs 2k cotangents through the k-row batch: k times the work
+    # of JAX's one vjp a row; a counter files it apart (utils/cost.py).
+    with cost.region("minsr_jacobians"):
+        jac_la, jac_ph = jacrev(both)(detached)
     names = list(params)
     return _flatten(jac_la, names, (k,)), _flatten(jac_ph, names, (k,))
 

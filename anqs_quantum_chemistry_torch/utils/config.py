@@ -63,6 +63,11 @@ class Config:
         payload = json.dumps(self.to_dict(), sort_keys=True, default=str)
         return hashlib.sha256(payload.encode()).hexdigest()
 
+    def to_path_suffix(self) -> str:
+        """'key=value' of each flat key, sorted, joined by '/'."""
+        return "/".join(f"{key}={value}" for key, value in
+                        sorted(self.to_flat_dict().items()))
+
     def replace(self, **kwargs):
         return dataclasses.replace(self, **kwargs)
 

@@ -326,6 +326,18 @@ Every rank reports its launches of kernels #1, #2 and the tag build in each
 leg (each nonzero where the leg runs the kernel) and its ms a step; the
 ranks share one card, so those times are no scaling figure.
 
+Last, the trainer's measurement surface (``measure``) on ``bench.py``'s
+three N2 configurations (``bench.py:48-81`` without JAX's table layout
+override: the sampled sector headline, the same with
+``sector_membership='off'``, exact summation) and the Li2O toy model
+(hash membership: kernel #2): for each, ``VMC.step_cost_analysis()`` (its
+totals and top five sources; kernel #1's entry nonzero, and kernel #2's at
+Li2O), ``VMC.profile_stages(reps=10)`` (CUDA events), and the host-clock
+ms a step of one synchronised ``VMC._multi_step(25)`` window after a
+25-step warm-up window, with every kernel's launches counted in that
+window (kernel #1 once a step; kernels #2 and the tag build once a step at
+Li2O) and its energies finite.
+
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
 check exits non-zero before either. Imports torch, numpy, scipy and the
@@ -494,6 +506,16 @@ MESH_KERNELS = {
     "n2_run": ("fused_matrix_elements",),
     "li2o_tight": ("hash_lookup", "hash_tags"),
 }
+# The measurement phase: bench.py's three N2 configurations (VMC overrides
+# of ``main_path_vmc``) and the Li2O toy model; its window of steps.
+MEASURE_CONFIGS = (
+    ("n2_sector", "n2", {}),
+    ("n2_dynamic", "n2", {"sector_membership": "off"}),
+    ("n2_exact", "n2", {"sampling_mode": "exact", "sample_num": 16384}),
+    ("li2o", "li2o", {}),
+)
+MEASURE_WINDOW = 25
+MEASURE_TOP = 5
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. The float64 add rate outside the tensor cores (64 lanes an
 # SM) is set in main() from the card's SM count and maximum SM clock.
@@ -3578,6 +3600,95 @@ def mesh_figures(tag, legs, reports, by_path, figures):
                 "max_diff"]
 
 
+def measure_phase(torch):
+    """``MEASURE_CONFIGS`` through the measurement surface; returns
+    (launches by path, figures)."""
+    import numpy as np
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import (
+        li2o_vmc,
+        main_path_vmc,
+    )
+    from anqs_quantum_chemistry_torch.utils import cost
+
+    t0 = time.perf_counter()
+    makers = {"n2": main_path_vmc, "li2o": li2o_vmc}
+    by_path, figures = {}, {}
+    for name, maker, overrides in MEASURE_CONFIGS:
+        t = time.perf_counter()
+        vmc = makers[maker](device="cuda", **overrides)
+        setup_s = time.perf_counter() - t
+        counts = vmc.step_cost_analysis()
+        top = list(counts["by_source"].items())[:MEASURE_TOP]
+        stages = vmc.profile_stages(reps=10)
+        window = vmc._multi_step(MEASURE_WINDOW)
+        state = vmc.init_state()
+        window(state)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        _, metrics = window(state)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / MEASURE_WINDOW
+        launches = read_launches()
+        matmul = cost.matmul_flops(counts["by_source"])
+        jacobians = cost.matmul_flops(counts["by_source"], "minsr_jacobians")
+        log(f"measure {name}: set-up {setup_s:.2f} s; step_cost_analysis "
+            f"flops {counts['flops']} (matmul {matmul}, of it MinSR's "
+            f"jacrev {jacobians}), transcendentals "
+            f"{counts['transcendentals']}, bytes accessed "
+            f"{counts[cost.BYTES]}, device {counts['device']}")
+        for source, entry in top:
+            log(f"  {source}: {entry}")
+        for kernel in ("fused_matrix_elements", "hash_lookup", "hash_tags"):
+            if kernel in counts["by_source"] and kernel not in dict(top):
+                log(f"  {kernel}: {counts['by_source'][kernel]}")
+        log(f"  profile_stages (ms, CUDA events, reps 10): "
+            f"{ {k: v for k, v in stages.items() if k != 'device'} }")
+        log(f"  _multi_step({MEASURE_WINDOW}) after a {MEASURE_WINDOW}-step "
+            f"warm-up: {step_ms:.3f} ms a step (host clock), launches "
+            f"{launches}, energy {metrics['energy'][0]:.6f} -> "
+            f"{metrics['energy'][-1]:.6f}, found_pairs "
+            f"{int(metrics['found_pairs'][-1])}, table_overflow "
+            f"{int(metrics['table_overflow'].max())}")
+        check(counts["device"] == "cuda" and stages["device"] == "cuda",
+              f"measure {name}: counted on {counts['device']}, timed on "
+              f"{stages['device']}")
+        check(counts["flops"] > matmul > jacobians > 0
+              and counts[cost.BYTES] > 0,
+              f"measure {name}: counts {counts['flops']}, matmul {matmul}, "
+              f"MinSR's jacrev {jacobians}")
+        check(counts["by_source"].get("fused_matrix_elements", {}).get(
+            "flops", 0) > 0, f"measure {name}: no kernel #1 count")
+        check(all(v > 0 and np.isfinite(v) for k, v in stages.items()
+                  if k != "device"), f"measure {name}: stages {stages}")
+        check(np.all(np.isfinite(metrics["energy"])),
+              f"measure {name}: energies not finite")
+        check(launches["fused_matrix_elements"] == MEASURE_WINDOW,
+              f"measure {name}: kernel #1 launched {launches}")
+        if maker == "li2o":
+            check(counts["by_source"].get("hash_lookup", {}).get(
+                cost.BYTES, 0) > 0, f"measure {name}: no kernel #2 count")
+            check(launches["hash_lookup"] == MEASURE_WINDOW
+                  and launches["hash_tags"] == MEASURE_WINDOW,
+                  f"measure {name}: kernel #2 launched {launches}")
+        by_path[f"measure_{name}"] = launches
+        figures[name] = {
+            "flops": counts["flops"], "matmul_flops": matmul,
+            "minsr_jacobian_flops": jacobians,
+            "transcendentals": counts["transcendentals"],
+            "bytes_accessed": counts[cost.BYTES],
+            "kernel_counts": {k: counts["by_source"][k] for k in (
+                "fused_matrix_elements", "hash_lookup", "hash_tags")
+                if k in counts["by_source"]},
+            "stages_ms": {k: v for k, v in stages.items() if k != "device"},
+            "step_ms": step_ms}
+        del vmc, state
+    figures["phase_s"] = time.perf_counter() - t0
+    log(f"measure phase: {figures['phase_s']:.1f} s")
+    return by_path, figures
+
+
 def main():
     import argparse
 
@@ -3681,6 +3792,7 @@ def main():
     options_launches, options_step_s = options_phase(torch, mol)
     spin_launches, spin_figures = spin_phase(torch)
     mesh_launches, mesh_figures = mesh_phase(torch)
+    measure_launches, measure_figures = measure_phase(torch)
 
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
@@ -3696,7 +3808,7 @@ def main():
                "c2h4_cisd_sci": c2h4_sci_launches,
                "n2_dissociation": chem_launches,
                "cr2": cr2_launches, **options_launches, **spin_launches,
-               **mesh_launches}
+               **mesh_launches, **measure_launches}
     for entry in (me_entry, hash_entry, tags_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
@@ -3748,6 +3860,7 @@ def main():
     me_entry["by_molecule"]["dm40"] = spin_figures.pop("kernel1_dm40")
     me_entry["spin"] = spin_figures
     me_entry["mesh"] = mesh_figures
+    me_entry["measure"] = measure_figures
     me_entry["max_abs_err"] = max(me_entry["max_abs_err"],
                                   me_entry["by_molecule"]["cr2"][
                                       "max_abs_err"])

@@ -523,3 +523,129 @@ def test_hash_dist_one_nccl_rank_matches_hash_on_card(cuda):
     launches = report[1]["li2o"]["launches"]
     assert launches["hash_lookup"] >= 1 and launches["hash_tags"] >= 1
     assert launches["fused_matrix_elements"] == 1
+
+
+@pytest.mark.cuda
+def test_step_cost_matches_cpu_on_card(cuda):
+    """``step_cost_analysis`` of the N2 sector configuration (the main
+    path, ``bench.py``'s headline) on the card against the same trainer on
+    the CPU: the matmul-class flops (the backward of the loss and MinSR's
+    ``jacrev`` among them, which run on autograd's device thread on the
+    card) and the three kernels' entries equal, the totals within 1%
+    (each total's relative gap printed)."""
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+    from anqs_quantum_chemistry_torch.utils import cost
+
+    card = main_path_vmc(device="cuda").step_cost_analysis()
+    host = main_path_vmc(device="cpu").step_cost_analysis()
+    assert card["device"] == "cuda" and host["device"] == "cpu"
+    assert cost.matmul_flops(card["by_source"]) == cost.matmul_flops(
+        host["by_source"]) > 0
+    for source, entry in host["by_source"].items():
+        if entry["kind"] in ("matmul", "kernel"):
+            assert card["by_source"][source] == entry, source
+    assert card["by_source"]["fused_matrix_elements"]["calls"] == 1
+    for key in ("flops", "transcendentals", cost.BYTES):
+        print(f"{key}: card {card[key]} cpu {host[key]} relative gap "
+              f"{(card[key] - host[key]) / host[key]:.3e}")
+        assert abs(card[key] - host[key]) <= 0.01 * host[key], key
+
+
+@pytest.mark.cuda
+def test_profile_stages_on_card(cuda, monkeypatch):
+    """``profile_stages`` on the card times with CUDA events: the host
+    clock is never read (it raises here), every sampled-branch key is
+    there, and each time is positive."""
+    from anqs_quantum_chemistry_torch.experiments import vmc as vmc_mod
+
+    vmc = vmc_mod.main_path_vmc(device="cuda")
+
+    def no_host_clock():
+        raise AssertionError("profile_stages read the host clock")
+
+    monkeypatch.setattr(vmc_mod.time, "perf_counter", no_host_clock)
+    res = vmc.profile_stages(reps=2)
+    assert res.pop("device") == "cuda"
+    assert set(res) == {"sample_ms", "sort_ms", "log_psi_ms",
+                        "matrix_elements_ms", "local_energy_ms", "grad_ms",
+                        "sr_ms"}
+    assert all(v > 0 for v in res.values()), res
+
+
+PREFILTER_REPEATS = 20
+
+
+def _recorded(engine, log):
+    """Wrap the engine's prefilter stages so that each call appends its
+    inputs and outputs (the real path's intermediates) to ``log``."""
+    def wrap(name, fn, keep_args=()):
+        def call(*args):
+            out = fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            log.append((name, [args[i] for i in keep_args if i < len(args)]
+                        + [o for o in outs if isinstance(o, torch.Tensor)]))
+            return out
+        return call
+
+    # Stage 1 (the fingerprint hits), stage 2 (the kept groups, m_idx, in
+    # the 3a lookups' arguments; kvals > 0 in the 3a sums' found), the
+    # lookups of 3a and 3b, kernel #1, the sums of 3a and 3b, the dense
+    # rows.
+    engine._fp_candidates = wrap("stage1 hits", engine._fp_candidates)
+    engine._lookup_rows = wrap("lookups (m_idx, la, ph, found)",
+                               engine._lookup_rows, keep_args=(2,))
+    engine.matrix_elements = wrap("kernel #1", engine.matrix_elements)
+    engine._combine_rows = wrap("row sums (me, la, ph, found, sums)",
+                                engine._combine_rows, keep_args=(0, 1, 2, 3))
+    engine._dense_rows = wrap("dense rows", engine._dense_rows)
+    return engine
+
+
+def _bits(t):
+    """A float tensor's bit patterns (so that -0.0 and NaN compare too)."""
+    if not t.is_floating_point():
+        return t
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+@pytest.mark.cuda
+def test_prefilter_repeats_bit_for_bit_on_card(cuda):
+    """The C2H4 prefilter batch of ``test_prefilter_matches_cpu_on_card``
+    evaluated ``PREFILTER_REPEATS`` times in one process: each run equals
+    the first bit for bit, stage by stage (stage-1 hits, stage 2's kept
+    groups, the 3a and 3b lookups, kernel #1, the 3a and dense sums, the
+    dense rows), then e and t; and kernel #1 on the batch equals its plain
+    version every time. A mismatch names the stage, the call and the rows
+    that moved."""
+    engine, words, la, ph, valid = _c2h4_batch(cuda)
+    first, first_out = None, None
+    plain = matrix_elements_plain(words, engine.me_tables)
+    for rep in range(PREFILTER_REPEATS):
+        log = []
+        eng = _recorded(engine.with_capacities(), log)
+        out = eng.local_energy_proxy(words, la, ph, valid)
+        me = fused_matrix_elements(words, engine.me_tables)
+        torch.cuda.synchronize()
+        bad = (me != plain).any(dim=1)
+        assert not bad.any(), (
+            f"repeat {rep}: kernel #1 differs from its plain version in "
+            f"rows {torch.nonzero(bad)[:20, 0].tolist()}")
+        if first is None:
+            first, first_out = log, out
+            assert len(log) >= 6
+            continue
+        assert [name for name, _ in log] == [name for name, _ in first]
+        for call, ((name, got), (_, want)) in enumerate(zip(log, first)):
+            for j, (g, w) in enumerate(zip(got, want)):
+                diff = _bits(g) != _bits(w)
+                if diff.any():
+                    rows = torch.nonzero(diff.reshape(diff.shape[0], -1)
+                                         .any(dim=1))[:20, 0].tolist()
+                    raise AssertionError(
+                        f"repeat {rep}: {name} (call {call}, tensor {j}) "
+                        f"moved in {int(diff.sum())} entries, rows {rows}")
+        for field in ("found_pairs", "pf_dropped_rows", "table_overflow",
+                      "e_re", "e_im", "t_re", "t_im"):
+            g, w = getattr(out, field), getattr(first_out, field)
+            assert torch.equal(_bits(torch.as_tensor(g)),
+                               _bits(torch.as_tensor(w))), (rep, field)

@@ -124,12 +124,13 @@ def _walk_segments(starts, kern):
     """Follow the kernel's control flow over every tile's warp segments
     (``csrc/fused_me.cu``): count how often each term is summed and each
     group's stage column is written, and which groups go through each cut
-    slot. Returns (term counts, stage writes, {(tile, slot): groups})."""
+    slot. Returns (term counts, stage writes, {(tile, slot): groups}, the
+    (tile, slot) pairs that their owners round)."""
     tiles = kern.tile_starts.numpy().astype(np.int64)
     segments = kern.segments.numpy().astype(np.int64)
     terms = np.zeros(starts[-1], np.int64)
     writes = np.zeros(len(starts) - 1, np.int64)
-    slots = {}
+    slots, rounded = {}, set()
     for i, (m0, _) in enumerate(tiles[:-1]):
         n_cols = tiles[i + 1, 0] - m0
         g = starts[m0:m0 + n_cols + 1]
@@ -151,8 +152,9 @@ def _walk_segments(starts, kern):
                 m += 1
             if g[first] < s0 and head == warp:  # the owner rounds its slot
                 writes[m0 + first] += 1
+                rounded.add((i, warp))
                 assert slots[(i, warp)] == {m0 + first}
-    return terms, writes, slots
+    return terms, writes, slots, rounded
 
 
 def _one_long_group_ham(rng):
@@ -211,11 +213,44 @@ def test_kernel_tables(rng, name):
     assert np.all(groups >= 1) and np.all(groups <= mx.TILE_GROUPS)
     assert np.all((terms <= mx.TILE_TERMS) | (groups == 1))
     assert kern.segments.shape == (len(tiles) - 1, mx.SEG_WARPS, 4)
-    summed, writes, slots = _walk_segments(starts, kern)
+    summed, writes, slots, rounded = _walk_segments(starts, kern)
     assert np.all(summed == 1) and np.all(writes == 1)
     assert all(len(cut) == 1 for cut in slots.values())
+    assert set(slots) == rounded
     if name != "C2H4":
         assert slots  # some group is cut between segments
+
+
+@pytest.mark.parametrize("name", ["N2", "Li2O", "C2H4", "TFI-64"])
+def test_kernel_partition_of_path_tables(name):
+    """Kernel #1's write rule (``csrc/fused_me.cu``: whole groups into the
+    stage by the warp that sums them, cut groups through a slot that the
+    owner rounds) over the tables each path hands the kernel, in the
+    engine's group order (``PauliEngine.me_tables``): N2, Li2O, C2H4/6-31G
+    (the 'grouped' order) and the open TFI chain at 64 sites. Every term
+    of every tile is summed once and every group's stage column written
+    once -- a column no warp wrote would be stored from leftover shared
+    memory -- and each cut group's partial sums go to one slot, the one
+    its rounding warp reads."""
+    from anqs_quantum_chemistry_torch.applications.spin_systems import (
+        tfi_hamiltonian,
+    )
+    from anqs_quantum_chemistry_torch.chem.molecule import load_li2o, load_n2
+
+    ham = {"N2": lambda: load_n2().qubit_ham,
+           "Li2O": lambda: load_li2o().qubit_ham,
+           "C2H4": lambda: load_c2h4().qubit_ham,
+           "TFI-64": lambda: tfi_hamiltonian(64)}[name]()
+    tables = PauliEngine(ham, device="cpu").me_tables
+    starts = tables.group_starts.numpy().astype(np.int64)
+    kern = mx.kernel_operands(dataclasses.make_dataclass(
+        "Words", ["b_words"])(tables.b_words.numpy()), tables.splits,
+        starts, "cpu")
+    summed, writes, slots, rounded = _walk_segments(starts, kern)
+    assert summed.shape == (tables.splits.shape[1],)
+    assert np.all(summed == 1) and np.all(writes == 1)
+    assert all(len(cut) == 1 for cut in slots.values())
+    assert set(slots) == rounded
 
 
 def test_c2h4_plain_matches_jax():

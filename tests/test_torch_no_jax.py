@@ -5,8 +5,8 @@ the C2H4 and Li2O campaigns' entry points, and the host chemistry layer
 with direct CI and the dissociation and ladder entry points, the ensembles,
 the dense-state oracle and the exact top-k, the spin chains, the run-series
 and result-processing tools and the last three example entry points, the
-data-parallel mesh, the sharded hash membership and the multi-rank dry run
-among them), ``chip_smoke.py`` and
+data-parallel mesh, the sharded hash membership, the multi-rank dry run and
+the step's work counter among them), ``chip_smoke.py`` and
 ``tools/profile_torch_step.py`` import in a process where ``jax`` and the
 JAX package cannot be imported (the machine with the card has no JAX).
 The result-processing tools also run where pandas and matplotlib cannot be
@@ -78,6 +78,7 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.experiments.summarize_runs",
     "anqs_quantum_chemistry_torch.experiments.li2o_toy_model",
     "anqs_quantum_chemistry_torch.experiments.toy_model_walkthrough",
+    "anqs_quantum_chemistry_torch.utils.cost",
     "anqs_quantum_chemistry_torch.parallel.mesh",
     "anqs_quantum_chemistry_torch.parallel.dist_membership",
     "anqs_quantum_chemistry_torch.experiments.dryrun_multichip",

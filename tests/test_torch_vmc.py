@@ -19,7 +19,6 @@ from anqs_quantum_chemistry_tpu.observables.pauli import (
 )
 from anqs_quantum_chemistry_tpu.optim.sr import SRConfig as JaxSRConfig
 from anqs_quantum_chemistry_torch.convert import params_from_jax
-from anqs_quantum_chemistry_torch.experiments import vmc as vmc_module
 from anqs_quantum_chemistry_torch.experiments.vmc import (
     VMC,
     FiniteGuardOptimizer,
@@ -170,16 +169,16 @@ def test_run_acts_on_overflow(monkeypatch):
         v.run(1, checkpoint_every=None)
 
 
-def test_sector_limit_falls_back_to_dynamic(monkeypatch):
-    """Above the sector-membership limit the trainer takes the dynamic
-    branch ('table' at LiH's 12 qubits) and trains the same step."""
+def test_sector_limit_falls_back_to_dynamic():
+    """Above the sector-membership limit (``sector_membership_max_dets``)
+    the trainer takes the dynamic branch ('table' at LiH's 12 qubits) and
+    trains the same step."""
     _, mol = molecules("LiH")
     kw = dict(CFG, sr=SRConfig(max_indices_num=50))
     rows = []
-    for limit in (vmc_module.SECTOR_MAX_DETS, 224):  # LiH: 225 dets
-        monkeypatch.setattr(vmc_module, "SECTOR_MAX_DETS", limit)
-        v = VMC(mol, VMCConfig(**kw), AnqsConfig(hidden_widths=(8,)),
-                device="cpu")
+    for limit in (VMCConfig.sector_membership_max_dets, 224):  # LiH: 225
+        v = VMC(mol, VMCConfig(**kw, sector_membership_max_dets=limit),
+                AnqsConfig(hidden_widths=(8,)), device="cpu")
         assert (v.sector_words is None) == (limit == 224)
         rows.append(v.run(1, checkpoint_every=None)[1][0])
     assert rows[0]["found_pairs"] == rows[1]["found_pairs"]

@@ -24,9 +24,10 @@ MinSR without regularisation (options (d)) -- warms it up with 3
 steps (and on until a step drops no rows, the overflow policy acting after
 each step, as ``run`` does), then
 times ``reps`` whole steps on the host clock, and each stage of the step
-on its own with CUDA events, ``reps`` times each (mean ms), the way the
-JAX package's ``VMC.profile_stages`` splits a step; under prefilter
-membership also each prefilter stage (``prefilter_stages``). It then traces
+on its own by ``VMC.profile_stages(reps)`` (JAX's stages and keys, CUDA
+events, mean ms); under prefilter membership also each prefilter stage
+(``prefilter_stages``), under hash membership the table build and the
+lookup, each alone with CUDA events. It then traces
 ``reps`` whole steps with ``torch.profiler`` and prints the kernels that
 take the most device time and two busy shares: summed kernel time over the
 profiled steps' wall time (which the profiler stretches), and the same
@@ -138,8 +139,7 @@ def main():
         main_path_vmc,
     )
     from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
-    from anqs_quantum_chemistry_torch.optim.sr import SRConfig, sr_transform
-    from anqs_quantum_chemistry_torch.sampling.sampler import sample
+    from anqs_quantum_chemistry_torch.optim.sr import SRConfig
 
     if not torch.cuda.is_available():
         sys.exit("profile_torch_step: needs a CUDA device")
@@ -169,32 +169,14 @@ def main():
         vmc._handle_overflow({**row, "iter_idx": i})
     torch.cuda.synchronize()
 
-    anqs, eng, cfg = vmc.anqs, vmc.engine, vmc.config
-    words, weights, valid, _, la, ph, e = vmc._support_and_eloc(state)
-    params = dict(anqs.named_parameters())
-
-    def loss_backward():
-        la_g, ph_g = anqs.log_psi(words)
-        loss = torch.sum(weights * (la_g * e.e_re + ph_g * e.e_im))
-        return torch.autograd.grad(loss, list(params.values()))
-
-    grads = dict(zip(params, loss_backward()))
-    stages = {}
+    eng = vmc.engine
+    words, _, valid, _, la, ph, _ = vmc._support_and_eloc(state)
+    # JAX's stages (``VMC.profile_stages``: sample, sort, log psi, matrix
+    # elements, local energies, loss gradient, MinSR).
+    stages = vmc.profile_stages(reps)
+    stages.pop("device")
     with torch.no_grad():
-        stages["sample_ms"] = cuda_ms(
-            lambda: sample(anqs, vmc.sampling_config, state.generator), reps)
-        stages["log_psi_ms"] = cuda_ms(lambda: anqs.log_psi(words), reps)
-        stages["matrix_elements_ms"] = cuda_ms(
-            lambda: eng.matrix_elements(words), reps)
-        if vmc.sector_words is not None:
-            stages["local_energy_sector_ms"] = cuda_ms(
-                lambda: eng.local_energy_sector(
-                    words, la, ph, valid, vmc.sector_words,
-                    vmc.sector_partner_idx, vmc.sector_partner_found,
-                    sector_pos=vmc.sector_pos), reps)
-        else:
-            stages["local_energy_proxy_ms"] = cuda_ms(
-                lambda: eng.local_energy_proxy(words, la, ph, valid), reps)
+        if vmc.sector_words is None:
             if eng.membership == "prefilter":
                 fns, _ = prefilter_stages(eng, words, la, ph, valid)
                 for name, fn in fns.items():
@@ -207,10 +189,6 @@ def main():
                 stages["hash_lookup_ms"] = cuda_ms(
                     lambda: hash_lookup(tab, *queries,
                                         entries=eng.hash_epb), reps)
-    stages["loss_fwd_bwd_ms"] = cuda_ms(loss_backward, reps)
-    stages["minsr_ms"] = cuda_ms(
-        lambda: sr_transform(anqs, params, grads, words, weights, cfg.sr),
-        reps)
     if workload == "li2o_nade":
         dopt = vmc.make_distill_opt()
         stages["distill_cycle_ms"] = cuda_ms(

@@ -1,0 +1,9 @@
+"""The program's own stage time ``log_psi_ms`` (``VMC.profile_stages``: the
+stage run alone, CUDA events, the mean of the cell's ``stage_reps``)."""
+
+
+def read(ctx):
+    stages = ctx["stages"]
+    if not stages or "log_psi_ms" not in stages:
+        return None
+    return float(stages["log_psi_ms"])

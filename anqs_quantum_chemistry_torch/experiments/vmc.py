@@ -78,7 +78,7 @@ from ..parallel.mesh import (all_gather_rows, all_reduce, replicate,
                              shard_rows)
 from ..sampling.sampler import SamplingConfig, sample
 from ..symmetries import QubitGrouping
-from ..utils import cost
+from ..utils import cost, spans
 from ..utils.config import Config, Schedule
 from .preparation import create_masker
 
@@ -867,10 +867,11 @@ class VMC:
         else:
             budget = (self._current_budget(cfg)
                       if samp.mode == "multinomial" else None)
-            words, weights, valid, stats = sample(
-                self.anqs, samp, generator, uniforms, budget=budget,
-                draw=draw, mesh=self.mesh,
-            )
+            with spans.span("vmc.sample"):
+                words, weights, valid, stats = sample(
+                    self.anqs, samp, generator, uniforms, budget=budget,
+                    draw=draw, mesh=self.mesh,
+                )
         couples = self._couples(cfg)
         words, weights, valid = self._augment(cfg, words, weights, valid)
         if not self._use_static(samp):
@@ -899,10 +900,12 @@ class VMC:
         local energies (no autograd). Returns (words, weights, valid,
         stats, la, ph, e)."""
         samp = samp or self.sampling_config
-        words, weights, valid, stats = self._support(
-            state.generator, cfg, samp, uniforms, draw)
-        with torch.no_grad():
+        with spans.span("vmc.support"):
+            words, weights, valid, stats = self._support(
+                state.generator, cfg, samp, uniforms, draw)
+        with torch.no_grad(), spans.span("vmc.log_psi"):
             la, ph = self.anqs.log_psi(words)
+        with torch.no_grad(), spans.span("vmc.local_energy"):
             if self._use_static(samp):
                 e = self.engine.local_energy_static(
                     words, la, ph, valid, *shard_rows(
@@ -930,116 +933,127 @@ class VMC:
         words, weights, valid, stats, la, ph, e = self._support_and_eloc(
             state, cfg, samp, uniforms, draw
         )
-        psum = self._psum
-        theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
-        theor_sum = psum(torch.sum(theor))
-        if cfg.use_theor_freqs:
-            # Born weights; float64 estimators in the overflow-free
-            # numerator form (p_x E_x = a_x t_x; p_x |E_x|^2 = |t_x|^2). At
-            # |E| ~ 100 Ha the float32 cancellation in sum|t|^2 - |mean|^2
-            # is ~1e-3 Ha^2. Under a mesh the sums are all-reduced, never
-            # the ranks' means.
-            freqs = theor / torch.clamp(theor_sum, min=1e-30)
-            a_x = torch.where(valid, torch.exp(la), 0.0).to(torch.float64)
-            t_re = e.t_re.to(torch.float64)
-            t_im = e.t_im.to(torch.float64)
-            sums = psum(torch.stack([
-                torch.sum(a_x**2), torch.sum(a_x * t_re),
-                torch.sum(a_x * t_im), torch.sum(t_re**2 + t_im**2)]))
-            denom = torch.clamp(sums[0], min=1e-300)
-            mean_re64 = sums[1] / denom
-            mean_im64 = sums[2] / denom
-            var = (sums[3] / denom
-                   - mean_re64**2 - mean_im64**2).to(torch.float32)
-            mean_re = mean_re64.to(torch.float32)
-            mean_im = mean_im64.to(torch.float32)
-        else:
-            # The sampler's own weights (multinomial: counts / total).
-            freqs = weights / torch.clamp(psum(torch.sum(weights)),
-                                          min=1e-30)
-            mean_re, mean_im, var = mc_estimate(e.e_re, e.e_im, freqs,
-                                                self.mesh)
-        d_re = torch.where(valid, e.e_re - mean_re, 0.0)
-        d_im = torch.where(valid, e.e_im - mean_im, 0.0)
+        with spans.span("vmc.estimators"):
+            psum = self._psum
+            theor = torch.where(valid, torch.exp(2.0 * la), 0.0)
+            theor_sum = psum(torch.sum(theor))
+            if cfg.use_theor_freqs:
+                # Born weights; float64 estimators in the overflow-free
+                # numerator form (p_x E_x = a_x t_x; p_x |E_x|^2 = |t_x|^2).
+                # At |E| ~ 100 Ha the float32 cancellation in sum|t|^2 -
+                # |mean|^2 is ~1e-3 Ha^2. Under a mesh the sums are
+                # all-reduced, never the ranks' means.
+                freqs = theor / torch.clamp(theor_sum, min=1e-30)
+                a_x = torch.where(valid, torch.exp(la),
+                                  0.0).to(torch.float64)
+                t_re = e.t_re.to(torch.float64)
+                t_im = e.t_im.to(torch.float64)
+                sums = psum(torch.stack([
+                    torch.sum(a_x**2), torch.sum(a_x * t_re),
+                    torch.sum(a_x * t_im), torch.sum(t_re**2 + t_im**2)]))
+                denom = torch.clamp(sums[0], min=1e-300)
+                mean_re64 = sums[1] / denom
+                mean_im64 = sums[2] / denom
+                var = (sums[3] / denom
+                       - mean_re64**2 - mean_im64**2).to(torch.float32)
+                mean_re = mean_re64.to(torch.float32)
+                mean_im = mean_im64.to(torch.float32)
+            else:
+                # The sampler's own weights (multinomial: counts / total).
+                freqs = weights / torch.clamp(psum(torch.sum(weights)),
+                                              min=1e-30)
+                mean_re, mean_im, var = mc_estimate(e.e_re, e.e_im, freqs,
+                                                    self.mesh)
+            d_re = torch.where(valid, e.e_re - mean_re, 0.0)
+            d_im = torch.where(valid, e.e_im - mean_im, 0.0)
 
-        # max and -min of log|psi| in one MAX reduction.
-        la_max, neg_la_min = all_reduce(torch.stack([
-            torch.max(torch.where(valid, la, -torch.inf)),
-            -torch.min(torch.where(valid, la, torch.inf))]), self.mesh, "max")
-        temp = cfg.grad_weight_temperature
-        if cfg.use_theor_freqs and temp != 1.0:
-            tempered = torch.where(
-                valid, torch.exp((2.0 / temp) * (la - la_max)), 0.0
-            )
-            grad_freqs = tempered / torch.clamp(psum(torch.sum(tempered)),
-                                                min=1e-30)
-        else:
-            grad_freqs = freqs
+            # max and -min of log|psi| in one MAX reduction.
+            la_max, neg_la_min = all_reduce(torch.stack([
+                torch.max(torch.where(valid, la, -torch.inf)),
+                -torch.min(torch.where(valid, la, torch.inf))]), self.mesh,
+                "max")
+            temp = cfg.grad_weight_temperature
+            if cfg.use_theor_freqs and temp != 1.0:
+                tempered = torch.where(
+                    valid, torch.exp((2.0 / temp) * (la - la_max)), 0.0
+                )
+                grad_freqs = tempered / torch.clamp(
+                    psum(torch.sum(tempered)), min=1e-30)
+            else:
+                grad_freqs = freqs
 
         metrics = {}
         if full_energy:
-            metrics["full_energy"], _, metrics["full_energy_var"] = (
-                self._full_energy(words, la, ph, valid))
+            with spans.span("vmc.full_energy"):
+                metrics["full_energy"], _, metrics["full_energy_var"] = (
+                    self._full_energy(words, la, ph, valid))
 
-        params = dict(self.anqs.named_parameters())
-        la_g, ph_g = self.anqs.log_psi(words)
-        la_g = torch.where(valid, la_g, 0.0)
-        ph_g = torch.where(valid, ph_g, 0.0)
-        loss = 2.0 * torch.sum(grad_freqs * (la_g * d_re + ph_g * d_im))
-        grads = _grad(loss, list(params.values()))
-        if self._sharded:
-            # The loss gradient: the sum of the ranks' gradients.
-            flat = psum(torch.cat([g.reshape(-1) for g in grads]))
-            grads = list(torch.split(flat, [g.numel() for g in grads]))
-            grads = [g.reshape(p.shape)
-                     for g, p in zip(grads, params.values())]
-        grads = dict(zip(params, grads))
+        with spans.span("vmc.grad"):
+            params = dict(self.anqs.named_parameters())
+            la_g, ph_g = self.anqs.log_psi(words)
+            la_g = torch.where(valid, la_g, 0.0)
+            ph_g = torch.where(valid, ph_g, 0.0)
+            loss = 2.0 * torch.sum(grad_freqs * (la_g * d_re + ph_g * d_im))
+            grads = _grad(loss, list(params.values()))
+            if self._sharded:
+                # The loss gradient: the sum of the ranks' gradients.
+                flat = psum(torch.cat([g.reshape(-1) for g in grads]))
+                grads = list(torch.split(flat, [g.numel() for g in grads]))
+                grads = [g.reshape(p.shape)
+                         for g, p in zip(grads, params.values())]
+            grads = dict(zip(params, grads))
 
         if cfg.sr is not None:
             # MinSR runs replicated on the whole set.
-            sr_words, sr_freqs = replicate((words, grad_freqs), self.mesh)
-            grads = sr_transform(self.anqs, params, grads, sr_words,
-                                 sr_freqs, cfg.sr)
-        if cfg.grad_clip_norm is not None:
-            grads, _ = clip_grad_norm(grads, cfg.grad_clip_norm)
-        if cfg.grad_renorm:
-            # grad <- grad / ||grad|| (reference process_grad.py:66-70).
-            norm = torch.linalg.vector_norm(
-                torch.cat([g.reshape(-1) for g in grads.values()]))
-            grads = {n: g / torch.clamp(norm, min=1e-30)
-                     for n, g in grads.items()}
+            with spans.span("vmc.sr"):
+                sr_words, sr_freqs = replicate((words, grad_freqs),
+                                               self.mesh)
+                grads = sr_transform(self.anqs, params, grads, sr_words,
+                                     sr_freqs, cfg.sr)
+        # The update (clip, the metrics) goes on in ``step``.
+        with spans.span("vmc.update"):
+            if cfg.grad_clip_norm is not None:
+                grads, _ = clip_grad_norm(grads, cfg.grad_clip_norm)
+            if cfg.grad_renorm:
+                # grad <- grad / ||grad|| (reference process_grad.py:66-70).
+                norm = torch.linalg.vector_norm(
+                    torch.cat([g.reshape(-1) for g in grads.values()]))
+                grads = {n: g / torch.clamp(norm, min=1e-30)
+                         for n, g in grads.items()}
 
-        # HF-projected local energy: E_loc at the HF row if it was sampled;
-        # the set size and ipr beside it in one reduction.
-        hf_match = torch.all(words == self.hf_words[0][None, :], dim=1) & valid
-        counts = psum(torch.stack([
-            torch.sum(torch.where(hf_match, e.e_re, 0.0)).to(torch.float64),
-            torch.sum(hf_match).to(torch.float64),
-            torch.sum(valid).to(torch.float64),
-            torch.sum(freqs**2).to(torch.float64)]))
-        hf_e = torch.where(counts[1] > 0, counts[0].to(torch.float32),
-                           torch.nan)
-        n_valid = counts[2].to(torch.int64)
-        metrics.update({
-            "energy": mean_re,
-            "energy_imag": mean_im,
-            "energy_var": var,
-            "unique_num": n_valid,
-            "sampled_prob": theor_sum,
-            "found_pairs": e.found_pairs,
-            "hf_proj_energy": hf_e,
-            "grad_norm": torch.linalg.vector_norm(
-                torch.cat([g.reshape(-1) for g in grads.values()])
-            ),
-            "max_log_abs": la_max,
-            "ipr": counts[3].to(torch.float32),
-            "dropped": torch.as_tensor(stats["dropped"]),
-            "min_log_abs": -neg_la_min,
-            "found_ratio": e.found_pairs
-            / torch.clamp(n_valid * self.engine.n_groups, min=1),
-            "table_overflow": torch.as_tensor(e.table_overflow),
-            "pf_dropped_rows": torch.as_tensor(e.pf_dropped_rows),
-        })
+            # HF-projected local energy: E_loc at the HF row if it was
+            # sampled; the set size and ipr beside it in one reduction.
+            hf_match = torch.all(words == self.hf_words[0][None, :],
+                                 dim=1) & valid
+            counts = psum(torch.stack([
+                torch.sum(torch.where(hf_match, e.e_re,
+                                      0.0)).to(torch.float64),
+                torch.sum(hf_match).to(torch.float64),
+                torch.sum(valid).to(torch.float64),
+                torch.sum(freqs**2).to(torch.float64)]))
+            hf_e = torch.where(counts[1] > 0, counts[0].to(torch.float32),
+                               torch.nan)
+            n_valid = counts[2].to(torch.int64)
+            metrics.update({
+                "energy": mean_re,
+                "energy_imag": mean_im,
+                "energy_var": var,
+                "unique_num": n_valid,
+                "sampled_prob": theor_sum,
+                "found_pairs": e.found_pairs,
+                "hf_proj_energy": hf_e,
+                "grad_norm": torch.linalg.vector_norm(
+                    torch.cat([g.reshape(-1) for g in grads.values()])
+                ),
+                "max_log_abs": la_max,
+                "ipr": counts[3].to(torch.float32),
+                "dropped": torch.as_tensor(stats["dropped"]),
+                "min_log_abs": -neg_la_min,
+                "found_ratio": e.found_pairs
+                / torch.clamp(n_valid * self.engine.n_groups, min=1),
+                "table_overflow": torch.as_tensor(e.table_overflow),
+                "pf_dropped_rows": torch.as_tensor(e.pf_dropped_rows),
+            })
         return metrics, grads
 
     def _full_energy(self, words, la, ph, valid):
@@ -1074,18 +1088,30 @@ class VMC:
         """One training step under the schedule ``overrides``; returns the
         metrics as Python floats (JAX's metric names, sorted as JAX returns
         them). ``uniforms`` / ``draw`` (tests) replace the sampler's own
-        noise; ``full_energy`` adds ``full_energy`` / ``full_energy_var``."""
-        cfg, samp = self._step_configs(overrides)
-        metrics, grads = self._grads_and_metrics(state, uniforms, cfg, samp,
-                                                 draw, full_energy)
-        state.opt.step(list(grads.values()), cfg)
-        self.check_replicas()
-        with torch.no_grad():
-            metrics["hf_log_abs"] = self.anqs.log_psi(self.hf_words)[0][0]
-        names = sorted(metrics)
-        values = torch.stack(
-            [metrics[k].to(device="cpu", dtype=torch.float64) for k in names]
-        ).tolist()
+        noise; ``full_energy`` adds ``full_energy`` / ``full_energy_var``.
+
+        The step is the span ``vmc.step`` (``utils/spans.py``), and its
+        stages partition it: ``vmc.support`` (``vmc.sample`` inside, where
+        the step samples), ``vmc.log_psi``, ``vmc.local_energy``,
+        ``vmc.estimators``, ``vmc.full_energy`` (with ``full_energy``),
+        ``vmc.grad`` (the loss's forward and backward), ``vmc.sr`` (with
+        MinSR) and ``vmc.update`` (clip or renorm and the metrics, then the
+        optimizer, log psi of HF and the read-back: two spans of the
+        name)."""
+        with spans.span("vmc.step"):
+            cfg, samp = self._step_configs(overrides)
+            metrics, grads = self._grads_and_metrics(
+                state, uniforms, cfg, samp, draw, full_energy)
+            with spans.span("vmc.update"):
+                state.opt.step(list(grads.values()), cfg)
+                self.check_replicas()
+                with torch.no_grad():
+                    metrics["hf_log_abs"] = self.anqs.log_psi(
+                        self.hf_words)[0][0]
+                names = sorted(metrics)
+                values = torch.stack(
+                    [metrics[k].to(device="cpu", dtype=torch.float64)
+                     for k in names]).tolist()
         return dict(zip(names, values))
 
     # ------------------------------------------------------------------
@@ -1606,8 +1632,7 @@ def main_path_vmc(device="cuda", hidden_width: int = 512,
 
 # The Li2O toy model with the reference's per-layer patterns, the log_psi
 # head, masking depth, bfloat16 activations (``li2o_vmc(anqs_options=...)``;
-# ``chip_smoke.py``'s options leg (d) and ``tools/profile_torch_step.py``'s
-# ``li2o_options``).
+# ``chip_smoke.py``'s options leg (d)).
 LI2O_OPTIONS = dict(head_mode="log_psi", activation="sanqs_paper",
                     hidden_widths=(512, 512), bias=(True, True, False),
                     masking_depth=1, compute_dtype="bfloat16")

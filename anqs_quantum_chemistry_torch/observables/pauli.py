@@ -70,6 +70,7 @@ from ..ops import keys
 from ..ops.matrix_elements import build_tables, fused_matrix_elements
 from ..parallel.dist_membership import hash_membership_dist
 from ..parallel.mesh import all_reduce, replicate
+from ..utils import spans
 
 NEG = -1e30
 MEMBERSHIPS = ("auto", "table", "hash", "prefilter", "search", "hash_dist")
@@ -325,14 +326,15 @@ class PauliEngine:
         needed for them. Summed with ``_combine``, as JAX's is. Sharded,
         ``partner_idx`` and ``partner_found`` are this rank's rows of the
         basis's tables, indices into the whole basis."""
-        me = self.matrix_elements(words)
-        (_, la_all, ph_all, v_all), _ = self._whole_set(
-            (words, log_abs, phase, valid))
-        la_p = torch.where(v_all, la_all, NEG)[partner_idx]
-        ph_p = torch.where(v_all, ph_all, 0.0)[partner_idx]
-        found = partner_found & (la_p > 0.5 * NEG) & valid[:, None]
-        return self._reduced(
-            self._combine(me, la_p, ph_p, found, log_abs, phase, valid))
+        with spans.span("eloc.static"):
+            me = self.matrix_elements(words)
+            (_, la_all, ph_all, v_all), _ = self._whole_set(
+                (words, log_abs, phase, valid))
+            la_p = torch.where(v_all, la_all, NEG)[partner_idx]
+            ph_p = torch.where(v_all, ph_all, 0.0)[partner_idx]
+            found = partner_found & (la_p > 0.5 * NEG) & valid[:, None]
+            return self._reduced(
+                self._combine(me, la_p, ph_p, found, log_abs, phase, valid))
 
     def local_energy_sector(
         self, words, log_abs, phase, valid,
@@ -344,6 +346,12 @@ class PauliEngine:
         or a binary search of ``sector_words``; (b) the sampled amplitudes
         scattered into a sector-indexed (N + 1, 2) table; (c) B x M gathers
         of the partners' static sector indices."""
+        with spans.span("eloc.sector"):
+            return self._sector(words, log_abs, phase, valid, sector_words,
+                                partner_idx, partner_found, sector_pos)
+
+    def _sector(self, words, log_abs, phase, valid, sector_words,
+                partner_idx, partner_found, sector_pos):
         me = self.matrix_elements(words)
         n_sector = sector_words.shape[0]
         (w_all, la_all, ph_all, v_all), start = self._whole_set(
@@ -425,16 +433,20 @@ class PauliEngine:
         never match (the VMC step writes all-ones sentinels)."""
         rows = (sorted_words, log_abs, phase, valid)
         if self.membership == "hash_dist":
-            return self._proxy_via_hash_dist(*rows)
+            with spans.span("eloc.hash_dist"):
+                return self._proxy_via_hash_dist(*rows)
         whole, start = self._whole_set(rows)
-        if self.membership == "table":
-            out = self._proxy_via_table2(rows, whole)
-        elif self.membership == "prefilter":
+        if self.membership == "prefilter":
+            # Its stages are spans of their own (pf.*).
             out = self._proxy_via_prefilter(rows, whole, start)
-        elif self.membership == "search":
-            out = self._proxy_via_search(rows, whole)
         else:
-            out = self._proxy_via_hash(rows, whole, start)
+            with spans.span(f"eloc.{self.membership}"):
+                if self.membership == "table":
+                    out = self._proxy_via_table2(rows, whole)
+                elif self.membership == "search":
+                    out = self._proxy_via_search(rows, whole)
+                else:
+                    out = self._proxy_via_hash(rows, whole, start)
         return self._reduced(out)
 
     def _proxy_via_search(self, rows, whole):
@@ -650,6 +662,10 @@ class PauliEngine:
            capacity beyond the dense buffer are counted in
            ``pf_dropped_rows``.
 
+        Each stage is a span (``utils/spans.py``): ``pf.build`` (the
+        tables), ``pf.stage1`` (counting its ``partners``), ``pf.stage2``
+        and ``pf.stage3a`` once a row block, ``pf.stage3b``, ``pf.merge``.
+
         Stages 1-3a run in blocks of ``pf_row_chunk`` rows. The dense buffer
         holds min(``prefilter_dense_rows``, B) rows: at most B rows can be
         over capacity, so the result is JAX's. Sharded, the buffer takes the
@@ -660,59 +676,70 @@ class PauliEngine:
         m = self.n_groups
         dev = words.device
         c_row = min(self.prefilter_row_capacity, m)
-        tab, nb, build_overflow, fptab = self._build_whole(
-            whole, start, b, with_fp=True)
-        keys_m = m - torch.arange(m, dtype=torch.int32, device=dev)
+        with spans.span("pf.build"):
+            tab, nb, build_overflow, fptab = self._build_whole(
+                whole, start, b, with_fp=True)
+            keys_m = m - torch.arange(m, dtype=torch.int32, device=dev)
 
         sums, counts = [], []
         chunk = self.pf_row_chunk or b
         for s in range(0, b, chunk):
             words_c, valid_c = words[s:s + chunk], valid[s:s + chunk]
-            hit = self._fp_candidates(fptab, nb, words_c) & valid_c[:, None]
-            counts.append(torch.sum(hit, dim=1))
-            kvals, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row,
-                                      dim=1)
-            me = self.matrix_elements(words_c)
-            la1, ph1, found1 = self._lookup_rows(tab, words_c, m_idx)
-            sums.append(self._combine_rows(
-                torch.gather(me, 1, m_idx), la1, ph1, found1 & (kvals > 0),
-                phase[s:s + chunk]))
-        row_count = torch.cat(counts)
-        s_re, s_im, found_per_row = (torch.cat(parts) for parts in zip(*sums))
+            with spans.span("pf.stage1"):
+                spans.count("partners", words_c.shape[0] * m)
+                hit = (self._fp_candidates(fptab, nb, words_c)
+                       & valid_c[:, None])
+                counts.append(torch.sum(hit, dim=1))
+            with spans.span("pf.stage2"):
+                kvals, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row,
+                                          dim=1)
+            with spans.span("pf.stage3a"):
+                me = self.matrix_elements(words_c)
+                la1, ph1, found1 = self._lookup_rows(tab, words_c, m_idx)
+                sums.append(self._combine_rows(
+                    torch.gather(me, 1, m_idx), la1, ph1,
+                    found1 & (kvals > 0), phase[s:s + chunk]))
 
         # Stage 3b: the rows over capacity, up to the dense buffer's size.
-        over = valid & (row_count > c_row)
-        n_all = whole[0].shape[0]
-        before = self._flagged_before(over)
-        rows_buf, row_ok, safe_rows = self._dense_rows(over, n_all, before)
-        rw = words[safe_rows]
-        la2, ph2, found2 = self._lookup_rows(tab, rw)
-        dense = self._combine_rows(self.matrix_elements(rw), la2, ph2,
-                                   found2 & row_ok[:, None],
-                                   phase[safe_rows])
+        with spans.span("pf.stage3b"):
+            over = valid & (torch.cat(counts) > c_row)
+            n_all = whole[0].shape[0]
+            before = self._flagged_before(over)
+            rows_buf, row_ok, safe_rows = self._dense_rows(over, n_all,
+                                                           before)
+            rw = words[safe_rows]
+            la2, ph2, found2 = self._lookup_rows(tab, rw)
+            dense = self._combine_rows(self.matrix_elements(rw), la2, ph2,
+                                       found2 & row_ok[:, None],
+                                       phase[safe_rows])
 
         # Merge: dense rows overwrite their truncated stage-3a sums.
-        scatter_to = torch.where(row_ok, rows_buf, b)
-        s_re, s_im, found_per_row = (
-            torch.cat([s1, s1.new_zeros(1)]).index_put_((scatter_to,), s2)[:b]
-            for s1, s2 in zip((s_re, s_im, found_per_row), dense))
+        with spans.span("pf.merge"):
+            s_re, s_im, found_per_row = (torch.cat(parts)
+                                         for parts in zip(*sums))
+            scatter_to = torch.where(row_ok, rows_buf, b)
+            s_re, s_im, found_per_row = (
+                torch.cat([s1, s1.new_zeros(1)]).index_put_(
+                    (scatter_to,), s2)[:b]
+                for s1, s2 in zip((s_re, s_im, found_per_row), dense))
 
-        ratio_scale = torch.exp(torch.clamp(
-            -torch.where(valid, log_abs, 0.0), -60.0, 60.0))
-        a_x = torch.where(valid, torch.exp(log_abs), 0.0)
-        # This rank's flagged rows beyond the buffer's r places.
-        r_buf = min(self.prefilter_dense_rows, n_all)
-        dropped = torch.clamp(torch.sum(over) - max(r_buf - before, 0),
-                              min=0)
-        return LocalEnergies(
-            e_re=torch.where(valid, s_re * ratio_scale + self.constant, 0.0),
-            e_im=torch.where(valid, s_im * ratio_scale, 0.0),
-            found_pairs=torch.sum(torch.where(valid, found_per_row, 0)),
-            t_re=torch.where(valid, self.constant * a_x + s_re, 0.0),
-            t_im=torch.where(valid, s_im, 0.0),
-            table_overflow=build_overflow,
-            pf_dropped_rows=dropped,
-        )
+            ratio_scale = torch.exp(torch.clamp(
+                -torch.where(valid, log_abs, 0.0), -60.0, 60.0))
+            a_x = torch.where(valid, torch.exp(log_abs), 0.0)
+            # This rank's flagged rows beyond the buffer's r places.
+            r_buf = min(self.prefilter_dense_rows, n_all)
+            dropped = torch.clamp(torch.sum(over) - max(r_buf - before, 0),
+                                  min=0)
+            return LocalEnergies(
+                e_re=torch.where(valid, s_re * ratio_scale + self.constant,
+                                 0.0),
+                e_im=torch.where(valid, s_im * ratio_scale, 0.0),
+                found_pairs=torch.sum(torch.where(valid, found_per_row, 0)),
+                t_re=torch.where(valid, self.constant * a_x + s_re, 0.0),
+                t_im=torch.where(valid, s_im, 0.0),
+                table_overflow=build_overflow,
+                pf_dropped_rows=dropped,
+            )
 
     def _flagged_before(self, over) -> int:
         """How many rows of the ranks before this one are flagged (0

@@ -33,7 +33,11 @@ slots the kernel reads, never the result.
 Both report their work to an active ``utils.cost.WorkCounter``
 (``lookup_work``, ``tags_work``) whichever implementation runs; a lookup
 of at least one query reports the tag build it needs on the card on the
-CPU too.
+CPU too. ``hash_lookup`` runs inside ``utils/spans.py``'s span
+``hash_lookup``, whose counters give each launch's shape, on the card and
+on the CPU alike: ``launches``, ``queries``, ``key_words`` (the query
+words given), ``buckets``, ``entries`` (buckets x entries a bucket) and
+``table_words`` (the table's 32-bit words, buckets x (K + 2) E).
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import ctypes
 
 import torch
 
-from ..utils import cost
+from ..utils import cost, spans
 from . import cuda_build
 from .bits import MASK32
 
@@ -248,12 +252,21 @@ def hash_lookup(tab: torch.Tensor, *q_cols, entries: int = ENTRIES):
     (log|psi| (N,) float32, phase (N,) float32, found (N,) bool)."""
     k = key_words(tab, entries)
     cols = _columns(q_cols, k)
-    if cols[0].shape[0]:
-        cost.report("hash_tags", bytes_accessed=tags_work(tab, entries))
-        cost.report("hash_lookup",
-                    bytes_accessed=lookup_work(tab, cols, entries))
-    with cost.suspended():
-        return _hash_lookup(tab, cols, k, entries)
+    n = cols[0].shape[0]
+    with spans.span("hash_lookup"):
+        if n:
+            cost.report("hash_tags", bytes_accessed=tags_work(tab, entries))
+            cost.report("hash_lookup",
+                        bytes_accessed=lookup_work(tab, cols, entries))
+            nb = tab.shape[0]
+            for name, value in (
+                    ("launches", 1), ("queries", n),
+                    ("key_words", n * sum(q is not None for q in cols)),
+                    ("buckets", nb), ("entries", nb * entries),
+                    ("table_words", tab.numel())):
+                spans.count(name, value)
+        with cost.suspended():
+            return _hash_lookup(tab, cols, k, entries)
 
 
 def _hash_lookup(tab, cols, k, entries):

@@ -9,6 +9,8 @@ tensor it launches ``csrc/fused_me.cu`` or raises; on a CPU tensor it runs
 ``matrix_elements_plain``. It counts its launches in
 ``fused_matrix_elements.launches``, and reports the function's work to an
 active ``utils.cost.WorkCounter`` (``me_work``) whichever of the two runs.
+It runs inside ``utils/spans.py``'s span ``fused_matrix_elements``, which
+counts its ``rows``.
 
 ``matrix_elements_plain`` is the JAX package's ``'split'`` form in torch:
 unpack, sign matmul, ``mod 2``, then the three bf16 residual splits of the
@@ -31,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import cost
+from ..utils import cost, spans
 from . import bits as bitops
 from . import cuda_build
 
@@ -271,10 +273,13 @@ def me_work(n_rows: int, n_words: int, tables: MatrixElementTables):
 def fused_matrix_elements(words: torch.Tensor,
                           tables: MatrixElementTables) -> torch.Tensor:
     """(B, W) int64 packed sources -> (B, M) float32 matrix elements."""
-    if words.shape[0]:
-        cost.report("fused_matrix_elements", *me_work(*words.shape, tables))
-    with cost.suspended():
-        return _fused_matrix_elements(words, tables)
+    with spans.span("fused_matrix_elements"):
+        if words.shape[0]:
+            cost.report("fused_matrix_elements",
+                        *me_work(*words.shape, tables))
+            spans.count("rows", words.shape[0])
+        with cost.suspended():
+            return _fused_matrix_elements(words, tables)
 
 
 def _fused_matrix_elements(words, tables):

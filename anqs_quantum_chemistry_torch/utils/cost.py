@@ -32,7 +32,8 @@ version ran. Outside a counter both are no-ops.
 
 ``region(name)`` files the aten ops counted inside it under ``name/``
 (``'minsr_jacobians/aten.mm'``), so that a part of the step reads apart in
-``by_source``.
+``by_source``, and opens ``utils/spans.py``'s ``span(name)``: a region and
+its span share one name.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
+
+from . import spans
 
 BYTES = "bytes accessed"  # JAX's key name
 
@@ -156,13 +159,14 @@ def suspended():
 def region(name: str):
     """File the aten ops counted inside under ``name/`` in every active
     counter (the backward ops too: they read the counter's prefix on
-    whichever thread runs them)."""
+    whichever thread runs them), inside ``spans.span(name)``."""
     counters = _active()
     saved = [counter.prefix for counter in counters]
     for counter in counters:
         counter.prefix = f"{name}/"
     try:
-        yield
+        with spans.span(name):
+            yield
     finally:
         for counter, prefix in zip(counters, saved):
             counter.prefix = prefix

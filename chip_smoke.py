@@ -75,8 +75,8 @@ read after:
   and on e to 1e-6 of the largest |e| over rows with log|psi| > -60 (the
   two combine with different float32 arithmetic, JAX's ``_combine_rows``
   and ``_combine``, so they are not bit-identical). Each prefilter stage
-  (``tools/profile_torch_step.py`` ``prefilter_stages``) and both kernels
-  at its shapes are timed.
+  is timed by its spans (``prefilter_stage_ms``), and both kernels alone
+  at its shapes (``prefilter_kernels``).
 - 5 steps from seed 0, the overflow policy acting after each step as
   ``run`` does: energies finite, 4096 <= ``unique_num`` <= 6144,
   ``table_overflow`` 0, no row dropped from the first step that drops
@@ -1419,16 +1419,64 @@ def host_local_energies(ham, words, valid, la, ph):
     return len(grp), float(energy), h_psi / psi + ham.constant
 
 
-def _profile_tool():
-    """``tools/profile_torch_step.py`` as a module (its prefilter stages)."""
-    import importlib.util
+def prefilter_stage_ms(torch, eng, words, la, ph, valid, reps):
+    """The prefilter's stages on one canonically sorted batch, in the
+    engine's own row blocks, from their spans (``utils/spans.py``): the
+    mean of ``reps`` recorded calls of ``local_energy_proxy`` after one
+    warm-up call. Returns {'pf.build', 'pf.stage1', 'pf.stage2',
+    'pf.stage3a', 'pf.stage3b', 'pf.merge': device ms a call, summed over
+    the row blocks}."""
+    from anqs_quantum_chemistry_torch.utils import spans
 
-    spec = importlib.util.spec_from_file_location(
-        "profile_torch_step",
-        os.path.join(ROOT, "tools", "profile_torch_step.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    with torch.no_grad():
+        eng.local_energy_proxy(words, la, ph, valid)
+        with spans.recording() as rec:
+            for _ in range(reps):
+                eng.local_energy_proxy(words, la, ph, valid)
+    return {name: e["device_ms"] for name, e in rec.summary(reps).items()
+            if name.startswith("pf.")}
+
+
+def prefilter_kernels(torch, eng, words, la, ph, valid):
+    """Kernels #1 and #2 alone at the prefilter's shapes on one
+    canonically sorted batch (``PauliEngine._proxy_via_prefilter`` at the
+    engine's capacities, the batch as one row block), each on its stage's
+    real inputs: {'kernel1_3a': kernel #1 on the batch, 'kernel1_3b': on
+    the dense rows, 'kernel2_3a': kernel #2 on stage 3a's B x c_row
+    queries, 'kernel2_3b': on the dense rows' partners: a callable each},
+    and {'kernel2_3a', 'kernel2_3b': query count, 'rows_3b': dense rows}."""
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        as_int32,
+        hash_lookup,
+    )
+
+    m = eng.n_groups
+    with torch.no_grad():
+        tab, nb, _, fptab = eng._hash_build(words, la, ph, valid,
+                                            with_fp=True)
+        hit = eng._fp_candidates(fptab, nb, words) & valid[:, None]
+        c_row = min(eng.prefilter_row_capacity, m)
+        keys_m = m - torch.arange(m, dtype=torch.int32, device=words.device)
+        _, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row, dim=1)
+        over = valid & (torch.sum(hit, dim=1) > c_row)
+        _, _, safe_rows = eng._dense_rows(over)
+        rw = words[safe_rows]
+
+    def queries(rows, idx=None):
+        w32, a32 = as_int32(rows), as_int32(eng.a_words)
+        return [(w32[:, None, i] ^ (a32[:, i][idx] if idx is not None
+                                    else a32[None, :, i])).reshape(-1)
+                for i in range(rows.shape[1])]
+
+    q3a, q3b = queries(words, m_idx), queries(rw)
+    kernels = {
+        "kernel1_3a": lambda: eng.matrix_elements(words),
+        "kernel1_3b": lambda: eng.matrix_elements(rw),
+        "kernel2_3a": lambda: hash_lookup(tab, *q3a, entries=eng.hash_epb),
+        "kernel2_3b": lambda: hash_lookup(tab, *q3b, entries=eng.hash_epb),
+    }
+    return kernels, {"kernel2_3a": q3a[0].numel(),
+                     "kernel2_3b": q3b[0].numel(), "rows_3b": rw.shape[0]}
 
 
 def c2h4_membership_phase(torch, vmc):
@@ -1496,11 +1544,10 @@ def c2h4_membership_phase(torch, vmc):
     for field, (d, m, _) in diffs.items():
         check(d <= 1e-6 * m, f"C2H4: prefilter {field} disagrees with hash")
 
-    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
-                                                       valid)
-    times = {}
+    times = prefilter_stage_ms(torch, eng, words, la, ph, valid, reps=5)
+    kernels, queries = prefilter_kernels(torch, eng, words, la, ph, valid)
     with torch.no_grad():
-        for name, fn in stages.items():
+        for name, fn in kernels.items():
             times[name] = cuda_ms(fn, reps=5, warmup=1)
         times["prefilter_total_ms"] = cuda_ms(
             lambda: eng.local_energy_proxy(words, la, ph, valid), reps=5,
@@ -1517,9 +1564,9 @@ def c2h4_membership_phase(torch, vmc):
         _, bytes_ms, ops_ms = lookup_bound(queries[stage], 2, tab)
         bounds[stage] = max(bytes_ms, ops_ms)
         log(f"kernel hash_lookup at the C2H4 {stage[-2:]} shape: "
-            f"{times[stage + '_ms']:.4f} ms, bound {bounds[stage] * 1e3:.2f}"
+            f"{times[stage]:.4f} ms, bound {bounds[stage] * 1e3:.2f}"
             f" us ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-            f"{times[stage + '_ms'] / bounds[stage]:.2f}x), nb "
+            f"{times[stage] / bounds[stage]:.2f}x), nb "
             f"{tab.shape[0]}")
     return {"capacities": levels, "rows": int(valid.sum()),
             "queries": queries, "stage_ms": times, "lookup_bound_ms": bounds,
@@ -1599,32 +1646,27 @@ def c2h4_trainer_phase(torch):
 
 def li2o_nade_kernel_figures(torch, vmc, snap, label="Li2O NADE"):
     """Kernels #1 and #2 at the two prefilter shapes of one set (``snap``;
-    Li2O NADE's by default): their device times
-    (``tools/profile_torch_step.py`` ``prefilter_stages``) beside their
-    bounds."""
+    Li2O NADE's by default): their device times, each alone
+    (``prefilter_kernels``), beside their bounds."""
     eng = vmc.engine
     words, valid, la, ph = snap
-    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
-                                                       valid)
+    kernels, queries = prefilter_kernels(torch, eng, words, la, ph, valid)
+    with torch.no_grad():
+        ms = {name: cuda_ms(fn, reps=10) for name, fn in kernels.items()}
     tab = eng._hash_build(words, la, ph, valid)[0]
     figures = {"rows_3a": int(words.shape[0]), **queries}
-    with torch.no_grad():
-        for key, rows, name in (("3a", words, "kernel1_me_ms"),
-                                ("3b", words[:queries["rows_3b"]],
-                                 "kernel1_me_3b_ms")):
-            ms = cuda_ms(stages[name], reps=10)
-            _, bytes_ms, ops_ms = me_bound(rows, eng.me_tables)
-            figures[f"kernel1_{key}"] = {
-                "B": int(rows.shape[0]), "ms": ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-            ms = cuda_ms(stages[f"kernel2_{key}_ms"], reps=10)
-            _, bytes_ms, ops_ms = lookup_bound(queries[f"kernel2_{key}"],
-                                               words.shape[1], tab)
-            figures[f"kernel2_{key}"] = {
-                "Q": queries[f"kernel2_{key}"], "ms": ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    for key, rows in (("3a", words), ("3b", words[:queries["rows_3b"]])):
+        _, bytes_ms, ops_ms = me_bound(rows, eng.me_tables)
+        figures[f"kernel1_{key}"] = {
+            "B": int(rows.shape[0]), "ms": ms[f"kernel1_{key}"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        _, bytes_ms, ops_ms = lookup_bound(queries[f"kernel2_{key}"],
+                                           words.shape[1], tab)
+        figures[f"kernel2_{key}"] = {
+            "Q": queries[f"kernel2_{key}"], "ms": ms[f"kernel2_{key}"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     for key in ("kernel1_3a", "kernel1_3b", "kernel2_3a", "kernel2_3b"):
         f = figures[key]
         log(f"{label} {key}: {f['ms']:.4f} ms, bound "
@@ -3464,14 +3506,14 @@ def cr2_phase(torch):
           "Cr2: the prefilter dropped rows")
     check(all(d <= 1e-6 * t_max for d in diffs.values()),
           "Cr2: the memberships' t disagree")
-    stages, queries = _profile_tool().prefilter_stages(eng, words, la, ph,
-                                                       valid)
+    stage_ms = prefilter_stage_ms(torch, eng, words, la, ph, valid, reps=2)
+    kernels, queries = prefilter_kernels(torch, eng, words, la, ph, valid)
     with torch.no_grad():
-        stage_ms = {name: cuda_ms(fn, reps=2, warmup=1)
-                    for name, fn in stages.items()}
-    log(f"Cr2 prefilter stages (device ms, mean of 2, the set as one row "
-        f"block; Q 3a {queries['kernel2_3a']}, Q 3b "
-        f"{queries['kernel2_3b']}): " + ", ".join(
+        for name, fn in kernels.items():
+            stage_ms[name] = cuda_ms(fn, reps=2, warmup=1)
+    log(f"Cr2 prefilter stages (device ms, mean of 2, in the engine's row "
+        f"blocks; the kernels alone, the set as one block; Q 3a "
+        f"{queries['kernel2_3a']}, Q 3b {queries['kernel2_3b']}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stage_ms.items()))
     figures.update(membership_s=totals, stage_ms=stage_ms, queries=queries,
                    found_pairs=pairs.pop())
@@ -3815,12 +3857,12 @@ def main():
     me_entry["n2_exact_step_s"] = exact_times["exact_step_s"]
     me_entry["n2_full_energy_s"] = exact_times["full_energy_s"]
     stage_ms = c2h4_figures["stage_ms"]
-    me_entry["ms_c2h4_prefilter_batch"] = stage_ms["kernel1_me_ms"]
+    me_entry["ms_c2h4_prefilter_batch"] = stage_ms["kernel1_3a"]
     hash_entry["c2h4_prefilter"] = {
         f"{key}_{stage}": value for stage in ("3a", "3b")
         for key, value in (
             ("Q", c2h4_figures["queries"][f"kernel2_{stage}"]),
-            ("ms", stage_ms[f"kernel2_{stage}_ms"]),
+            ("ms", stage_ms[f"kernel2_{stage}"]),
             ("bound_ms", c2h4_figures["lookup_bound_ms"][
                 f"kernel2_{stage}"]))}
     me_entry["li2o_nade_prefilter"] = {

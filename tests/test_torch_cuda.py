@@ -649,3 +649,28 @@ def test_prefilter_repeats_bit_for_bit_on_card(cuda):
             g, w = getattr(out, field), getattr(first_out, field)
             assert torch.equal(_bits(torch.as_tensor(g)),
                                _bits(torch.as_tensor(w))), (rep, field)
+
+
+@pytest.mark.cuda
+def test_spans_count_host_syncs_on_card(cuda):
+    """A recorded N2 step (the main path) on the card: the step makes
+    synchronizing calls, each put down to an open span (the read-back to
+    ``vmc.update``), device ms by CUDA events, and the sync debug mode
+    back at its setting afterwards."""
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+    from anqs_quantum_chemistry_torch.utils import spans
+
+    vmc = main_path_vmc(device="cuda")
+    state = vmc.init_state()
+    vmc.step(state)
+    mode = torch.cuda.get_sync_debug_mode()
+    with spans.recording() as rec:
+        vmc.step(state)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert rec.cuda and rec.steps == 1
+    summary = rec.summary(1)
+    syncs = sum(e["syncs"] for e in summary.values())
+    print({name: e["syncs"] for name, e in summary.items() if e["syncs"]})
+    assert syncs > 0 and summary["vmc.update"]["syncs"] >= 1
+    step = summary["vmc.step"]
+    assert 0 < step["device_ms"] and step["self_ms"] <= step["device_ms"]

@@ -5,10 +5,10 @@ the C2H4 and Li2O campaigns' entry points, and the host chemistry layer
 with direct CI and the dissociation and ladder entry points, the ensembles,
 the dense-state oracle and the exact top-k, the spin chains, the run-series
 and result-processing tools and the last three example entry points, the
-data-parallel mesh, the sharded hash membership, the multi-rank dry run and
-the step's work counter among them), ``chip_smoke.py`` and
-``tools/profile_torch_step.py`` import in a process where ``jax`` and the
-JAX package cannot be imported (the machine with the card has no JAX).
+data-parallel mesh, the sharded hash membership, the multi-rank dry run,
+the step's work counter and its spans among them) and ``chip_smoke.py``
+import in a process where ``jax`` and the JAX package cannot be imported
+(the machine with the card has no JAX).
 The result-processing tools also run where pandas and matplotlib cannot be
 imported (that machine has neither)."""
 
@@ -19,7 +19,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import importlib, importlib.util, pkgutil, sys
+import importlib, pkgutil, sys
 for name in ("jax", "jaxlib", "orbax", "anqs_quantum_chemistry_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import anqs_quantum_chemistry_torch as pkg
@@ -28,9 +28,6 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-spec = importlib.util.spec_from_file_location(
-    "profile_torch_step", "tools/profile_torch_step.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in ("jax", "jaxlib", "orbax")]
 assert not loaded, loaded
@@ -79,6 +76,7 @@ REQUIRED = (
     "anqs_quantum_chemistry_torch.experiments.li2o_toy_model",
     "anqs_quantum_chemistry_torch.experiments.toy_model_walkthrough",
     "anqs_quantum_chemistry_torch.utils.cost",
+    "anqs_quantum_chemistry_torch.utils.spans",
     "anqs_quantum_chemistry_torch.parallel.mesh",
     "anqs_quantum_chemistry_torch.parallel.dist_membership",
     "anqs_quantum_chemistry_torch.experiments.dryrun_multichip",

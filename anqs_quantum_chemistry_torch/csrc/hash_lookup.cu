@@ -66,6 +66,49 @@
 // a thread holds half the queries (QPT 4), so that K words of each stay in
 // registers at three blocks an SM.
 //
+// Kernel #3, fp_filter_kernel: the prefilter's stage 1
+// (PauliEngine._fp_candidates; plain version ops/hash_lookup.py
+// fp_filter_plain). It replaces no Pallas kernel: the JAX package runs
+// this pass in XLA (PauliEngine._proxy_via_prefilter's fp_probe). For rows
+// x_r (B, W) and group masks A_m (W, M) it writes the (B, M) bool mask
+// hit[r, m] = some slot of bucket bucket_hash(x_r ^ A_m) & (nb - 1) of the
+// (nb, E) fingerprint table holds fp_hash(x_r ^ A_m), the table's
+// fingerprints being PauliEngine._hash_build(with_fp=True)'s (0 = empty
+// slot; a fingerprint is never 0). The JAX engine's own formulation:
+// gather the bucket's E fingerprints, compare the lanes. Kernel and plain
+// version answer the same question on the same integer hashes, so they
+// agree bit for bit.
+//
+// What binds it on the H100: integer instructions on the INT32 pipe. Cr2
+// (B 128 a row block, M 471,774, K 3, E 16) is 60.4M partners a launch.
+// In the SASS of fp_filter_kernel<3, 16, true> the hashing and the compares
+// of a partner take 57 instructions: 11 multiplies (IMAD, the FMA pipe;
+// mix2's and fp32's first multiply share their constant) and 46 logic,
+// shift and compare instructions (LOP3 with the XORs folded three inputs
+// at a time, SHF, ISETP.EQ.OR folding the OR over the E slots into the
+// predicate, PLOP3, SEL) on the INT32 pipe, 64 lanes an SM: 0.17 ms at
+// 132 SMs x 1.98 GHz. Its bytes, the (B, M) mask written once and the
+// masks read once, take 0.02 ms at 3.35 TB/s. The design spends little
+// but those instructions:
+//
+// - A thread owns FP_GROUPS groups, FP_THREADS apart, so that each store
+//   of a warp writes 32 consecutive bytes of a mask row; it keeps their K
+//   mask words in registers (read once, coalesced, from the planar int32
+//   columns the engine converts once) and loops over FP_ROWS rows, whose
+//   words all threads read at one address (a broadcast from L1). Both
+//   hashes run in wrapping uint32 (native 32-bit multiplies); nothing
+//   intermediate goes to memory and nothing is sorted.
+// - The table in shared memory where it fits: up to the wrapper's
+//   FP_SMEM_BYTES (64 KB; Cr2's nb 512 x E 16 is 32 KB) each persistent
+//   block copies the whole (nb, E) table in once (cp.async); above it the
+//   probes read it from global memory (L2). Both tiers run the same code,
+//   E / 4 16-B loads a probe; only where they load from differs. The
+//   wrapper chooses the tier from the table's shape.
+// - The grid is one wave: as many blocks as the card holds at once, each
+//   taking a contiguous run of (group tile, row slice) items, tile-major,
+//   so that a block reloads its mask words only when its tile changes and
+//   the runs differ by at most one item (a tail of under 1% at Cr2).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/cuda_build.py); called through ctypes.
 
@@ -103,6 +146,26 @@ __device__ __forceinline__ uint32_t bucket_hash(const uint32_t (&key)[K]) {
   uint32_t acc = mix2(key[0], key[1]);
 #pragma unroll
   for (int j = 2; j < K; ++j) acc = mix2(acc, key[j]);
+  return acc;
+}
+
+// PauliEngine._fp32 in wrapping uint32 arithmetic (never 0).
+__device__ __forceinline__ uint32_t fp32(uint32_t lo, uint32_t hi) {
+  uint32_t acc = lo * 0x9E3779B1u;
+  acc ^= acc >> 16;
+  acc = (acc ^ hi) * 0x85EBCA77u;
+  acc ^= acc >> 13;
+  acc *= 0xC2B2AE3Du;
+  acc ^= acc >> 16;
+  return acc | 1u;
+}
+
+// PauliEngine._fp_hash: fp32 of the first two words, folded left.
+template <int K>
+__device__ __forceinline__ uint32_t fp_hash(const uint32_t (&key)[K]) {
+  uint32_t acc = fp32(key[0], key[1]);
+#pragma unroll
+  for (int j = 2; j < K; ++j) acc = fp32(acc, key[j]);
   return acc;
 }
 
@@ -315,6 +378,149 @@ int lookup(const void* tab, const void* tags, int n_buckets,
                                               la, ph, found, n, stream);
 }
 
+constexpr int FP_THREADS = 256;
+constexpr int FP_MIN_BLOCKS = 4;
+constexpr int FP_GROUPS = 4;  // groups a thread owns
+constexpr int FP_ROWS = 16;   // rows of a work item
+constexpr int FP_TILE = FP_THREADS * FP_GROUPS;
+
+// Whether one of the E fingerprints of `bucket` equals f: E / 4 16-B loads
+// from shared memory (STAGED) or through the read-only path. Each lane
+// starts at another of the row's vectors: a row is E * 4 B, so vector v of
+// every bucket lies in the same banks (E 32: one 128-B bank line a row),
+// and a quarter-warp reading vector v of 8 buckets at once would conflict
+// up to 8 ways; rotated, its lanes read 8 different vectors at E 32.
+template <int E, bool STAGED>
+__device__ __forceinline__ bool fp_probe(const uint32_t* fps, uint32_t bucket,
+                                         uint32_t f) {
+  constexpr int NV = E / 4;
+  const uint4* p = reinterpret_cast<const uint4*>(fps) + bucket * NV;
+  const int rot = static_cast<int>(threadIdx.x);
+  bool any = false;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int i = (v + rot) & (NV - 1);
+    uint4 x;
+    if constexpr (STAGED) {
+      x = p[i];
+    } else {
+      x = __ldg(p + i);
+    }
+    any |= (x.x == f) | (x.y == f) | (x.z == f) | (x.w == f);
+  }
+  return any;
+}
+
+// Rows carry n_words key words: K of them, or one at K 2 (one-word keys,
+// whose high word is 0, chosen at run time). Rows are int64 words in
+// [0, 2^32): their low 32 bits are the word.
+template <int K, int E, bool STAGED>
+__global__ void __launch_bounds__(FP_THREADS, FP_MIN_BLOCKS)
+fp_filter_kernel(const uint32_t* __restrict__ fptab,  // (nb, E)
+                 uint32_t bucket_mask,                // nb - 1
+                 const long long* __restrict__ words, // (B, n_words)
+                 const uint32_t* __restrict__ a_cols, // (n_words, M)
+                 int n_words, int n_rows, int n_groups,
+                 bool* __restrict__ hits) {           // (B, M)
+  extern __shared__ uint4 staged[];
+  const uint32_t* fps = fptab;
+  if constexpr (STAGED) {
+    const int n_vec = static_cast<int>(bucket_mask + 1) * E / 4;
+    const uint4* src = reinterpret_cast<const uint4*>(fptab);
+    for (int i = threadIdx.x; i < n_vec; i += FP_THREADS) {
+      const uint32_t dst =
+          static_cast<uint32_t>(__cvta_generic_to_shared(staged + i));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(src + i)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    fps = reinterpret_cast<const uint32_t*>(staged);
+  }
+  // Known at compile time above K 2, so the word tests below fold away.
+  const int nw = K == 2 ? n_words : K;
+
+  const int n_slices = (n_rows + FP_ROWS - 1) / FP_ROWS;
+  const long long items =
+      static_cast<long long>((n_groups + FP_TILE - 1) / FP_TILE) * n_slices;
+  const long long first = items * blockIdx.x / gridDim.x;
+  const long long last = items * (blockIdx.x + 1) / gridDim.x;
+  long long loaded = -1;
+  uint32_t a[FP_GROUPS][K];
+  for (long long item = first; item < last; ++item) {
+    const long long tile = item / n_slices;
+    const int slice = static_cast<int>(item % n_slices);
+    const long long m0 = tile * FP_TILE + threadIdx.x;
+    if (tile != loaded) {
+#pragma unroll
+      for (int g = 0; g < FP_GROUPS; ++g) {
+        const long long m = m0 + g * FP_THREADS;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          a[g][j] = m < n_groups && j < nw
+                        ? __ldg(a_cols + j * static_cast<long long>(
+                                             n_groups) + m)
+                        : 0u;
+      }
+      loaded = tile;
+    }
+    const int r_end = min(n_rows, (slice + 1) * FP_ROWS);
+    for (int r = slice * FP_ROWS; r < r_end; ++r) {
+      uint32_t x[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        x[j] = j < nw ? static_cast<uint32_t>(__ldg(
+                            words + static_cast<long long>(r) * nw + j))
+                      : 0u;
+      bool* out = hits + static_cast<long long>(r) * n_groups;
+#pragma unroll
+      for (int g = 0; g < FP_GROUPS; ++g) {
+        uint32_t key[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) key[j] = x[j] ^ a[g][j];
+        const bool hit = fp_probe<E, STAGED>(
+            fps, bucket_hash<K>(key) & bucket_mask, fp_hash<K>(key));
+        const long long m = m0 + g * FP_THREADS;
+        if (m < n_groups) out[m] = hit;
+      }
+    }
+  }
+}
+
+template <int K, int E, bool STAGED>
+int launch_fp_filter(const void* fptab, int n_buckets, const void* words,
+                     const void* a_cols, int n_words, int n_rows,
+                     int n_groups, void* hits, cudaStream_t stream) {
+  const auto kernel = fp_filter_kernel<K, E, STAGED>;
+  const int smem = STAGED ? n_buckets * E * 4 : 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      FP_THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long items =
+      static_cast<long long>((n_groups + FP_TILE - 1) / FP_TILE) *
+      ((n_rows + FP_ROWS - 1) / FP_ROWS);
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const int blocks = static_cast<int>(items < resident ? items : resident);
+  kernel<<<blocks, FP_THREADS, smem, stream>>>(
+      static_cast<const uint32_t*>(fptab),
+      static_cast<uint32_t>(n_buckets - 1),
+      static_cast<const long long*>(words),
+      static_cast<const uint32_t*>(a_cols), n_words, n_rows, n_groups,
+      static_cast<bool*>(hits));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int K, int E>
 int build_tags(const void* tab, int n_buckets, void* out,
                cudaStream_t stream) {
@@ -383,6 +589,28 @@ struct LookupCall {
   }
 };
 
+struct FilterCall {
+  const void* fptab;
+  int n_buckets;
+  const void* words;
+  const void* a_cols;
+  int n_words;
+  int n_rows;
+  int n_groups;
+  bool staged;
+  void* hits;
+  cudaStream_t stream;
+  template <int K, int E>
+  int run() const {
+    return staged ? launch_fp_filter<K, E, true>(fptab, n_buckets, words,
+                                                 a_cols, n_words, n_rows,
+                                                 n_groups, hits, stream)
+                  : launch_fp_filter<K, E, false>(fptab, n_buckets, words,
+                                                  a_cols, n_words, n_rows,
+                                                  n_groups, hits, stream);
+  }
+};
+
 }  // namespace
 
 // Bytes of tags up to which the lookup stages them in shared memory.
@@ -419,4 +647,23 @@ extern "C" int hash_lookup_launch(const void* tab, const void* tag_bytes,
   return dispatch(n_keys, entries,
                   LookupCall{tab, tag_bytes, n_buckets, queries, la, ph,
                              found, n, static_cast<cudaStream_t>(stream)});
+}
+
+// Writes the (n_rows, n_groups) bool mask of kernel #3 on `stream`: for
+// rows `words` ((n_rows, n_words) int64) and masks `a_cols` ((n_words,
+// n_groups) int32), whether each partner's bucket of `fptab` ((n_buckets,
+// entries) int32, of keys of max(n_words, 2) words) holds its fingerprint;
+// `staged` puts the table in shared memory. Returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int fp_filter_launch(const void* fptab, int n_buckets,
+                                int entries, const void* words, int n_words,
+                                const void* a_cols, int n_rows, int n_groups,
+                                int staged, void* hits, void* stream) {
+  if (n_rows <= 0 || n_groups <= 0 || n_words < 1 ||
+      !valid_buckets(n_buckets))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(n_words > 2 ? n_words : 2, entries,
+                  FilterCall{fptab, n_buckets, words, a_cols, n_words, n_rows,
+                             n_groups, staged != 0, hits,
+                             static_cast<cudaStream_t>(stream)});
 }

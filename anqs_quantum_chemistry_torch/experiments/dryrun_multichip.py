@@ -28,7 +28,7 @@ process misses, equal values where found) and ``n2_run`` (N2 through
 ``run()``, 6 steps in windows of 3: rank 0's rows against one process's,
 every column to 1e-5 + 1e-4 |a|, each column's largest difference
 reported). Every leg reports its ms a step and the launches of kernel #1,
-kernel #2 and the tag build on each rank; ``n2`` also the time of the
+kernel #2, the tag build and kernel #3 on each rank; ``n2`` also the time of the
 trainer's per-step replica check.
 
     python -m anqs_quantum_chemistry_torch.experiments.dryrun_multichip \\
@@ -128,11 +128,12 @@ def _sync(device):
 
 
 def _kernels():
-    from ..ops.hash_lookup import hash_lookup, hash_tags
+    from ..ops.hash_lookup import fp_filter, hash_lookup, hash_tags
     from ..ops.matrix_elements import fused_matrix_elements
 
     return {"fused_matrix_elements": fused_matrix_elements,
-            "hash_lookup": hash_lookup, "hash_tags": hash_tags}
+            "hash_lookup": hash_lookup, "hash_tags": hash_tags,
+            "fp_filter": fp_filter}
 
 
 def _counted(fn, device):

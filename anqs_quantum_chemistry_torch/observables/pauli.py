@@ -20,7 +20,8 @@ from the sampled set alone (``local_energy_proxy``): a
 ``hash_epb`` 8 or 16; 16 above; the lookup is ``ops/hash_lookup.py``, the
 CUDA kernel on the card), or cheap-first through the same table
 (``membership='prefilter'``, the JAX engine's choice above 22 qubits): a
-32-bit fingerprint pass over every partner, per-row compaction of the
+32-bit fingerprint pass over every partner (``ops/hash_lookup.py``
+``fp_filter``, kernel #3 on the card), per-row compaction of the
 candidates, and exact verification of the survivors by the lookup kernel,
 with a dense fallback for rows over capacity; or by a binary search of the
 sorted set (``membership='search'``, any width, the JAX engine's choice
@@ -84,9 +85,6 @@ HASH_EPBS = (8, 16, 32)
 # 'grouped' where the dense (T, M) operand would exceed 2^29 elements.
 WEIGHTS_MATMULS = ("auto", "split", "grouped")
 GROUPED_MIN_ELEMENTS = 1 << 29
-# Partner queries a pass of the prefilter's fingerprint probe: bounds its
-# (chunk, 32) int32 row gather at 1 GB.
-FP_QUERY_CHUNK = 1 << 23
 # Partner queries a row block of the search membership: bounds its (chunk,
 # W) int64 query array and the search's temporaries at a few GB.
 SEARCH_QUERY_CHUNK = 1 << 24
@@ -240,6 +238,8 @@ class PauliEngine:
         self.a_words = torch.from_numpy(
             np.asarray(ham.a_masks).astype(np.int64)
         ).to(device)  # (M, W)
+        # (W, M) int32: the masks as planar columns for kernel #3.
+        self.a_cols = hashops.as_int32(self.a_words).T.contiguous()
         self.me_tables = build_tables(ham, device)
         # (M,) float32 phase of each group, None for a real Hamiltonian.
         self.group_phase = (
@@ -401,28 +401,12 @@ class PauliEngine:
         hash that the lookup kernel computes)."""
         return hashops.bucket_hash(cls._padded_cols(cols))
 
-    @staticmethod
-    def _fp32(lo, hi):
-        """Independent 32-bit key fingerprint of two uint32 words held in
-        int64 (JAX ``_fp32``, constants distinct from the bucket hash);
-        never 0, the empty-slot value."""
-        acc = hashops.mul32(lo, 0x9E3779B1)
-        acc = acc ^ (acc >> 16)
-        acc = hashops.mul32(acc ^ hi, 0x85EBCA77)
-        acc = acc ^ (acc >> 13)
-        acc = hashops.mul32(acc, 0xC2B2AE3D)
-        acc = acc ^ (acc >> 16)
-        return acc | 1
-
     @classmethod
     def _fp_hash(cls, cols):
-        """Fingerprint over W key words (JAX ``_fp_hash``): ``_fp32(lo,
-        hi)`` for W <= 2."""
-        cols = cls._padded_cols(cols)
-        acc = cls._fp32(cols[0], cols[1])
-        for c in cols[2:]:
-            acc = cls._fp32(acc, c)
-        return acc
+        """Fingerprint over W key words (JAX ``_fp_hash``): ``fp32(lo,
+        hi)`` for W <= 2, folded left over any extra words
+        (``hashops.fp_hash``, the hash that kernel #3 computes)."""
+        return hashops.fp_hash(cls._padded_cols(cols))
 
     def local_energy_proxy(self, sorted_words, log_abs, phase,
                            valid) -> LocalEnergies:
@@ -601,34 +585,13 @@ class PauliEngine:
         fptab[row, lane] = hashops.as_int32(self._fp_hash(cols))
         return tab[:nb].view(torch.float32), nb, overflow_count, fptab[:nb]
 
-    def _fp_candidates(self, fptab, nb, words):
+    def _fp_candidates(self, fptab, words):
         """Stage 1 of the prefilter: (B, M) bool, whether any entry of the
-        bucket of partner x ^ A_m has its fingerprint -- no false negatives
-        against the table, ~E / 2^32 false positives a partner. In passes
-        of about ``FP_QUERY_CHUNK`` partners.
-
-        JAX gathers the bucket's (E,) fingerprint row a partner and
-        compares its lanes; here the same question is one binary search of
-        the key bucket * 2^32 + fingerprint among the table's sorted slot
-        keys (an empty slot's fingerprint, 0, is never a partner's), which
-        answers alike without the (chunk, E) gather."""
-        b, w = words.shape
-        m = self.n_groups
-        dev = words.device
-        slots = ((torch.arange(nb, device=dev)[:, None] << 32)
-                 | (fptab.to(torch.int64) & bitops.MASK32)).reshape(-1)
-        slots = torch.sort(slots).values
-        hits = torch.empty((b, m), dtype=torch.bool, device=dev)
-        step = max(1, FP_QUERY_CHUNK // m)
-        for s in range(0, b, step):
-            cols = tuple(words[s:s + step, i, None] ^ self.a_words[None, :, i]
-                         for i in range(w))
-            key = ((self._bucket_hash(cols) & (nb - 1)) << 32) | (
-                self._fp_hash(cols))
-            pos = torch.clamp(torch.searchsorted(slots, key),
-                              max=slots.numel() - 1)
-            hits[s:s + step] = slots[pos] == key
-        return hits
+        bucket of partner x ^ A_m of the (nb, E) fingerprint table has its
+        fingerprint -- no false negatives against the table, ~E /
+        2^32 false positives a partner (``hashops.fp_filter``: kernel #3 on
+        the card, ``fp_filter_plain`` on the CPU)."""
+        return hashops.fp_filter(fptab, words.contiguous(), self.a_cols)
 
     def _lookup_rows(self, tab, words, m_idx=None):
         """Exact lookups of partners x ^ A_m of each row of ``words``: of
@@ -648,8 +611,9 @@ class PauliEngine:
         """Cheap-first membership (JAX ``pauli.py:907-1084``) of the
         ``rows`` against the ``whole`` set:
 
-        1. fingerprint pass over all (B, M) partners (``_fp_candidates``,
-           plain torch: XLA in the JAX package, not Pallas);
+        1. fingerprint pass over all (B, M) partners (``_fp_candidates``:
+           kernel #3, which replaces no Pallas kernel -- XLA in the JAX
+           package);
         2. per-row compaction: the first ``c_row = min(row capacity, M)``
            candidate groups of each row, in ascending group order (top-k of
            the keys m - idx);
@@ -663,7 +627,8 @@ class PauliEngine:
            ``pf_dropped_rows``.
 
         Each stage is a span (``utils/spans.py``): ``pf.build`` (the
-        tables), ``pf.stage1`` (counting its ``partners``), ``pf.stage2``
+        tables), ``pf.stage1`` (counting its ``partners``; kernel #3's
+        span ``fp_filter`` inside), ``pf.stage2``
         and ``pf.stage3a`` once a row block, ``pf.stage3b``, ``pf.merge``.
 
         Stages 1-3a run in blocks of ``pf_row_chunk`` rows. The dense buffer
@@ -687,7 +652,7 @@ class PauliEngine:
             words_c, valid_c = words[s:s + chunk], valid[s:s + chunk]
             with spans.span("pf.stage1"):
                 spans.count("partners", words_c.shape[0] * m)
-                hit = (self._fp_candidates(fptab, nb, words_c)
+                hit = (self._fp_candidates(fptab, words_c)
                        & valid_c[:, None])
                 counts.append(torch.sum(hit, dim=1))
             with spans.span("pf.stage2"):

@@ -30,8 +30,20 @@ call: the top byte of the slot key's ``bucket_hash`` moved into 1..255,
 and 0 for an empty slot (``hash_tags_plain``). The tags only decide which
 slots the kernel reads, never the result.
 
-Both report their work to an active ``utils.cost.WorkCounter``
-(``lookup_work``, ``tags_work``) whichever implementation runs; a lookup
+``fp_filter(fptab, words, a_cols)`` is the prefilter's stage 1 (kernel
+#3, ``fp_filter_kernel`` of the same source): for rows ``words`` (B, W)
+and group masks ``a_cols`` (W, M), whether some slot of the bucket of each
+partner x ^ A_m in the (nb, E) fingerprint table holds the partner's
+``fp_hash`` -- a (B, M) bool mask, bit for bit ``fp_filter_plain``. It
+counts its launches in ``fp_filter.launches``, runs inside the span
+``fp_filter`` with the counters ``fp_launches`` and ``fp_smem_launches``
+(calls whose table fits ``FP_SMEM_BYTES``, which the kernel stages in
+shared memory; the others it probes in global memory). Its partners are
+the enclosing ``pf.stage1``'s ``partners``.
+
+All three report their work to an active ``utils.cost.WorkCounter``
+(``lookup_work``, ``tags_work``, ``filter_work``: bytes alone, the
+integer hashing counting no flops) whichever implementation runs; a lookup
 of at least one query reports the tag build it needs on the card on the
 CPU too. ``hash_lookup`` runs inside ``utils/spans.py``'s span
 ``hash_lookup``, whose counters give each launch's shape, on the card and
@@ -59,6 +71,13 @@ LAYOUTS = ((2, 32), (2, 16), (2, 8), (3, 16), (4, 16))
 # Queries per pass of the plain version: bounds its (chunk, 128) row
 # gather at 2 GB (the JAX engine's default ``lookup_chunk``).
 PLAIN_CHUNK = 1 << 22
+# Partners a pass of ``fp_filter_plain``: bounds its int64 (chunk,)
+# temporaries at 64 MB each.
+FP_QUERY_CHUNK = 1 << 23
+# Bytes of fingerprint table (nb x E x 4) up to which kernel #3 stages the
+# table in shared memory (Cr2: nb 512 x E 16 = 32 KB); above, its probes
+# read global memory (L2).
+FP_SMEM_BYTES = 64 * 1024
 
 
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -88,6 +107,29 @@ def bucket_hash(cols) -> torch.Tensor:
     acc = mix2(cols[0], cols[1])
     for c in cols[2:]:
         acc = mix2(acc, c)
+    return acc
+
+
+def fp32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """32-bit key fingerprint of two uint32 words held in int64, bit for
+    bit the JAX package's ``PauliEngine._fp32`` (constants distinct from
+    the bucket hash); never 0, the empty-slot value."""
+    acc = mul32(lo, 0x9E3779B1)
+    acc = acc ^ (acc >> 16)
+    acc = mul32(acc ^ hi, 0x85EBCA77)
+    acc = acc ^ (acc >> 13)
+    acc = mul32(acc, 0xC2B2AE3D)
+    acc = acc ^ (acc >> 16)
+    return acc | 1
+
+
+def fp_hash(cols) -> torch.Tensor:
+    """The fingerprint of keys given as K >= 2 uint32 word columns held in
+    int64: ``fp32`` of the first two, folded left over the others (JAX
+    ``PauliEngine._fp_hash``)."""
+    acc = fp32(cols[0], cols[1])
+    for c in cols[2:]:
+        acc = fp32(acc, c)
     return acc
 
 
@@ -191,6 +233,11 @@ def _library():
         lib.hash_lookup_launch.restype = ctypes.c_int
         lib.hash_lookup_tag_smem_bytes.argtypes = []
         lib.hash_lookup_tag_smem_bytes.restype = ctypes.c_int
+        lib.fp_filter_launch.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        lib.fp_filter_launch.restype = ctypes.c_int
     return lib
 
 
@@ -300,5 +347,115 @@ def _hash_lookup(tab, cols, k, entries):
     return la, ph, found
 
 
+def fp_layout(fptab, words, a_cols) -> None:
+    """Check ``fp_filter``'s operands: an (nb, E) int32 fingerprint table
+    with nb a power of two and (K, E) in ``LAYOUTS``, (B, W) int64 rows
+    and (W, M) int32 group masks, K = max(W, 2), the partners' key words.
+    Raises ``ValueError`` on anything else."""
+    if fptab.dim() != 2 or words.dim() != 2 or a_cols.dim() != 2:
+        raise ValueError("fp_filter: expected a 2-d table, rows and masks")
+    nb, e = fptab.shape
+    w = words.shape[1]
+    k = max(w, 2)
+    if (k, e) not in LAYOUTS or w > 4 or nb < 1 or nb & (nb - 1):
+        raise ValueError(
+            f"fp_filter: table {tuple(fptab.shape)} at W {w}: expected "
+            f"(2^k, E) with (max(W, 2), E) in {LAYOUTS}")
+    if a_cols.shape[0] != w:
+        raise ValueError(f"fp_filter: masks {tuple(a_cols.shape)}, "
+                         f"expected ({w}, M)")
+    if (fptab.dtype, words.dtype, a_cols.dtype) != (
+            torch.int32, torch.int64, torch.int32):
+        raise ValueError("fp_filter: expected an int32 table, int64 rows "
+                         "and int32 masks")
+
+
+def fp_in_shared_memory(n_buckets: int, entries: int) -> bool:
+    """Whether kernel #3 stages a fingerprint table of ``n_buckets`` x
+    ``entries`` slots in shared memory (else it probes global memory)."""
+    return n_buckets * entries * 4 <= FP_SMEM_BYTES
+
+
+def filter_work(fptab, words, a_cols) -> int:
+    """Bytes of a stage-1 pass: the rows (8 B a word), the masks (4 B a
+    word) and the table read once, the (B, M) bool mask written once."""
+    return (words.numel() * 8 + a_cols.numel() * 4 + fptab.numel() * 4
+            + words.shape[0] * a_cols.shape[1])
+
+
+def fp_filter_plain(fptab, words, a_cols):
+    """The prefilter's stage 1 in plain torch, in passes of about
+    ``FP_QUERY_CHUNK`` partners. JAX gathers the bucket's (E,) fingerprint
+    row a partner and compares its lanes; here the same question is one
+    binary search of the key bucket * 2^32 + fingerprint among the table's
+    sorted slot keys (an empty slot's fingerprint, 0, is never a
+    partner's), which answers alike without the (chunk, E) gather."""
+    fp_layout(fptab, words, a_cols)
+    b, w = words.shape
+    nb, m = fptab.shape[0], a_cols.shape[1]
+    dev = words.device
+    slots = ((torch.arange(nb, device=dev)[:, None] << 32)
+             | (fptab.to(torch.int64) & MASK32)).reshape(-1)
+    slots = torch.sort(slots).values
+    a = a_cols.to(torch.int64) & MASK32
+    hits = torch.empty((b, m), dtype=torch.bool, device=dev)
+    step = max(1, FP_QUERY_CHUNK // max(m, 1))
+    for s in range(0, b, step):
+        cols = [words[s:s + step, i, None] ^ a[None, i] for i in range(w)]
+        if w == 1:
+            cols.append(torch.zeros_like(cols[0]))
+        key = ((bucket_hash(cols) & (nb - 1)) << 32) | fp_hash(cols)
+        pos = torch.clamp(torch.searchsorted(slots, key),
+                          max=slots.numel() - 1)
+        hits[s:s + step] = slots[pos] == key
+    return hits
+
+
+def fp_filter(fptab: torch.Tensor, words: torch.Tensor,
+              a_cols: torch.Tensor) -> torch.Tensor:
+    """(nb, E) int32 fingerprint table (``PauliEngine._hash_build``'s, 0 an
+    empty slot), (B, W) int64 rows, (W, M) int32 group masks (planar) ->
+    (B, M) bool: whether the bucket of x_r ^ A_m holds its fingerprint."""
+    fp_layout(fptab, words, a_cols)
+    staged = fp_in_shared_memory(*fptab.shape)
+    with spans.span("fp_filter"):
+        spans.count("fp_launches", 1)
+        spans.count("fp_smem_launches", int(staged))
+        cost.report("fp_filter",
+                    bytes_accessed=filter_work(fptab, words, a_cols))
+        with cost.suspended():
+            if words.device.type == "cpu":
+                return fp_filter_plain(fptab, words, a_cols)
+            return _fp_filter(fptab, words, a_cols, staged)
+
+
+def _fp_filter(fptab, words, a_cols, staged):
+    """The launch of kernel #3 on operands that ``fp_layout`` passed: all
+    on one CUDA device, contiguous, the table 16-byte aligned."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for name, t in (("fptab", fptab), ("words", words), ("a_cols", a_cols)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+    if fptab.data_ptr() % 16:
+        raise ValueError("fptab must be 16-byte aligned")
+    (nb, e), (b, w), m = fptab.shape, words.shape, a_cols.shape[1]
+    hits = torch.empty((b, m), dtype=torch.bool, device=dev)
+    if b == 0 or m == 0:
+        return hits
+    with torch.cuda.device(dev):
+        rc = _library().fp_filter_launch(
+            fptab.data_ptr(), nb, e, words.data_ptr(), w, a_cols.data_ptr(),
+            b, m, int(staged), hits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fp_filter_launch failed: cudaError_t {rc}")
+    fp_filter.launches += 1
+    return hits
+
+
 hash_tags.launches = 0
 hash_lookup.launches = 0
+fp_filter.launches = 0

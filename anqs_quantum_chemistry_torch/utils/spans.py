@@ -239,7 +239,8 @@ def profiled_counts() -> Dict[str, int]:
     started}. Counter names are the program's, one meaning each:
     ``hash_lookup``'s ``launches``, ``queries``, ``key_words``,
     ``buckets``, ``entries`` and ``table_words``,
-    ``fused_matrix_elements``' ``rows``, ``pf.stage1``'s ``partners``."""
+    ``fused_matrix_elements``' ``rows``, ``pf.stage1``'s ``partners``,
+    ``fp_filter``'s ``fp_launches`` and ``fp_smem_launches``."""
     return dict(_profiled_counts)
 
 

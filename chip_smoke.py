@@ -75,8 +75,10 @@ read after:
   and on e to 1e-6 of the largest |e| over rows with log|psi| > -60 (the
   two combine with different float32 arithmetic, JAX's ``_combine_rows``
   and ``_combine``, so they are not bit-identical). Each prefilter stage
-  is timed by its spans (``prefilter_stage_ms``), and both kernels alone
-  at its shapes (``prefilter_kernels``).
+  is timed by its spans (``prefilter_stage_ms``), kernels #1 and #2 alone
+  at its shapes (``prefilter_kernels``), and kernel #3 (stage 1) alone on
+  the set as one block, bit for bit its plain version, beside its bound
+  (``fp_filter_figures``).
 - 5 steps from seed 0, the overflow policy acting after each step as
   ``run`` does: energies finite, 4096 <= ``unique_num`` <= 6144,
   ``table_overflow`` 0, no row dropped from the first step that drops
@@ -84,7 +86,7 @@ read after:
   own set and the energy within 1e-4 Ha of the float64 Rayleigh quotient
   over that set (matrix elements summed term by term on the host). Kernels
   #1 and #2 (and the tag build) launch twice a step: stage 3a and the dense
-  fallback 3b.
+  fallback 3b; kernel #3 once a step (stage 1 of the one row block).
 
 Last, the Li2O NADE campaign (``li2o_nade_vmc``: the JAX package's
 ``examples/cisd_pretrain_vmc.py``, ``li2o_closure.py`` and
@@ -113,7 +115,8 @@ gradient weights |psi|^(2/2)), counts set to 0 before (b) and read after
   0.1): cycles on rows 5 and 10 only, each with ``distill_loss_last <
   distill_loss_first``, every row finite, ``unique_num`` 8192.
 - (e) Kernels #1, #2 and the tag build launch twice for each local-energy
-  evaluation (stages 3a and 3b): 13 steps and 2 cycles.
+  evaluation (stages 3a and 3b), kernel #3 once (stage 1): 13 steps and 2
+  cycles.
 
 Last, the Li2O support-CI closure (the JAX package's ``runs/li2o_sci``
 chain at full width: NADE (128, 128), qubit_per_qudit 6, 16,384 Gumbel
@@ -143,8 +146,8 @@ set to 0 before (b) and read after (f):
   over its own set.
 - (f) 5 ``support_vmc`` steps (rq) and 10 L-BFGS iterations on the 8192
   support from ckpt_26: the first rq within 1e-6 Ha of JAX's, nothing
-  NaN. Kernel #1 launches once for each full energy, both kernels twice
-  for each pinned step; kernel #1 is timed at the full energy's 16,384
+  NaN. Kernel #1 launches once for each full energy, kernels #1 and #2
+  twice and kernel #3 once for each pinned step; kernel #1 is timed at the full energy's 16,384
   rows and both at the pinned step's prefilter shapes.
 
 Last, the C2H4/6-31G CISD -> support-CI chain (the JAX package's
@@ -180,8 +183,8 @@ and ckpt_3000), counts set to 0 before (c) and read after (f):
   npz``; 1e-5 + 1e-5 |la|, the phase to 1e-4), a clean step at lr 0 in its
   trainer (empirical weights, no SR) against the host as in (c), and a
   sampled full energy at 512 (row chunks of 128): finite; time and peak
-  memory. Kernels #1 and #2 launch twice a step, kernel #1 once a row
-  chunk of each full energy.
+  memory. Kernels #1 and #2 launch twice a step, kernel #3 once a step,
+  kernel #1 once a row chunk of each full energy.
 - (g) Both kernels at (c)'s prefilter shapes and kernel #1 at the full
   energy's row chunk (1024) and whole sample (8192), against their plain
   versions (bit for bit) and bounds.
@@ -233,7 +236,10 @@ counts set to 0 before (e) and read after (f):
   ``CR2_SEED``), each timed beside its bound.
 - (d) Prefilter, hash and search membership on that set: the same pairs,
   t within 1e-6 of max|t|, no row dropped; each membership's time and
-  each prefilter stage's (the set as one row block).
+  each prefilter stage's (the set as one row block); kernel #3 (stage 1)
+  on the set's first 128-row block against the set's fingerprint table (nb
+  512 x E 16, in shared memory), bit for bit its plain version, timed
+  beside its operation bound and the plain version's time.
 - (e) ckpt_1000, one step at lr 0: within 2 mHa of the JAX run's tail-50
   mean, ``found_pairs`` equal to a host count, and the step's float64
   estimator within 1e-4 Ha of the float64 Rayleigh quotient over its own
@@ -242,7 +248,8 @@ counts set to 0 before (e) and read after (f):
   float32, as JAX's does, 2.4e-4 Ha a unit at 2086 Ha).
 - (f) ``CR2_STEPS`` steps from random weights (seed 0): finite energies,
   ms a step, peak memory; kernels #1 and #2 (and the tag build) once a
-  row block and once for the dense rows each step.
+  row block and once for the dense rows each step, kernel #3 once a row
+  block (9 a step).
 
 Last, the ansatz and step options of the JAX package (``options_phase``),
 from seed 0 at full width, each leg's step time printed and its launches
@@ -290,7 +297,7 @@ path's launches counted from 0 (paths ``spin_dm6``, ``spin_xxz8``,
   qubit_per_qudit 4, 8192 Gumbel samples, MinSR top 50, clip 1.0, Adam
   1e-3; the main net's output layer scaled by ``SPIN_SHARPEN`` so that
   the set holds connected pairs), 'auto' membership (prefilter: kernels
-  #1 and #2 twice a step), 5 steps: step 0's ``found_pairs`` equal to a host count and its energy
+  #1 and #2 twice a step, kernel #3 once), 5 steps: step 0's ``found_pairs`` equal to a host count and its energy
   within 1e-4 Ha of the float64 Rayleigh quotient over its set; every
   energy at or above the free-fermion E0 = -81.1259801 less 1e-4 of |E0|.
 - (c) The XY+DM chain at 40 sites (W 2, two groups on each flip mask: the
@@ -322,8 +329,8 @@ the host; NCCL takes one rank a card):
   membership with both routing slacks at 1.0: overflow reported, no false
   hit, equal values where found).
 
-Every rank reports its launches of kernels #1, #2 and the tag build in each
-leg (each nonzero where the leg runs the kernel) and its ms a step; the
+Every rank reports its launches of kernels #1, #2, the tag build and #3 in
+each leg (each nonzero where the leg runs the kernel) and its ms a step; the
 ranks share one card, so those times are no scaling figure.
 
 Last, the trainer's measurement surface (``measure``) on ``bench.py``'s
@@ -336,7 +343,7 @@ Li2O), ``VMC.profile_stages(reps=10)`` (CUDA events), and the host-clock
 ms a step of one synchronised ``VMC._multi_step(25)`` window after a
 25-step warm-up window, with every kernel's launches counted in that
 window (kernel #1 once a step; kernels #2 and the tag build once a step at
-Li2O) and its energies finite.
+Li2O; kernel #3 never) and its energies finite.
 
 Every line is flushed as it is printed. The line before the last is
 ``{"kernels": [...]}``, the last ``{"ok": true, "device": {...}}``; any failed
@@ -523,6 +530,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_LANES_PER_SM = 64
 FP64_ADDS_PER_S = None
+# Kernel #3's rates, set in main() the same way: an SM's INT32 pipe has 64
+# lanes (logic, shifts, compares), and its four schedulers dispatch one
+# 32-lane instruction a clock each, 128 lanes, whatever the pipe.
+INT32_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
+INT32_OPS_PER_S = None
 
 
 class SmokeFailure(Exception):
@@ -773,6 +786,7 @@ def c2h4_phase(torch, me_entry):
 
 def _counted_kernels():
     from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        fp_filter,
         hash_lookup,
         hash_tags,
     )
@@ -781,7 +795,8 @@ def _counted_kernels():
     )
 
     return {"fused_matrix_elements": fused_matrix_elements,
-            "hash_lookup": hash_lookup, "hash_tags": hash_tags}
+            "hash_lookup": hash_lookup, "hash_tags": hash_tags,
+            "fp_filter": fp_filter}
 
 
 def reset_launches():
@@ -882,7 +897,7 @@ def trainer_phase(torch, mol, vmc):
     log(f"max |energy - first card run| = {drift:.2e} Ha")
     check(drift <= 1e-5, "N2 energies moved from the first card run's")
     check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": 0,
-                       "hash_tags": 0},
+                       "hash_tags": 0, "fp_filter": 0},
           f"N2 path launched {launches} in {STEPS} steps")
     return launches
 
@@ -916,6 +931,76 @@ def lookup_bound(n_q, key_words, tab, entries=32):
     n_bytes = n_q * 4 * key_words + tab.numel() * 4 + n_q * (4 + 4 + 1)
     return (n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3,
             n_q * (9 * (k - 1) + (k + 1) * entries) / FP32_FLOP_PER_S * 1e3)
+
+
+def fp_filter_ops(n_words, entries):
+    """(INT32-pipe instructions, multiplies) a partner of kernel #3 with
+    keys of K = max(W, 2) words and E = ``entries`` slots a bucket: what
+    its hashing and compares take in the SASS of ``fp_filter_kernel``
+    (sm_90a; 46 and 11 at K 3, E 16, 51 and 5 at K 2, E 32): K key XORs
+    and the K - 1 folded mix2 and fp32 rounds, each 3 shifts and 3 XORs
+    (LOP3, three inputs at a time; the bucket mask and the fingerprint's
+    low bit fold into the last), the E compares with their OR folded into
+    the predicates (ISETP.EQ.OR, E / 8 PLOP3) and one SEL; the rounds'
+    multiplies (IMAD, on the FMA pipe), the first of mix2 and fp32 shared.
+    Addresses, bounds tests and branches are not counted."""
+    k = max(n_words, 2)
+    return 12 * (k - 1) + k + entries + entries // 8 + 1, 6 * (k - 1) - 1
+
+
+def fp_filter_bound(n_rows, n_words, n_groups, n_buckets, entries):
+    """(bytes moved, bytes ms, operations ms) of kernel #3 on ``n_rows``
+    rows of ``n_words`` words against ``n_groups`` masks and an
+    (``n_buckets``, ``entries``) fingerprint table: the rows (8 B a word),
+    the planar masks (4 B a word) and the table read once, the (B, M) bool
+    mask written once; the ``fp_filter_ops`` instructions a partner, the
+    INT32 pipe's at its rate and all of them at the dispatch rate, whichever
+    takes longer."""
+    partners = n_rows * n_groups
+    n_bytes = (8 * n_rows * n_words + 4 * n_words * n_groups
+               + 4 * n_buckets * entries + partners)
+    alu, fma = fp_filter_ops(n_words, entries)
+    dispatch_per_s = (INT32_OPS_PER_S * DISPATCH_LANES_PER_SM
+                      / INT32_LANES_PER_SM)
+    ops_s = partners * max(alu / INT32_OPS_PER_S, (alu + fma) / dispatch_per_s)
+    return n_bytes, n_bytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3
+
+
+def fp_filter_figures(torch, label, fptab, words, a_cols):
+    """Kernel #3 (the prefilter's stage 1) alone on ``words`` against
+    ``fptab``: bit for bit its plain version, then timed (median of 5 x
+    20) beside its bound and the plain version's time. Returns the
+    figures."""
+    from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+        fp_filter,
+        fp_filter_plain,
+        fp_in_shared_memory,
+    )
+
+    words = words.contiguous()
+    with torch.no_grad():
+        got = fp_filter(fptab, words, a_cols)
+        want = fp_filter_plain(fptab, words, a_cols)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"kernel fp_filter at {label}: {int((got != want).sum())} "
+              "entries differ from its plain version")
+        ms = median_ms(lambda: fp_filter(fptab, words, a_cols))
+        plain_ms = cuda_ms(lambda: fp_filter_plain(fptab, words, a_cols),
+                           reps=2, warmup=1)
+    (b, w), m, (nb, e) = words.shape, a_cols.shape[1], fptab.shape
+    _, bytes_ms, ops_ms = fp_filter_bound(b, w, m, nb, e)
+    figures = {"B": b, "W": w, "M": m, "nb": nb, "E": e,
+               "smem": fp_in_shared_memory(nb, e), "hits": int(got.sum()),
+               "ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "plain_ms": plain_ms}
+    log(f"kernel fp_filter at {label} (B {b}, W {w}, M {m}, nb {nb} x E "
+        f"{e}, {'shared' if figures['smem'] else 'global'} memory): "
+        f"{ms:.4f} ms, bound {figures['bound_ms'] * 1e3:.2f} us "
+        f"({figures['bound_by']}; {ms / figures['bound_ms']:.2f}x); plain "
+        f"{plain_ms:.3f} ms; {figures['hits']} hits, equal")
+    return figures
 
 
 def hash_lookup_phase(torch, vmc):
@@ -1126,7 +1211,7 @@ def li2o_trainer_phase(torch, vmc):
     check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
           "Li2O step-0 energy disagrees with the Rayleigh quotient")
     check(launches == {"fused_matrix_elements": STEPS, "hash_lookup": STEPS,
-                       "hash_tags": STEPS},
+                       "hash_tags": STEPS, "fp_filter": 0},
           f"Li2O path launched {launches} in {STEPS} steps")
     return launches
 
@@ -1212,7 +1297,7 @@ def n2_exact_phase(torch, mol):
     check(abs(rows[0]["energy"] - e_ref) <= 1e-4,
           "N2 exact step 0 disagrees with the Rayleigh quotient")
     check(launches == {"fused_matrix_elements": EXACT_STEPS,
-                       "hash_lookup": 0, "hash_tags": 0},
+                       "hash_lookup": 0, "hash_tags": 0, "fp_filter": 0},
           f"N2 exact launched {launches} in {EXACT_STEPS} steps")
     return launches, {"exact_step_s": statistics.median(times[1:]),
                       "full_energy_s": fe_s}
@@ -1261,7 +1346,8 @@ def n2_driver_phase(torch):
         check(measured == [3], f"full energy on rows {measured}")
         check(fe_gap <= 1e-4, "full energy disagrees with the energy")
         check(launches == {"fused_matrix_elements": DRIVER_STEPS + 1,
-                           "hash_lookup": 0, "hash_tags": 0},
+                           "hash_lookup": 0, "hash_tags": 0,
+                           "fp_filter": 0},
               f"N2 run launched {launches}")
 
         vmc2 = main_path_vmc(run_dir=resumed, **kw)
@@ -1332,7 +1418,7 @@ def li2o_multinomial_phase(torch):
     launches = read_launches()
     n = MULTINOMIAL_STEPS
     check(launches == {"fused_matrix_elements": n, "hash_lookup": n,
-                       "hash_tags": n},
+                       "hash_tags": n, "fp_filter": 0},
           f"Li2O multinomial launched {launches} in {n} steps")
     return launches
 
@@ -1454,7 +1540,7 @@ def prefilter_kernels(torch, eng, words, la, ph, valid):
     with torch.no_grad():
         tab, nb, _, fptab = eng._hash_build(words, la, ph, valid,
                                             with_fp=True)
-        hit = eng._fp_candidates(fptab, nb, words) & valid[:, None]
+        hit = eng._fp_candidates(fptab, words) & valid[:, None]
         c_row = min(eng.prefilter_row_capacity, m)
         keys_m = m - torch.arange(m, dtype=torch.int32, device=words.device)
         _, m_idx = torch.topk(torch.where(hit, keys_m, 0), c_row, dim=1)
@@ -1568,9 +1654,13 @@ def c2h4_membership_phase(torch, vmc):
             f" us ({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
             f"{times[stage] / bounds[stage]:.2f}x), nb "
             f"{tab.shape[0]}")
+    fptab = eng._hash_build(words, la, ph, valid, with_fp=True)[3]
+    k3 = fp_filter_figures(torch, "the C2H4 set (one block)", fptab, words,
+                           eng.a_cols)
     return {"capacities": levels, "rows": int(valid.sum()),
             "queries": queries, "stage_ms": times, "lookup_bound_ms": bounds,
-            "max_abs_diff_vs_hash": {k: d for k, (d, _, _) in diffs.items()}}
+            "max_abs_diff_vs_hash": {k: d for k, (d, _, _) in diffs.items()},
+            "kernel3": k3}
 
 
 def c2h4_trainer_phase(torch):
@@ -1636,8 +1726,10 @@ def c2h4_trainer_phase(torch):
     check(abs(rows[i0]["energy"] - e_ref) <= 1e-4,
           "C2H4: energy disagrees with the Rayleigh quotient")
     check(launches == {"fused_matrix_elements": 2 * STEPS,
-                       "hash_lookup": 2 * STEPS, "hash_tags": 2 * STEPS},
-          f"C2H4 path launched {launches} in {STEPS} steps")
+                       "hash_lookup": 2 * STEPS, "hash_tags": 2 * STEPS,
+                       "fp_filter": STEPS},
+          f"C2H4 path launched {launches} in {STEPS} steps (kernel #3 once "
+          "a step: one row block)")
     figures.update(escalations=vmc._overflow_escalations,
                    first_clean_step=i0, step_ms=step_ms,
                    energies=[r["energy"] for r in rows])
@@ -1808,7 +1900,8 @@ def li2o_nade_phase(torch):
     log(f"Li2O NADE path ({run_s:.2f} s for the run) launches {launches}")
     check(launches == {"fused_matrix_elements": 2 * evaluations,
                        "hash_lookup": 2 * evaluations,
-                       "hash_tags": 2 * evaluations},
+                       "hash_tags": 2 * evaluations,
+                       "fp_filter": evaluations},
           f"Li2O NADE path launched {launches} in {evaluations} "
           "local-energy evaluations")
 
@@ -2053,11 +2146,11 @@ def li2o_support_ci_phase(torch):
     full_evals = 2
     check(launches == {"fused_matrix_elements": full_evals + 2 * PIN_STEPS,
                        "hash_lookup": 2 * PIN_STEPS,
-                       "hash_tags": 2 * PIN_STEPS},
+                       "hash_tags": 2 * PIN_STEPS, "fp_filter": PIN_STEPS},
           f"Li2O support-CI path launched {launches}")
     log(f"Li2O support-CI path launches {launches} (the 2 full energies "
-        f"launch kernel #1 once each; each pinned step launches each kernel "
-        f"twice, stages 3a and 3b)")
+        f"launch kernel #1 once each; each pinned step launches kernels #1 "
+        f"and #2 twice, stages 3a and 3b, and kernel #3 once)")
 
     # The kernels at this path's shapes: kernel #1 at the full energy's
     # 16,384 rows, both at the pinned step's prefilter stages.
@@ -2281,7 +2374,8 @@ def chem_build_phase(torch, seed):
         check(low >= -1e-6, f"dissociation: an exact energy {low:.3e} Ha "
               "below FCI")
         check(launches == {"fused_matrix_elements": DISSOCIATION_STEPS,
-                           "hash_lookup": 0, "hash_tags": 0},
+                           "hash_lookup": 0, "hash_tags": 0,
+                           "fp_filter": 0},
               f"dissociation launched {launches}")
         with open(os.path.join(tmp, "n2_dissociation.csv")) as f:
             lines = f.read().splitlines()
@@ -2609,11 +2703,12 @@ def c2h4_cisd_sci_phase(torch):
                      + C2H4_TR_FULL_SAMPLES // C2H4_TR_ROW_CHUNK)
     evals = made_evals + tr_evals
     log(f"C2H4 CISD -> SCI path launches {launches} ({made_evals} MADE and "
-        f"{tr_evals} transformer steps launch each kernel twice, stages 3a "
-        f"and 3b; the two full energies launch kernel #1 {full_launches} "
-        "times, once a row chunk)")
+        f"{tr_evals} transformer steps launch kernels #1 and #2 twice, "
+        f"stages 3a and 3b, and kernel #3 once; the two full energies "
+        f"launch kernel #1 {full_launches} times, once a row chunk)")
     check(launches == {"fused_matrix_elements": 2 * evals + full_launches,
-                       "hash_lookup": 2 * evals, "hash_tags": 2 * evals},
+                       "hash_lookup": 2 * evals, "hash_tags": 2 * evals,
+                       "fp_filter": evals},
           f"C2H4 CISD -> SCI path launched {launches}")
     del tr
     torch.cuda.empty_cache()
@@ -3051,7 +3146,8 @@ def options_phase(torch, mol):
           "Li2O options: found_pairs disagrees with the host count")
     check(launches["options_li2o"] == {"fused_matrix_elements": OPT_STEPS,
                                        "hash_lookup": OPT_STEPS,
-                                       "hash_tags": OPT_STEPS},
+                                       "hash_tags": OPT_STEPS,
+                                       "fp_filter": 0},
           f"Li2O options launched {launches['options_li2o']}")
     del vmc, state, cpu_anqs, calls, x_last
     log(f"options (d) leg: {time.perf_counter() - t_leg:.1f} s")
@@ -3297,7 +3393,8 @@ def spin_phase(torch):
             check(history[-1]["energy_var"] < 0.1,
                   f"spin {name}: last energy_var {history[-1]['energy_var']}")
         check(launches[f"spin_{name}"] == {"fused_matrix_elements": iters,
-                                           "hash_lookup": 0, "hash_tags": 0},
+                                           "hash_lookup": 0, "hash_tags": 0,
+                                           "fp_filter": 0},
               f"spin {name}: launches {launches[f'spin_{name}']}")
         del vmc
 
@@ -3328,8 +3425,8 @@ def spin_phase(torch):
           "TFI-64: energy disagrees with the Rayleigh quotient")
     check(launches["spin_tfi64"] == {
         "fused_matrix_elements": 2 * SPIN_STEPS,
-        "hash_lookup": 2 * SPIN_STEPS, "hash_tags": 2 * SPIN_STEPS},
-        f"TFI-64 launches {launches['spin_tfi64']}")
+        "hash_lookup": 2 * SPIN_STEPS, "hash_tags": 2 * SPIN_STEPS,
+        "fp_filter": SPIN_STEPS}, f"TFI-64 launches {launches['spin_tfi64']}")
     figures["tfi64_energies"] = [r["energy"] for r in rows]
     del vmc, snap
 
@@ -3374,7 +3471,8 @@ def spin_phase(torch):
               f"DM-40 step {i}: mean imaginary energy {row['energy_imag']}")
     check(launches["spin_dm40"] == {
         "fused_matrix_elements": SPIN_STEPS, "hash_lookup": SPIN_STEPS,
-        "hash_tags": SPIN_STEPS}, f"DM-40 launches {launches['spin_dm40']}")
+        "hash_tags": SPIN_STEPS, "fp_filter": 0},
+        f"DM-40 launches {launches['spin_dm40']}")
     figures["dm40_energies"] = [r["energy"] for r in rows]
     figures["dm40_eloc_err"] = err
     # Kernel #1 on the duplicate flip masks, at the step's shapes.
@@ -3393,7 +3491,8 @@ def cr2_phase(torch):
     packaged molecule against the JAX record; (b) kernel #1 on its grouped
     W = 3 tables; (c) kernel #2 at K 3 / E 16 on a Cr2 set's table, K 4 on a
     random 100-qubit table, K 2 at E 8 and 16; (d) prefilter, hash and
-    search membership on one set of the packaged JAX state ckpt_1000; (e)
+    search membership on one set of the packaged JAX state ckpt_1000, and
+    kernel #3 alone on a 128-row block of it (``fp_filter_figures``); (e)
     one step at lr 0 from ckpt_1000 against the JAX record and the host;
     (f) ``CR2_STEPS`` steps from random weights; (g) the kernels' launches
     on (e)-(f). Returns (launches, figures)."""
@@ -3515,8 +3614,12 @@ def cr2_phase(torch):
         f"blocks; the kernels alone, the set as one block; Q 3a "
         f"{queries['kernel2_3a']}, Q 3b {queries['kernel2_3b']}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stage_ms.items()))
+    fptab = eng._hash_build(words, la, ph, valid, with_fp=True)[3]
+    k3 = fp_filter_figures(torch, f"a Cr2 row block ({eng.pf_row_chunk} "
+                           "rows of the set)", fptab,
+                           words[:eng.pf_row_chunk], eng.a_cols)
     figures.update(membership_s=totals, stage_ms=stage_ms, queries=queries,
-                   found_pairs=pairs.pop())
+                   found_pairs=pairs.pop(), kernel3=k3)
     # The step of (e) reports its float64 estimator over these local
     # energies rounded to float32, as JAX's does: 2.4e-4 Ha a unit at 2086
     # Ha. The unrounded estimator is what (e) holds to the quotient.
@@ -3571,11 +3674,12 @@ def cr2_phase(torch):
         + f" ms a step; peak {peak:.2f} GB; launches {launches}")
     check(all(np.isfinite(r["energy"]) for r in rows),
           "Cr2: non-finite energy")
-    blocks = -(-words.shape[0] // eng.pf_row_chunk) + 1  # 3a blocks and 3b
-    n = blocks * (1 + CR2_STEPS)
+    blocks = -(-words.shape[0] // eng.pf_row_chunk)  # stage 1 and 3a's
+    n = (blocks + 1) * (1 + CR2_STEPS)  # and 3b's
     check(launches == {"fused_matrix_elements": n, "hash_lookup": n,
-                       "hash_tags": n},
-          f"Cr2: launches {launches}, expected {n} each")
+                       "hash_tags": n, "fp_filter": blocks * (1 + CR2_STEPS)},
+          f"Cr2: launches {launches}, expected {n} of kernels #1 and #2, "
+          f"{blocks} of kernel #3 a step")
     figures.update(
         kernel1=k1, kernel1_set=k1_full, kernel2=k2, host_s=host_s,
         ckpt1000_energy=row["energy"], ckpt1000_energy_f64=e64,
@@ -3706,8 +3810,9 @@ def measure_phase(torch):
                   if k != "device"), f"measure {name}: stages {stages}")
         check(np.all(np.isfinite(metrics["energy"])),
               f"measure {name}: energies not finite")
-        check(launches["fused_matrix_elements"] == MEASURE_WINDOW,
-              f"measure {name}: kernel #1 launched {launches}")
+        check(launches["fused_matrix_elements"] == MEASURE_WINDOW
+              and launches["fp_filter"] == 0,
+              f"measure {name}: kernels #1 and #3 launched {launches}")
         if maker == "li2o":
             check(counts["by_source"].get("hash_lookup", {}).get(
                 cost.BYTES, 0) > 0, f"measure {name}: no kernel #2 count")
@@ -3773,6 +3878,8 @@ def main():
     log(f"float64 add rate for bounds: {sms} SMs x {FP64_LANES_PER_SM} "
         f"lanes x {mhz:.0f} MHz (nvidia-smi clocks.max.sm) = "
         f"{FP64_ADDS_PER_S:.4g}/s")
+    global INT32_OPS_PER_S
+    INT32_OPS_PER_S = sms * INT32_LANES_PER_SM * mhz * 1e6
 
     t = time.perf_counter()
     build_logs = cuda_build.build(["fused_me", "hash_lookup"])
@@ -3836,11 +3943,15 @@ def main():
     mesh_launches, mesh_figures = mesh_phase(torch)
     measure_launches, measure_figures = measure_phase(torch)
 
-    # Each kernel's launches on the path it was ported for; every path's
-    # counts stand beside them.
+    # Each kernel's launches on the path it was ported for (kernel #3's: the
+    # Cr2 path, which the benchmark's cr2.prefilter cell runs); every
+    # path's counts stand beside them.
+    fp_entry = {"name": "fp_filter", "cr2_block": cr2_figures.pop("kernel3"),
+                "c2h4": c2h4_figures.pop("kernel3")}
     me_entry["launches"] = n2_launches["fused_matrix_elements"]
     hash_entry["launches"] = li2o_launches["hash_lookup"]
     tags_entry["launches"] = li2o_launches["hash_tags"]
+    fp_entry["launches"] = cr2_launches["fp_filter"]
     by_path = {"n2": n2_launches, "li2o": li2o_launches,
                "n2_exact": exact_launches, "n2_driver": driver_launches,
                "li2o_multinomial": multinomial_launches,
@@ -3851,7 +3962,7 @@ def main():
                "n2_dissociation": chem_launches,
                "cr2": cr2_launches, **options_launches, **spin_launches,
                **mesh_launches, **measure_launches}
-    for entry in (me_entry, hash_entry, tags_entry):
+    for entry in (me_entry, hash_entry, tags_entry, fp_entry):
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in by_path.items()}
     me_entry["n2_exact_step_s"] = exact_times["exact_step_s"]
@@ -3913,7 +4024,8 @@ def main():
     elapsed = time.monotonic() - T_START
     log(f"total: {elapsed:.1f} s")
     check(elapsed < TIME_LIMIT_S, f"took {elapsed:.0f} s")
-    log(json.dumps({"kernels": [me_entry, hash_entry, tags_entry]}))
+    log(json.dumps({"kernels": [me_entry, hash_entry, tags_entry,
+                                fp_entry]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count(),

@@ -6,6 +6,8 @@ tests/test_torch_cuda.py``. This file imports no JAX (that machine has
 none): the port's own N2 file and plain versions are the references.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,13 +22,20 @@ from anqs_quantum_chemistry_torch.chem.fci import (
     sector_matrix_elements,
 )
 from anqs_quantum_chemistry_torch.chem.jw import PauliHamiltonian
-from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4, load_n2
+from anqs_quantum_chemistry_torch.chem.molecule import (
+    load_c2h4,
+    load_cr2,
+    load_n2,
+)
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
     ENTRIES,
     LAYOUTS,
     NEG,
     ROW,
+    fp_filter,
+    fp_filter_plain,
+    fp_in_shared_memory,
     hash_lookup,
     hash_lookup_plain,
     hash_tags,
@@ -451,6 +460,171 @@ def test_prefilter_matches_cpu_on_card(cuda, capacities):
         atol = (1e-6 * float(w.abs().max()) if field[0] == "e" else 1e-6)
         torch.testing.assert_close(g, w, rtol=4e-7 if field[0] == "t"
                                    else 0.0, atol=atol)
+
+
+def _filter_case(device, w, epb, extra_bits, rows=2048, m=3001, seed=7):
+    """An engine of ``m`` one-term groups on 32 W - 5 qubits (masks 0, XORs
+    of two rows, random masks; M not a multiple of a block's groups), its
+    fingerprint table over ``rows`` random rows with 32 all-ones sentinel
+    rows (invalid, at the end), and the rows."""
+    from anqs_quantum_chemistry_torch.ops.bits import MASK32
+
+    rng = np.random.default_rng(seed + w)
+    n = 32 * w - 5
+    top = np.full(w, MASK32, np.int64)
+    top[-1] = (1 << (n % 32)) - 1
+    words = rng.integers(0, 1 << 32, (rows, w), dtype=np.int64) & top
+    words[-32:] = MASK32
+    pairs = rng.integers(0, rows - 32, (m // 2, 2))
+    a = np.concatenate([
+        np.zeros((1, w), np.int64), words[pairs[:, 0]] ^ words[pairs[:, 1]],
+        rng.integers(0, 1 << 32, (m - 1 - m // 2, w), dtype=np.int64) & top])
+    ham = PauliHamiltonian(
+        qubit_num=n, constant=0.0, a_masks=a.astype(np.uint32),
+        b_words=np.zeros((m, w), np.uint32), weights=np.ones(m),
+        group_starts=np.arange(m + 1))
+    engine = PauliEngine(ham, device=device, membership="prefilter",
+                         hash_epb=epb, hash_extra_bits=extra_bits)
+    x = torch.from_numpy(words).to(device)
+    valid = torch.arange(rows, device=device) < rows - 32
+    zeros = torch.zeros(rows, device=device)
+    _, _, overflow, fptab = engine._hash_build(x, zeros, zeros, valid,
+                                               with_fp=True)
+    assert int(overflow) == 0
+    return engine, x, fptab
+
+
+def _assert_filter_matches_plain(fptab, words, a_cols):
+    """Kernel #3 against its plain version on the same card operands: bit
+    for bit, one launch; returns the mask."""
+    launches = fp_filter.launches
+    got = fp_filter(fptab, words, a_cols)
+    want = fp_filter_plain(fptab, words, a_cols)
+    torch.cuda.synchronize()
+    assert fp_filter.launches == launches + 1
+    bad = (got != want).any(dim=1)
+    assert not bad.any(), (
+        f"kernel #3 differs from its plain version in "
+        f"{int((got != want).sum())} entries, rows "
+        f"{torch.nonzero(bad)[:20, 0].tolist()}")
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,epb", [(1, None), (1, 8), (2, 16), (3, None),
+                                   (4, None)])
+@pytest.mark.parametrize("extra_bits", [0, 2])
+def test_fp_filter_matches_plain_on_card(cuda, w, epb, extra_bits):
+    """Kernel #3 at W 1-4 and E 8, 16, 32, its table in shared memory (32
+    KB) and, two bucket bits up (128 KB), probed in global memory; 2048
+    rows with sentinels x 3001 groups: bit for bit."""
+    engine, words, fptab = _filter_case(cuda, w, epb, extra_bits)
+    nb, e = fptab.shape
+    assert e == (epb or (32 if w <= 2 else 16))
+    assert fp_in_shared_memory(nb, e) == (extra_bits == 0)
+    hit = _assert_filter_matches_plain(fptab, words, engine.a_cols)
+    assert hit[:-32, 0].all()  # mask 0: each row finds itself
+    assert int(hit[:, 1:].sum()) >= engine.n_groups // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _cr2_engine(device):
+    """Cr2/SV's engine as the benchmark's ``cr2.prefilter`` cell runs it:
+    prefilter in 128-row blocks (grouped order, W 3, E 16)."""
+    return PauliEngine(load_cr2().qubit_ham, device=device, me_chunk=128,
+                       pf_row_chunk=128, prefilter_row_capacity=1024,
+                       prefilter_dense_rows=64)
+
+
+def _cr2_batch(device, rows=1088, seed=5):
+    """The Cr2 engine and a canonically sorted three-word batch of the
+    cell's size: random (24, 24)-sector determinants, one of them with 64
+    partners x ^ A_m, 16 all-ones sentinel rows at the end; amplitudes from
+    a numpy seed."""
+    from anqs_quantum_chemistry_torch.ops import keys
+    from anqs_quantum_chemistry_torch.ops.bits import MASK32, pack
+
+    engine = _cr2_engine(str(device))
+    rng = np.random.default_rng(seed)
+    n = rows - 80
+    occ = np.zeros((n, 84), np.int64)
+    for spin in (0, 1):
+        orb = np.argsort(rng.random((n, 42)), axis=1)[:, :24]
+        np.put_along_axis(occ, 2 * orb + spin, 1, axis=1)
+    words = pack(torch.from_numpy(occ)).to(device)
+    m_idx = torch.from_numpy(rng.choice(engine.n_groups, 64,
+                                        replace=False)).to(device)
+    words = torch.cat([words, words[:1] ^ engine.a_words[m_idx],
+                       torch.full((16, 3), MASK32, device=device)])
+    valid = torch.arange(rows, device=device) < rows - 16
+    words, _, valid = keys.sort_words(words, valid)
+    valid = valid & keys.unique_mask(words)
+    la = torch.from_numpy(-np.abs(rng.standard_normal(rows)).astype(
+        np.float32)).to(device)
+    ph = torch.from_numpy(rng.uniform(-3, 3, rows).astype(np.float32)).to(
+        device)
+    return engine, words, la, ph, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cr2", "c2h4"])
+def test_fp_filter_matches_plain_on_card_paths(cuda, case):
+    """Kernel #3 at the main paths' shapes, bit for bit: a Cr2 row block
+    (its last 128 rows, sentinels among them, against the 1088-row set's
+    nb 512 x E 16 table, 32 KB in shared memory; M 471,774) and the C2H4
+    batch at its escalated table (nb 2048 x E 32, 256 KB: global memory)."""
+    if case == "cr2":
+        engine, words, la, ph, valid = _cr2_batch(cuda)
+        block, ok = words[-128:], valid[-128:]
+    else:
+        engine, words, la, ph, valid = _c2h4_batch(cuda)
+        engine = engine.with_capacities(hash_extra_bits=3)
+        block, ok = words, valid
+    _, nb, overflow, fptab = engine._hash_build(words, la, ph, valid,
+                                                with_fp=True)
+    assert int(overflow) == 0
+    assert (nb, fptab.shape[1]) == ((512, 16) if case == "cr2"
+                                    else (2048, 32))
+    assert fp_in_shared_memory(nb, fptab.shape[1]) == (case == "cr2")
+    hit = _assert_filter_matches_plain(fptab, block.contiguous(),
+                                       engine.a_cols)
+    assert int(hit.sum()) >= int(ok.sum())  # the diagonal group
+
+
+@pytest.mark.cuda
+def test_fp_filter_launches_on_card(cuda):
+    """The main path goes through kernel #3: one Cr2 prefilter call over
+    the cell's 1088 rows in 128-row blocks launches it 9 times, each with
+    the table in shared memory, and runs no binary search; an N2 sector
+    step launches it 0 times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anqs_quantum_chemistry_torch.experiments.vmc import main_path_vmc
+    from anqs_quantum_chemistry_torch.utils import spans
+
+    engine, words, la, ph, valid = _cr2_batch(cuda)
+    with torch.no_grad():
+        engine.local_energy_proxy(words, la, ph, valid)
+        launches = fp_filter.launches
+        with spans.recording() as rec:
+            engine.local_energy_proxy(words, la, ph, valid)
+        assert fp_filter.launches == launches + 9
+        counts = rec.summary(1)["fp_filter"]["counts"]
+        assert counts["fp_launches"] == counts["fp_smem_launches"] == 9
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.local_energy_proxy(words, la, ph, valid)
+            torch.cuda.synchronize()
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    assert sum(n for k, n in kernels.items() if "fp_filter_kernel" in k) == 9
+    assert not [k for k in kernels if "searchsorted" in k], kernels
+
+    vmc = main_path_vmc(device="cuda")
+    state = vmc.init_state()
+    launches = fp_filter.launches
+    vmc.step(state)
+    assert fp_filter.launches == launches
 
 
 @pytest.mark.cuda

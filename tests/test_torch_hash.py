@@ -15,6 +15,8 @@ hash, the planar bucket table and the lookup.
   against a numpy uint32 transcription of the tag of each slot's key; and a
   torch transcription of the kernel's tag filter, which must select what
   ``hash_lookup_plain`` selects.
+- ``fp_filter`` (kernel #3's wrapper) refuses operands that no layout
+  takes, and picks its table's tier from the table's shape.
 """
 
 import jax.numpy as jnp
@@ -38,6 +40,8 @@ from anqs_quantum_chemistry_torch.ops.bits import MASK32
 from anqs_quantum_chemistry_torch.ops.hash_lookup import (
     ENTRIES,
     NEG,
+    fp_filter,
+    fp_in_shared_memory,
     hash_lookup,
     hash_lookup_plain,
     hash_tags,
@@ -274,6 +278,30 @@ def _tag_table(case):
     keys = np.zeros((int(valid.sum()), 2), U32)
     keys[:, :words.shape[1]] = words[valid]
     return tab, keys
+
+def test_fp_filter_refuses_bad_operands():
+    fp = torch.zeros((4, 32), dtype=torch.int32)
+    rows = torch.zeros((3, 2), dtype=torch.int64)
+    a = torch.zeros((2, 5), dtype=torch.int32)
+    assert fp_filter(fp, rows, a).shape == (3, 5)
+    assert fp_filter(fp, rows[:0], a).shape == (0, 5)
+    w3 = (torch.zeros((3, 3), dtype=torch.int64),
+          torch.zeros((3, 5), dtype=torch.int32))
+    with pytest.raises(ValueError):  # bucket count not a power of two
+        fp_filter(fp[:3], rows, a)
+    with pytest.raises(ValueError):  # E 32 at W 3: no layout
+        fp_filter(fp, *w3)
+    with pytest.raises(ValueError):  # masks of another word count
+        fp_filter(fp, rows, a[:1])
+    with pytest.raises(ValueError):  # int32 rows
+        fp_filter(fp, rows.int(), a)
+    with pytest.raises(ValueError):  # no kernel for this device
+        fp_filter(fp.to("meta"), rows.to("meta"), a.to("meta"))
+    # The tier follows nb x E x 4 bytes: Cr2's 32 KB table is staged in
+    # shared memory, C2H4's escalated 256 KB one is probed in L2.
+    assert fp_in_shared_memory(512, 16) and fp_in_shared_memory(512, 32)
+    assert not fp_in_shared_memory(1024, 32)
+    assert not fp_in_shared_memory(2048, 32)
 
 
 @pytest.mark.parametrize("case", ["li2o", "w2"])

@@ -1,8 +1,8 @@
 """The trainer's measurement surface in the PyTorch port against the JAX
 package: ``VMC._multi_step`` (a window equals as many ``step`` calls bit
 for bit), ``VMC.step_cost_analysis`` (``utils/cost.py``: the matmul-class
-flops equal a count from the MADE shapes exactly; kernel #1's and #2's
-entries equal their counts from the shapes; two calls agree and leave the
+flops equal a count from the MADE shapes exactly; kernel #1's, #2's and
+#3's entries equal their counts from the shapes; two calls agree and leave the
 training state as it was; JAX's XLA totals printed beside the port's),
 ``VMC.profile_stages`` (JAX's keys on the sector, dynamic and exact
 branches, with and without MinSR), and the small helpers
@@ -23,7 +23,10 @@ from anqs_quantum_chemistry_tpu.optim.sr import SRConfig as JaxSRConfig
 from anqs_quantum_chemistry_torch.chem.molecule import MolConfig, Molecule
 from anqs_quantum_chemistry_torch.experiments.vmc import VMC, VMCConfig
 from anqs_quantum_chemistry_torch.models.anqs import AnqsConfig
-from anqs_quantum_chemistry_torch.ops.hash_lookup import hash_lookup
+from anqs_quantum_chemistry_torch.ops.hash_lookup import (
+    fp_filter,
+    hash_lookup,
+)
 from anqs_quantum_chemistry_torch.ops.matrix_elements import (
     fused_matrix_elements,
 )
@@ -147,6 +150,24 @@ def test_kernel_counts_from_shapes(lih):
             fn()
         assert all(e["kind"] == "kernel"
                    for e in counter.by_source().values())
+
+
+def test_filter_counts_from_shapes(lih):
+    """Kernel #3's entry of a prefilter step (one row block of B rows, nb
+    256 x E 32 fingerprints): one call, no flops (integer hashing), the
+    rows' and masks' words, the table and the (B, M) mask; its plain
+    version adds no aten op of its own to the count."""
+    v = cost_vmc(lih, sr=None, membership="prefilter")
+    m = v.engine.n_groups
+    src = v.step_cost_analysis()["by_source"]
+    assert src["fp_filter"] == {
+        "kind": "kernel", "calls": 1, "flops": 0, "transcendentals": 0,
+        cost.BYTES: 8 * B + 4 * m + 4 * 256 * 32 + B * m}
+    fptab = torch.zeros((256, 32), dtype=torch.int32)
+    rows = torch.arange(B, dtype=torch.int64)[:, None]
+    with cost.WorkCounter() as counter:
+        fp_filter(fptab, rows, v.engine.a_cols)
+    assert list(counter.by_source()) == ["fp_filter"]
 
 
 def _snapshot(v, state):

@@ -10,7 +10,10 @@ capacities (1, 1), where rows are dropped.
 ``e_re``/``e_im`` agree to 1e-6 of the batch's largest |e| (float32 sums of
 the same terms, exp/cos/sin of two libraries) and ``t_re``/``t_im`` to atol
 1e-6 + 4e-7 relative. The fingerprint table is bit-equal to JAX's
-``_hash_build(..., with_fp=True)``. Under ``weights_matmul='grouped'`` the
+``_hash_build(..., with_fp=True)``, and stage 1 alone (the plain version
+of kernel #3, ``fp_filter_plain``) equals the JAX engine's fingerprint
+probe bit for bit at W 1-4 and every table layout the prefilter admits.
+Under ``weights_matmul='grouped'`` the
 port's ``a_words`` equal the JAX engine's (its class-major group order) and
 its matrix elements agree to 1e-6 relative, on H2O and on C2H4/6-31G."""
 
@@ -35,6 +38,8 @@ from anqs_quantum_chemistry_torch.chem.molecule import load_c2h4
 from anqs_quantum_chemistry_torch.observables.pauli import PauliEngine
 from anqs_quantum_chemistry_torch.ops import bits as bitops
 from anqs_quantum_chemistry_torch.ops import keys
+from anqs_quantum_chemistry_torch.ops.hash_lookup import as_int32
+from anqs_quantum_chemistry_torch.ops.hash_lookup import fp_filter_plain
 from torch_port_common import molecules
 
 
@@ -159,3 +164,55 @@ def test_grouped_order_matches_jax(name):
     want = np.asarray(jeng.matrix_elements(jnp.asarray(words, jnp.uint32)))
     np.testing.assert_allclose(me, want, rtol=1e-6,
                                atol=1e-6 * np.max(np.abs(want)))
+
+
+def _masked_ham(words, valid, n, m, rng):
+    """A JAX Hamiltonian on ``n`` qubits of ``m`` one-term groups whose
+    masks couple the batch to itself: 0 (each row's own key), XORs of two
+    valid rows, and random masks on the register."""
+    w = words.shape[1]
+    rows = np.flatnonzero(valid)
+    pairs = rng.choice(rows, (m // 2, 2))
+    top = np.full(w, 0xFFFFFFFF, np.int64)
+    if n % 32:
+        top[-1] = (1 << (n % 32)) - 1
+    a = np.concatenate([
+        np.zeros((1, w), np.int64), words[pairs[:, 0]] ^ words[pairs[:, 1]],
+        rng.integers(0, 1 << 32, (m - 1 - m // 2, w), dtype=np.int64) & top])
+    return JaxPauliHamiltonian(
+        qubit_num=n, constant=0.0, a_masks=a.astype(np.uint32),
+        b_words=np.zeros((m, w), np.uint32), weights=np.ones(m),
+        group_starts=np.arange(m + 1))
+
+
+@pytest.mark.parametrize("w,epb", [(1, 8), (1, 16), (1, 32), (2, 8),
+                                   (2, 16), (2, 32), (3, None), (4, None)])
+def test_fp_filter_plain_matches_jax_stage1(w, epb):
+    """Stage 1 of the prefilter alone: ``fp_filter_plain`` on the JAX
+    engine's fingerprint table, rows and masks equals the JAX engine's
+    probe (gather the partner's bucket row, compare its E lanes) bit for
+    bit, on a random batch with all-ones sentinel rows, at W 1-4 and
+    E 8, 16 and 32 where the layout admits them."""
+    n = 32 * w - 5
+    words, la, ph, valid = _batch(n, 96, n, seed=10 + w)
+    assert not valid.all() and (words == 0xFFFFFFFF).all(axis=1).any()
+    rng = np.random.default_rng(w)
+    jeng = JaxPauliEngine(_masked_ham(words, valid, n, 80, rng),
+                          membership="prefilter", hash_epb=epb)
+    jw = jnp.asarray(words, jnp.uint32)
+    _, nb, _, jfp = jeng._hash_build(jw, jnp.asarray(la), jnp.asarray(ph),
+                                     jnp.asarray(valid), with_fp=True)
+    cols = tuple((jw[:, i][:, None] ^ jeng.a_words[:, i][None, :]).reshape(-1)
+                 for i in range(w))
+    bucket = (jeng._bucket_hash(cols) & jnp.uint32(nb - 1)).astype(jnp.int32)
+    want = np.asarray(jnp.any(jfp[bucket] == jeng._fp_hash(cols)[:, None],
+                              axis=1)).reshape(96, 80)
+    a_cols = as_int32(torch.from_numpy(
+        np.asarray(jeng.a_words).astype(np.int64))).T.contiguous()
+    got = fp_filter_plain(torch.from_numpy(np.array(jfp).view(np.int32)),
+                          torch.from_numpy(words), a_cols)
+    assert jfp.shape == (nb, epb or 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, 0] == valid).all()  # mask 0: each valid row finds itself
+    assert int(want[:, 1:].sum()) >= 80 // 2  # the row-pair masks
+

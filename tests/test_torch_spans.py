@@ -2,7 +2,8 @@
 step touches no event, profiler range or clock; recorded, ``VMC.step``'s
 stages partition the step, each span with its parent and step; the
 prefilter's stages come once a row block and count their partners; kernel
-#2's plain path counts its queries; under ``torch.profiler`` the trace
+#2's plain path counts its queries, and kernel #3's its launch and tier
+in each stage 1; under ``torch.profiler`` the trace
 holds the step's spans as ranges, and nothing else is recorded; and synchronizing calls are put down to
 the innermost open span. No JAX: the port's engine alone."""
 
@@ -157,6 +158,23 @@ def test_prefilter_stages_once_a_row_block():
     assert summary["hash_lookup"]["counts"]["launches"] == 4
 
 
+def test_stage1_filter_counts_once_a_row_block():
+    """Kernel #3's path in the same recorded call: one ``fp_filter`` span
+    inside each ``pf.stage1``, counting its launch and its tier (H2O's
+    table, nb 256 x E 32 = 32 KB, in shared memory); the block's partners
+    are the enclosing stage's."""
+    mol, eng = _h2o_engine()
+    words, la, ph, valid = _h2o_batch(mol.qubit_num)
+    m = eng.n_groups
+    with spans.recording() as rec:
+        eng.local_energy_proxy(words, la, ph, valid)
+    got = [(rec.spans[s.parent].name, rec.spans[s.parent].counts, s.counts)
+           for s in rec.spans if s.name == "fp_filter"]
+    assert got == [("pf.stage1", {"partners": rows * m},
+                    {"fp_launches": 1, "fp_smem_launches": 1})
+                   for rows in (40, 40, 16)]
+
+
 def _h2o_engine():
     mol = Molecule.create(MolConfig(name="H2O"), mols_dir=MOLS,
                           run_fci=False, run_cisd=False, device="cpu")
@@ -197,6 +215,27 @@ def test_chip_smoke_runs_the_prefilter_kernels_alone():
     assert kernels["kernel1_3b"]().shape == (96, m)
     assert kernels["kernel2_3a"]()[0].shape == (96 * 2,)
     assert kernels["kernel2_3b"]()[0].shape == (96 * m,)
+
+
+def test_chip_smoke_bounds_kernel3_by_its_operations(monkeypatch):
+    """``chip_smoke.fp_filter_bound`` at a Cr2 row block (128 rows x
+    471,774 groups, K 3, nb 512 x E 16) on an H100's 132 SMs at 1980 MHz:
+    the 46 INT32-pipe instructions a partner that the kernel's SASS takes
+    for its hashing and compares, at 64 lanes an SM, 0.17 ms, over the
+    dispatch slots of all 57 (0.10 ms) and its bytes' 0.02 ms; the C2H4
+    layout (K 2, E 32) takes 51 and 5."""
+    import chip_smoke
+
+    assert chip_smoke.fp_filter_ops(3, 16) == (46, 11)
+    assert chip_smoke.fp_filter_ops(1, 32) == chip_smoke.fp_filter_ops(
+        2, 32) == (51, 5)
+    rate = 132 * chip_smoke.INT32_LANES_PER_SM * 1980e6
+    monkeypatch.setattr(chip_smoke, "INT32_OPS_PER_S", rate)
+    n_bytes, bytes_ms, ops_ms = chip_smoke.fp_filter_bound(128, 3, 471774,
+                                                           512, 16)
+    assert n_bytes == 128 * 24 + 12 * 471774 + 4 * 512 * 16 + 128 * 471774
+    assert abs(ops_ms - 128 * 471774 * 46 / rate * 1e3) < 1e-12
+    assert 0.16 < ops_ms < 0.17 and bytes_ms < 0.03
 
 
 def test_plain_lookup_counts_its_queries():

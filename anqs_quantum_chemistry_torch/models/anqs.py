@@ -31,6 +31,7 @@ from torch import nn
 from ..ops import bits as bitops
 from ..ops import keys
 from ..symmetries.grouping import QubitGrouping
+from ..utils import spans
 from .made import MADE, MadeSpec
 from .nade import NADE, NadeSpec
 from .precision import check_compute_dtype, check_precision
@@ -361,7 +362,13 @@ class ANQS(nn.Module):
         """Masked+normalized conditional log-abs of qudit ``q`` for prefix
         ``words`` (bits at qudits >= q are zero); ``alive`` (B,) gates the
         live frontier rows, and an unmasked qudit drops the symmetry mask
-        but keeps that gating."""
+        but keeps that gating. With the transformer it counts
+        ``tx_sample_positions`` (``utils/spans.py``): the positions the main
+        net computes for this answer, every qudit's of every row."""
+        if self.config.net_type == "transformer":
+            spans.count("tx_sample_positions",
+                        words.shape[0] * self.qudit_num
+                        * (2 if self.spin_flip_abs else 1))
         la_q = self.main_log_abs_raw(words)[:, q]
         if alive is not None:
             mask = (mask | ~self.mu_flags[q]) & alive[:, None]

@@ -21,6 +21,9 @@ layer norms, the projections' outputs and the residual stream after the
 first attention block stay float32.
 
 Interface of ``made.MADE``: ``forward(bits (B, n)) -> (B, Q, D, C)``.
+Each forward is a span ``tx.forward`` (``utils/spans.py``) counting its
+rows ``tx_rows`` (B) and the positions it ran through the stack
+``tx_positions`` (B x Q), from shapes alone.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import spans
 from .precision import check_compute_dtype, einsum, matmul, store
 
 LN_EPS = 1e-5
@@ -153,6 +157,12 @@ class Transformer(nn.Module):
 
     def forward(self, bits: torch.Tensor) -> torch.Tensor:
         """bits (B, n) in {0, 1} -> (B, Q, D, C) conditional outputs."""
+        with spans.span("tx.forward"):
+            spans.count("tx_rows", bits.shape[0])
+            spans.count("tx_positions", bits.shape[0] * self.spec.qudit_num)
+            return self._forward(bits)
+
+    def _forward(self, bits: torch.Tensor) -> torch.Tensor:
         spec = self.spec
         b, q_num, d = bits.shape[0], spec.qudit_num, spec.d_model
         n_heads = spec.n_heads

@@ -5,7 +5,9 @@ prefilter's stages come once a row block and count their partners; kernel
 #2's plain path counts its queries, and kernel #3's its launch and tier
 in each stage 1; under ``torch.profiler`` the trace
 holds the step's spans as ranges, and nothing else is recorded; and synchronizing calls are put down to
-the innermost open span. No JAX: the port's engine alone."""
+the innermost open span. The transformer's ``tx.forward`` counts its rows
+and positions, a Gumbel draw its ``tx_sample_positions``, and spans that
+are off are one shared null context. No JAX: the port's engine alone."""
 
 import json
 import os
@@ -318,3 +320,88 @@ def test_syncs_are_put_down_to_the_innermost_span(monkeypatch):
     summary = rec.summary()
     assert summary["step"]["syncs"] == 1 and summary["inner"]["syncs"] == 2
     assert rec.cuda and summary["inner"]["device_ms"] >= 0.0
+
+
+def _tiny_transformer(mol, qpq=4):
+    """N2's ANQS with d_model 16, 2 layers, 2 heads, d_ff 32 decoders."""
+    from anqs_quantum_chemistry_torch.experiments.preparation import (
+        create_masker,
+    )
+    from anqs_quantum_chemistry_torch.models.anqs import ANQS
+    from anqs_quantum_chemistry_torch.symmetries import QubitGrouping
+
+    return ANQS(QubitGrouping.create(create_masker(mol, "e_num_spin"), qpq),
+                AnqsConfig(net_type="transformer", d_model=16, n_layers=2,
+                           n_heads=2, d_ff=32),
+                generator=torch.Generator().manual_seed(4))
+
+
+def test_transformer_forward_counts_rows_and_positions(n2):
+    """``ANQS.log_psi`` on a transformer: one ``tx.forward`` a decoder
+    (main, then aux), each counting its rows and rows x Q positions."""
+    anqs = _tiny_transformer(n2)
+    words = torch.zeros((37, 1), dtype=torch.int64)
+    with spans.recording() as rec, torch.no_grad():
+        anqs.log_psi(words)
+    forwards = [s for s in rec.spans if s.name == "tx.forward"]
+    assert len(forwards) == 2 and anqs.qudit_num == 5
+    for s in forwards:
+        assert s.counts == {"tx_rows": 37, "tx_positions": 37 * 5}
+    assert rec.summary(1)["tx.forward"]["counts"] == {
+        "tx_rows": 74.0, "tx_positions": 370.0}
+
+
+@pytest.mark.parametrize("k", [64, 300])
+def test_gumbel_draw_counts_the_positions_it_computes(n2, k):
+    """A Gumbel draw on a transformer counts ``tx_sample_positions``: at
+    each qudit the incoming frontier's rows times the Q positions the main
+    decoder runs (no cache), against the span open around the draw under
+    a recording, by name under a profiler; nothing when off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        gumbel_top_k_sample,
+        uniform_shapes,
+    )
+
+    anqs = _tiny_transformer(n2)
+    rows = [r for r, _ in uniform_shapes(anqs, k)]
+    assert rows[:2] == [1, 16] and rows[-1] == k
+    want = sum(rows) * anqs.qudit_num
+    gen = torch.Generator().manual_seed(1)
+    with spans.recording() as rec, spans.span("draw"):
+        gumbel_top_k_sample(anqs, k, gen)
+    assert rec.spans[0].counts == {"tx_sample_positions": want}
+    forwards = [s for s in rec.spans if s.name == "tx.forward"]
+    assert all(rec.spans[s.parent].name == "draw" for s in forwards)
+    assert [s.counts["tx_rows"] for s in forwards] == rows
+    before = spans.profiled_counts().get("tx_sample_positions", 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        gumbel_top_k_sample(anqs, k, gen)
+    after = spans.profiled_counts()["tx_sample_positions"]
+    assert after - before == want
+    gumbel_top_k_sample(anqs, k, gen)
+    assert spans.profiled_counts()["tx_sample_positions"] == after
+
+
+def test_spans_off_are_the_shared_null_context(n2, monkeypatch):
+    """Off, ``span()`` hands back one shared null context and ``count()``
+    records nothing; a transformer's forward and draw create no CUDA
+    event, enter no ``record_function`` and read no clock."""
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        gumbel_top_k_sample,
+    )
+
+    assert spans.span("tx.forward") is spans.span("other") is spans._OFF
+    before = spans.profiled_counts()
+    spans.count("tx_rows", 5)
+    assert spans.profiled_counts() == before
+    anqs = _tiny_transformer(n2)
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(time, "perf_counter", _refuse)
+    out = gumbel_top_k_sample(anqs, 32, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        la, _ = anqs.log_psi(out.words)
+    assert torch.isfinite(la[out.valid]).all()
+    assert spans.profiled_counts() == before

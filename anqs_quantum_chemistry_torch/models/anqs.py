@@ -338,6 +338,9 @@ class ANQS(nn.Module):
                                self.qubit_num, dtype=torch.float32)
             la_f = self.main(xf)[..., 0]
             la = 0.5 * (la + la_f[..., self.sf_cont_idx])
+        return self._cap(la)
+
+    def _cap(self, la):
         cap = self.config.logit_cap
         if cap:
             la = cap * torch.tanh(la / cap)
@@ -369,7 +372,33 @@ class ANQS(nn.Module):
             spans.count("tx_sample_positions",
                         words.shape[0] * self.qudit_num
                         * (2 if self.spin_flip_abs else 1))
-        la_q = self.main_log_abs_raw(words)[:, q]
+        return self._gated_cond(self.main_log_abs_raw(words)[:, q], q, mask,
+                                alive)
+
+    def _gated_cond(self, la_q, q: int, mask, alive):
         if alive is not None:
             mask = (mask | ~self.mu_flags[q]) & alive[:, None]
         return self.normalize_cond(la_q, mask & self.pad_masks[q][None])
+
+    def decode_cache(self, rows: int):
+        """A key/value cache for an ancestral draw of up to ``rows``
+        frontier rows, where the main net decodes one position at a time
+        (the transformer) and the conditional is not flip-averaged; else
+        None, and the draw asks ``cond_for_qudit_dyn``."""
+        if self.spin_flip_abs or not isinstance(self.main, Transformer):
+            return None
+        return self.main.decode_cache(rows, self.trans_tables.device)
+
+    def cond_for_qudit_cached(self, cache, words, q: int, mask, alive):
+        """``cond_for_qudit_dyn`` with the main net run at position ``q``
+        alone, against ``cache`` (``decode_cache``), which holds the keys
+        and values of positions < q of the rows of ``words`` (the caller
+        reorders it with the frontier: ``DecodeCache.advance``). Counts one
+        ``tx_sample_positions`` a row."""
+        rows = words.shape[0]
+        spans.count("tx_sample_positions", rows)
+        prev = (bitops.get_bit_range(words, self.qudit_starts[q - 1],
+                                     self.qudit_widths[q - 1])
+                if q else words.new_zeros(rows))
+        la_q = self._cap(self.main.decode(cache, prev, q)[..., 0])
+        return self._gated_cond(la_q, q, mask, alive)

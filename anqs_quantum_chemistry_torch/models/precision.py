@@ -76,6 +76,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     return _round(a) @ _round(b)
 
 
+def addmm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+          precision: Optional[str] = None) -> torch.Tensor:
+    """``c + matmul(a, b, precision)`` in one call (``torch.addmm``; the
+    product is float32 either way, so the sum rounds once)."""
+    if precision is None:
+        return torch.addmm(c, a, b)
+    return torch.addmm(c, _round(a), _round(b))
+
+
 def einsum(equation: str, a: torch.Tensor, b: torch.Tensor,
            precision: Optional[str] = None) -> torch.Tensor:
     """``torch.einsum(equation, a, b)`` at ``precision``."""

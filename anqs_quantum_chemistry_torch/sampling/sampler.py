@@ -30,6 +30,13 @@ one); the children's log-probabilities and Gumbels are all-gathered, the
 top-K, the expansion and the memo run replicated, and the frontier stays
 whole on every rank. Multinomial sampling runs replicated, as in JAX.
 
+On a transformer without ``spin_flip_abs``, a Gumbel draw with no mesh
+decodes incrementally (``ANQS.decode_cache``): at each qudit the main
+decoder runs the new position of each frontier row alone, against each
+layer's keys and values of the earlier positions, which follow the
+survivors' parents after each top-k. Every other draw recomputes every
+position of every row at each qudit (``ANQS.cond_for_qudit_dyn``).
+
 Both select each step's survivors with ``topk_impl``: 'lax' (``torch.topk``
 on the Gumbel keys, a stable sort on the counts) or 'bisect'
 (``ops.topk.exact_top_k``, ``jax.lax.top_k``'s order, -0.0 below 0.0,
@@ -180,6 +187,7 @@ def gumbel_top_k_sample(
                       device=device)
     logp = torch.zeros((1,), dtype=torch.float32, device=device)
     gumbel = torch.zeros((1,), dtype=torch.float32, device=device)
+    cache = anqs.decode_cache(k_cap) if mesh is None else None
     cap_now = 1
     for q in range(anqs.qudit_num):
         if q < q_sat:
@@ -198,10 +206,16 @@ def gumbel_top_k_sample(
         if q >= q_sat:
             rows = shard_rows(rows, mesh)
         b_words, b_memo, b_logp, b_gumbel, b_u = rows
-        cond = anqs.cond_for_qudit_dyn(
-            b_words, q, anqs.mask_tables[q][b_memo],
-            alive=b_logp > 0.5 * NEG,
-        )
+        if cache is None:
+            cond = anqs.cond_for_qudit_dyn(
+                b_words, q, anqs.mask_tables[q][b_memo],
+                alive=b_logp > 0.5 * NEG,
+            )
+        else:
+            cond = anqs.cond_for_qudit_cached(
+                cache, b_words, q, anqs.mask_tables[q][b_memo],
+                alive=b_logp > 0.5 * NEG,
+            )
         child_logp = torch.clamp(b_logp[:, None] + 2.0 * cond, min=NEG)
         child_gumbel = _gumbels_given_max(b_u, child_logp, b_gumbel)
         child_gumbel = torch.where(child_logp > 0.5 * NEG, child_gumbel, NEG)
@@ -217,6 +231,8 @@ def gumbel_top_k_sample(
         memo = anqs.trans_tables[q][memo[parent], cont]
         logp = child_logp.reshape(-1)[top_idx]
         gumbel = top_g
+        if cache is not None and q + 1 < anqs.qudit_num:
+            cache.advance(parent, q)
         if q == q_sat - 1 and cap_now < k_cap:
             # Whole space smaller than k_cap: pad to the fixed shape.
             pad = k_cap - cap_now

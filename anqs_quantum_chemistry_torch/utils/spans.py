@@ -241,10 +241,11 @@ def profiled_counts() -> Dict[str, int]:
     ``buckets``, ``entries`` and ``table_words``,
     ``fused_matrix_elements``' ``rows``, ``pf.stage1``'s ``partners``,
     ``fp_filter``'s ``fp_launches`` and ``fp_smem_launches``,
-    ``tx.forward``'s ``tx_rows`` and ``tx_positions`` (the transformer's
-    rows and the positions it ran through its stack) and the sampler's
-    ``tx_sample_positions`` (``ANQS.cond_for_qudit_dyn``: the positions
-    the transformer computed to answer a qudit's conditional)."""
+    ``tx.forward``'s and ``tx.decode``'s ``tx_rows`` and ``tx_positions``
+    (the transformer's rows and the positions it ran through its stack)
+    and the sampler's ``tx_sample_positions`` (``ANQS.cond_for_qudit_dyn``
+    and ``cond_for_qudit_cached``: the positions the transformer computed
+    to answer a qudit's conditional)."""
     return dict(_profiled_counts)
 
 

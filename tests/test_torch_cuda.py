@@ -848,3 +848,58 @@ def test_spans_count_host_syncs_on_card(cuda):
     assert syncs > 0 and summary["vmc.update"]["syncs"] >= 1
     step = summary["vmc.step"]
     assert 0 < step["device_ms"] and step["self_ms"] <= step["device_ms"]
+
+
+@pytest.mark.cuda
+def test_graphed_decode_matches_eager_on_card(cuda, monkeypatch):
+    """The cached Gumbel draw on the card, whose decode steps replay one
+    CUDA graph a (qudit, rows), draws what the same draw with each decode
+    run eagerly draws, from the same uniforms -- again after an in-place
+    update of the weights, which the graphs read where they lie; a new
+    parameter storage brings a new cache and new graphs."""
+    from anqs_quantum_chemistry_torch.experiments.preparation import (
+        create_masker,
+    )
+    from anqs_quantum_chemistry_torch.models.anqs import ANQS, AnqsConfig
+    from anqs_quantum_chemistry_torch.models.transformer import DecodeCache
+    from anqs_quantum_chemistry_torch.sampling.sampler import (
+        gumbel_top_k_sample,
+        uniform_shapes,
+    )
+    from anqs_quantum_chemistry_torch.symmetries import QubitGrouping
+
+    anqs = ANQS(QubitGrouping.create(create_masker(load_n2(), "e_num_spin"),
+                                     4),
+                AnqsConfig(net_type="transformer", d_model=16, n_layers=2,
+                           n_heads=2, d_ff=32, logit_cap=4.0),
+                generator=torch.Generator().manual_seed(4)).to(cuda)
+    k, gen = 64, torch.Generator(device=cuda).manual_seed(3)
+    graphed = DecodeCache.replay
+
+    def eager(cache, net, prev, q):
+        return net._decode(cache, prev, q)
+
+    def both():
+        us = [torch.clamp(torch.rand(s, generator=gen, device=cuda),
+                          min=1e-38) for s in uniform_shapes(anqs, k)]
+        monkeypatch.setattr(DecodeCache, "replay", graphed)
+        a = gumbel_top_k_sample(anqs, k, uniforms=us)
+        monkeypatch.setattr(DecodeCache, "replay", eager)
+        b = gumbel_top_k_sample(anqs, k, uniforms=us)
+        assert torch.equal(a.words, b.words)
+        assert torch.equal(a.valid, b.valid) and int(a.valid.sum()) == k
+        torch.testing.assert_close(a.log_probs, b.log_probs, rtol=1e-6,
+                                   atol=1e-6)
+
+    both()
+    cache = anqs.main._decode_cache
+    assert len(cache._graphs) == anqs.qudit_num
+    with torch.no_grad():
+        for p in anqs.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    both()
+    assert anqs.main._decode_cache is cache
+    assert len(cache._graphs) == anqs.qudit_num
+    anqs.main.head = torch.nn.Parameter(anqs.main.head.detach().clone())
+    both()
+    assert anqs.main._decode_cache is not cache

@@ -6,8 +6,9 @@ prefilter's stages come once a row block and count their partners; kernel
 in each stage 1; under ``torch.profiler`` the trace
 holds the step's spans as ranges, and nothing else is recorded; and synchronizing calls are put down to
 the innermost open span. The transformer's ``tx.forward`` counts its rows
-and positions, a Gumbel draw its ``tx_sample_positions``, and spans that
-are off are one shared null context. No JAX: the port's engine alone."""
+and positions, a Gumbel draw its ``tx_sample_positions`` (one position a
+row in its cached ``tx.decode`` steps), and spans that are off are one
+shared null context. No JAX: the port's engine alone."""
 
 import json
 import os
@@ -322,7 +323,7 @@ def test_syncs_are_put_down_to_the_innermost_span(monkeypatch):
     assert rec.cuda and summary["inner"]["device_ms"] >= 0.0
 
 
-def _tiny_transformer(mol, qpq=4):
+def _tiny_transformer(mol, qpq=4, **cfg):
     """N2's ANQS with d_model 16, 2 layers, 2 heads, d_ff 32 decoders."""
     from anqs_quantum_chemistry_torch.experiments.preparation import (
         create_masker,
@@ -332,7 +333,7 @@ def _tiny_transformer(mol, qpq=4):
 
     return ANQS(QubitGrouping.create(create_masker(mol, "e_num_spin"), qpq),
                 AnqsConfig(net_type="transformer", d_model=16, n_layers=2,
-                           n_heads=2, d_ff=32),
+                           n_heads=2, d_ff=32, **cfg),
                 generator=torch.Generator().manual_seed(4))
 
 
@@ -351,12 +352,11 @@ def test_transformer_forward_counts_rows_and_positions(n2):
         "tx_rows": 74.0, "tx_positions": 370.0}
 
 
-@pytest.mark.parametrize("k", [64, 300])
-def test_gumbel_draw_counts_the_positions_it_computes(n2, k):
-    """A Gumbel draw on a transformer counts ``tx_sample_positions``: at
-    each qudit the incoming frontier's rows times the Q positions the main
-    decoder runs (no cache), against the span open around the draw under
-    a recording, by name under a profiler; nothing when off."""
+def _count_draw(anqs, k, flip):
+    """Draw ``k`` rows under a recording, under a profiler and with spans
+    off, checking ``tx_sample_positions`` against the frontier's rows:
+    one position a row in one ``tx.decode`` a qudit with the cache, Q a
+    row, twice, in two ``tx.forward`` a qudit under ``spin_flip_abs``."""
     from torch.profiler import ProfilerActivity, profile
 
     from anqs_quantum_chemistry_torch.sampling.sampler import (
@@ -364,17 +364,23 @@ def test_gumbel_draw_counts_the_positions_it_computes(n2, k):
         uniform_shapes,
     )
 
-    anqs = _tiny_transformer(n2)
     rows = [r for r, _ in uniform_shapes(anqs, k)]
     assert rows[:2] == [1, 16] and rows[-1] == k
-    want = sum(rows) * anqs.qudit_num
+    want = sum(rows) * (2 * anqs.qudit_num if flip else 1)
     gen = torch.Generator().manual_seed(1)
     with spans.recording() as rec, spans.span("draw"):
         gumbel_top_k_sample(anqs, k, gen)
     assert rec.spans[0].counts == {"tx_sample_positions": want}
-    forwards = [s for s in rec.spans if s.name == "tx.forward"]
-    assert all(rec.spans[s.parent].name == "draw" for s in forwards)
-    assert [s.counts["tx_rows"] for s in forwards] == rows
+    steps = [s for s in rec.spans
+             if s.name == ("tx.forward" if flip else "tx.decode")]
+    assert all(rec.spans[s.parent].name == "draw" for s in steps)
+    if flip:
+        assert [s.counts["tx_rows"] for s in steps[::2]] == rows
+        assert [s.counts["tx_rows"] for s in steps[1::2]] == rows
+    else:
+        assert [s.counts for s in steps] == [
+            {"tx_rows": r, "tx_positions": r} for r in rows]
+        assert not any(s.name == "tx.forward" for s in rec.spans)
     before = spans.profiled_counts().get("tx_sample_positions", 0)
     with profile(activities=[ProfilerActivity.CPU]):
         gumbel_top_k_sample(anqs, k, gen)
@@ -382,6 +388,23 @@ def test_gumbel_draw_counts_the_positions_it_computes(n2, k):
     assert after - before == want
     gumbel_top_k_sample(anqs, k, gen)
     assert spans.profiled_counts()["tx_sample_positions"] == after
+
+
+@pytest.mark.parametrize("k", [64, 300])
+def test_gumbel_draw_counts_the_positions_it_computes(n2, k):
+    """A Gumbel draw on a transformer counts ``tx_sample_positions``: at
+    each qudit the incoming frontier's rows times the one position the
+    main decoder runs against its key/value cache, in one ``tx.decode``
+    a qudit carrying the frontier's rows -- against the span open around
+    the draw under a recording, by name under a profiler; nothing when
+    off."""
+    _count_draw(_tiny_transformer(n2), k, flip=False)
+
+
+def test_flip_averaged_draw_counts_every_position(n2):
+    """Under ``spin_flip_abs`` the draw recomputes every position of the
+    row and of its flip: 2Q positions a frontier row a qudit."""
+    _count_draw(_tiny_transformer(n2, spin_flip_abs=True), 64, flip=True)
 
 
 def test_spans_off_are_the_shared_null_context(n2, monkeypatch):

@@ -8,14 +8,8 @@ skips the finished entries and re-runs interrupted ones.
 A run directory is named by the first 16 hex characters of the sha256 of
 JAX's signature of an entry, ``[cfg.to_dict(), asdict(acfg),
 mol.config.to_dict()]`` (keys sorted), built from the port's configs. The
-port's ``AnqsConfig`` and ``MolConfig`` serialise as JAX's do, and its
-``VMCConfig`` holds every key of JAX's (the ``sector_membership`` switch
-and its two limits among them: ``SIGNATURE_ONLY_JAX`` is empty) and two
-more (``SIGNATURE_ONLY_PORT``): the port names the engine's membership and
-group order as fields of their own where JAX keeps them in
-``engine_overrides``. So the same entry gets another directory name in the
-port than in the JAX package, and the two packages' series do not share
-run directories.
+port's ``VMCConfig``, ``AnqsConfig`` and ``MolConfig`` serialise as JAX's
+do, so an entry gets the directory name that the JAX package gives it.
 """
 
 from __future__ import annotations
@@ -31,10 +25,6 @@ import numpy as np
 from ..chem.molecule import Molecule
 from ..models.anqs import AnqsConfig
 from .vmc import VMC, VMCConfig
-
-# The keys of a VMCConfig's ``to_dict()`` that only one package has.
-SIGNATURE_ONLY_PORT = ("membership", "weights_matmul")
-SIGNATURE_ONLY_JAX = ()
 
 
 def entry_signature(mol: Molecule, cfg: VMCConfig, acfg: AnqsConfig) -> str:

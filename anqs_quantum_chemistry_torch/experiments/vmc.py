@@ -108,10 +108,8 @@ DISTILL_COLUMNS = ("distill_loss_first", "distill_loss_last",
 
 @dataclasses.dataclass
 class VMCConfig(Config):
-    """The fields of the JAX ``VMCConfig`` that the port reads, with JAX's
-    names and defaults, and the engine's membership and matrix-element
-    form (JAX ``engine_overrides["membership"]`` and
-    ``["weights_matmul"]``, which ``engine_overrides`` may also name)."""
+    """The fields of the JAX ``VMCConfig``, with JAX's names and
+    defaults."""
 
     sample_num: int = 2000
     # 'gumbel' | 'multinomial' | 'exact' ('exact' enumerates the whole
@@ -155,7 +153,7 @@ class VMCConfig(Config):
     # builds them where the sector holds at most
     # ``sector_membership_max_dets`` determinants and the tables at most
     # ``sector_membership_max_entries`` (dets x groups) entries, unless a
-    # dynamic membership is named (``membership`` or ``engine_overrides``)
+    # dynamic membership is named (``engine_overrides``)
     # or the ansatz can sample outside the sector; 'on' always builds them
     # (``ValueError`` above ``SECTOR_ON_MAX_DETS`` determinants or with an
     # ansatz that leaves the sector); 'off' never. Never above 64 qubits.
@@ -194,21 +192,15 @@ class VMCConfig(Config):
     # extra dir (reference energy_opt_exp.py:414-481,648-675).
     save_best_model: bool = False
     extra_best_dirs: Tuple[str, ...] = ()
-    # The engine's dynamic membership ('auto' | 'table' | 'hash' |
-    # 'prefilter' | 'search' | 'hash_dist'). Where sector membership is
-    # off (``sector_membership``; a named membership turns its 'auto' off)
-    # the step sorts the sample set and the engine resolves partners from
-    # the set itself.
-    membership: str = "auto"
-    # The engine's group order ('auto' | 'split' | 'grouped'; the JAX
-    # engine's ``weights_matmul``).
-    weights_matmul: str = "auto"
-    # Extra ``PauliEngine`` keywords (JAX's field): any of
-    # ``ENGINE_OVERRIDE_KEYS`` (another key raises); a ``membership`` or
-    # ``weights_matmul`` here must agree with the field of that name unless
-    # the field is 'auto', and a ``membership`` key turns 'auto' sector
-    # membership off (JAX ``vmc.py:436``). The overflow policy escalates from these
-    # capacities.
+    # ``PauliEngine`` keywords (JAX's field): any of
+    # ``ENGINE_OVERRIDE_KEYS`` (another key raises), the engine's default
+    # where absent. ``membership`` names the dynamic membership ('auto' |
+    # 'table' | 'hash' | 'prefilter' | 'search' | 'hash_dist'): where
+    # sector membership is off the step sorts the sample set and the
+    # engine resolves partners from the set itself, and a named one turns
+    # 'auto' sector membership off (JAX ``vmc.py:436``). ``weights_matmul``
+    # names the group order ('auto' | 'split' | 'grouped'). The overflow
+    # policy escalates from these capacities.
     engine_overrides: Optional[dict] = None
     # Membership overflow (table_overflow + pf_dropped_rows above the
     # threshold): 'escalate' doubles the hash bucket count (and, under
@@ -237,23 +229,15 @@ class VMCConfig(Config):
 
 
 def _engine_kwargs(cfg: VMCConfig) -> dict:
-    """The ``PauliEngine`` keywords of ``cfg``: its ``membership`` and
-    ``weights_matmul`` under ``engine_overrides`` (JAX ``vmc.py:245-251``).
-    Raises ``ValueError`` on a key the port's engine lacks or one that
-    contradicts the field of its name."""
+    """The ``PauliEngine`` keywords of ``cfg``: its ``engine_overrides``
+    (JAX ``vmc.py:245-251``). Raises ``ValueError`` on a key the port's
+    engine lacks."""
     overrides = dict(cfg.engine_overrides or {})
     unknown = sorted(set(overrides) - set(ENGINE_OVERRIDE_KEYS))
     if unknown:
         raise ValueError(f"engine_overrides {unknown}: the port's "
                          f"PauliEngine takes only {ENGINE_OVERRIDE_KEYS}")
-    kwargs = {"membership": cfg.membership,
-              "weights_matmul": cfg.weights_matmul}
-    for name, field in kwargs.items():
-        if name in overrides and field not in ("auto", overrides[name]):
-            raise ValueError(f"engine_overrides[{name!r}] = "
-                             f"{overrides[name]!r} contradicts VMCConfig."
-                             f"{name} = {field!r}")
-    return {**kwargs, **overrides}
+    return overrides
 
 
 def _lr_at(cfg: VMCConfig, count: int) -> float:
@@ -592,8 +576,7 @@ class VMC:
                 raise ValueError(f"sector too large for sector membership "
                                  f"({ndet} > {SECTOR_ON_MAX_DETS})")
             return True
-        if (cfg.membership != "auto"
-                or "membership" in (cfg.engine_overrides or {})
+        if ("membership" in (cfg.engine_overrides or {})
                 or self.anqs.leaves_sector):
             return False  # a named dynamic membership is used as named
         return (ndet <= cfg.sector_membership_max_dets
@@ -1655,7 +1638,7 @@ def li2o_vmc(device="cuda", hidden_width: int = 512,
 
     cfg = dict(sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
                lr=3e-3, grad_clip_norm=1.0, sr=SRConfig(max_indices_num=50),
-               membership="hash", seed=0)
+               engine_overrides={"membership": "hash"}, seed=0)
     return VMC(
         load_li2o(),
         VMCConfig(**{**cfg, **overrides}),

@@ -300,9 +300,6 @@ def assert_config_in(port: dict, ref: dict, skip=()):
             assert value == ref[key], (key, value, ref[key])
 
 
-PORT_ONLY = ("membership", "weights_matmul")
-
-
 @pytest.mark.parametrize("net, theor, lr", [
     ("made", "1", None), ("transformer", "0", "1e-4"),
     ("transformer", "1", None), ("nade", "1", None), ("made", "0", "3e-5"),
@@ -315,8 +312,7 @@ def test_cisd_pretrain_vmc_configs_match_example(net, theor, lr,
     lr_f = float(lr) if lr else None
     cfg = cpv.vmc_config(types.SimpleNamespace(**vars(fake_molecule())),
                          net, 8192, 4, 4000, theor == "1", 1.0, lr_f)
-    assert cfg.membership == cfg.weights_matmul == "auto"
-    assert_config_in(cfg.to_dict(), jcfg.to_dict(), skip=PORT_ONLY)
+    assert_config_in(cfg.to_dict(), jcfg.to_dict())
     for field in ANQS_FIELDS:
         assert getattr(cpv.NETS[net], field) == getattr(janqs, field), field
     assert cpv.run_name("c2h4", net, theor == "1", 1.0, lr_f) == (
@@ -429,7 +425,7 @@ def test_c2h4_support_ci_tables_match_example(monkeypatch):
             mod.make_vmc(None, precision=precision)
         jcfg, janqs = got.value.args
         assert_config_in(VMCConfig(**c2sci.SCI_VMC_CONFIG).to_dict(),
-                         jcfg.to_dict(), skip=PORT_ONLY)
+                         jcfg.to_dict())
         want = c2sci.C2H4_MADE.__class__(**{
             **vars(c2sci.C2H4_MADE), "matmul_precision": precision})
         for field in ANQS_FIELDS:
@@ -461,7 +457,7 @@ def test_c2h4_support_transformer_tables_match_example(monkeypatch):
         mod.make_vmc(None)
     jcfg, janqs = got.value.args
     assert_config_in(VMCConfig(**c2sci.SCI_VMC_CONFIG).to_dict(),
-                     jcfg.to_dict(), skip=PORT_ONLY)
+                     jcfg.to_dict())
     for field in ANQS_FIELDS:
         assert getattr(cpv.NETS["transformer"], field) == getattr(
             janqs, field), field

@@ -52,7 +52,7 @@ def build(name, cfg, anqs_kw, membership=None):
     if membership:
         jcfg.update(engine_overrides={"membership": membership},
                     sector_membership="off")
-        port_cfg["membership"] = membership
+        port_cfg["engine_overrides"] = {"membership": membership}
     jv = jvmc.VMC(jmol, jvmc.VMCConfig(sr=JaxSRConfig(max_indices_num=50),
                                        **jcfg),
                   JaxAnqsConfig(**anqs_kw))

@@ -129,8 +129,7 @@ def test_pauli_form_matches_integrals(cr2):
 def test_trainer_config_matches_jax():
     """``cr2_config`` (what both entry points build) against the JAX run's
     ``config.json``, every field of JAX's (the sector-membership switch
-    and its thresholds among them), which the port has every one of, and
-    the port's two own fields at 'auto'; and the ansatz against the
+    and its thresholds among them) and no other; and the ansatz against the
     examples' ``AnqsConfig(hidden_widths=(1024,), logit_cap=8.0)``, field
     for field."""
     with open(os.path.join(RUNS, "cr2_train", "config.json")) as f:
@@ -141,9 +140,7 @@ def test_trainer_config_matches_jax():
     for key in sorted(set(got) & set(want) - {"sr"}):
         assert got[key] == want[key], key
     assert got["sr"] == want["sr"]
-    assert set(want) <= set(got)
-    assert set(got) - set(want) == {"membership", "weights_matmul"}
-    assert (got["membership"], got["weights_matmul"]) == ("auto", "auto")
+    assert set(got) == set(want)
     jax_cfg = dataclasses.asdict(JaxAnqsConfig(hidden_widths=(1024,),
                                                logit_cap=8.0))
     port_cfg = dataclasses.asdict(vmc_mod.CR2_ANQS)

@@ -141,11 +141,10 @@ def test_run_interleaves_cycles_under_jax_header(tmp_path):
 def test_engine_overrides():
     """The overrides reach the engine (the Li2O campaign's prefilter
     capacities, and the escalation doubles them); a ``membership`` key
-    turns sector membership off; ``me_chunk``, ``hash_epb`` and the
-    'hash_dist' routing slacks reach the engine; keys the port's engine
-    lacks (``mesh`` is the trainer's own argument), a
-    contradicting ``membership`` / ``weights_matmul`` and an unknown
-    distillation loss raise."""
+    turns sector membership off; ``weights_matmul``, ``me_chunk``,
+    ``hash_epb`` and the 'hash_dist' routing slacks reach the engine; keys
+    the port's engine lacks (``mesh`` is the trainer's own argument) and an
+    unknown distillation loss raise."""
     vmc = li2o_nade_vmc(device="cpu", engine_overrides={
         "prefilter_row_capacity": 768, "prefilter_dense_rows": 4096,
         "pf_row_chunk": 512, "hash_extra_bits": 1})
@@ -165,7 +164,7 @@ def test_engine_overrides():
     v = VMC(mol, VMCConfig(engine_overrides={"membership": "hash"},
                            **H2_CFG), cfg, device="cpu")
     assert v.sector_words is None and v.engine.membership == "hash"
-    assert VMC(mol, VMCConfig(membership="hash", engine_overrides={
+    assert VMC(mol, VMCConfig(engine_overrides={
         "membership": "hash", "weights_matmul": "grouped"}, **H2_CFG),
         cfg, device="cpu").engine.weights_matmul == "grouped"
     eng = VMC(mol, VMCConfig(engine_overrides={
@@ -179,12 +178,6 @@ def test_engine_overrides():
     for bad in ({"lookup_kernel": "pallas"}, {"mesh": None}):
         with pytest.raises(ValueError, match=next(iter(bad))):
             VMC(mol, VMCConfig(engine_overrides=bad, **H2_CFG), cfg,
-                device="cpu")
-    for field, value, other in (("membership", "hash", "table"),
-                                ("weights_matmul", "split", "grouped")):
-        with pytest.raises(ValueError, match="contradicts"):
-            VMC(mol, VMCConfig(engine_overrides={field: other},
-                               **{field: value, **H2_CFG}), cfg,
                 device="cpu")
     with pytest.raises(ValueError, match="distill_loss"):
         VMC(mol, VMCConfig(distill_loss="mse", **H2_CFG), cfg, device="cpu")

@@ -130,7 +130,7 @@ def test_kernel_counts_from_shapes(lih):
                   "transcendentals": 0, cost.BYTES: 4 * B + n_terms * 10
                   + 4 * (m + 1) + 4 * B * m}
 
-    h = cost_vmc(lih, sr=None, membership="hash")
+    h = cost_vmc(lih, sr=None, engine_overrides={"membership": "hash"})
     src = h.step_cost_analysis()["by_source"]
     nb, n_q = 256, B * m
     tab, tags = nb * 4 * 32 * 4, nb * 32
@@ -157,7 +157,7 @@ def test_filter_counts_from_shapes(lih):
     256 x E 32 fingerprints): one call, no flops (integer hashing), the
     rows' and masks' words, the table and the (B, M) mask; its plain
     version adds no aten op of its own to the count."""
-    v = cost_vmc(lih, sr=None, membership="prefilter")
+    v = cost_vmc(lih, sr=None, engine_overrides={"membership": "prefilter"})
     m = v.engine.n_groups
     src = v.step_cost_analysis()["by_source"]
     assert src["fp_filter"] == {

@@ -68,7 +68,7 @@ def test_auto_thresholds(lih):
     n_entries = 225 * on.ham.n_groups
     for cfg in (dict(sector_membership_max_dets=64),
                 dict(sector_membership_max_entries=n_entries - 1),
-                dict(membership="hash"),
+                dict(engine_overrides={"membership": "hash"}),
                 dict(engine_overrides={"membership": "table"})):
         assert lih_vmc(lih, (16,), sample_num=32,
                        **cfg).sector_words is None, cfg
@@ -80,7 +80,8 @@ def test_auto_thresholds(lih):
 def test_on_and_off_whatever_else_is_named(lih):
     """'on' (or True) builds the sector tables whatever ``membership`` and
     the limits say; 'off' (or False) never does; another value raises."""
-    for cfg in (dict(sector_membership="on", membership="hash"),
+    for cfg in (dict(sector_membership="on",
+                     engine_overrides={"membership": "hash"}),
                 dict(sector_membership=True, sector_membership_max_dets=1,
                      sector_membership_max_entries=1)):
         assert lih_vmc(lih, (16,), sample_num=32, **cfg).sector_words \

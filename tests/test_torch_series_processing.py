@@ -1,7 +1,6 @@
 """The run-series and result-processing tools of the PyTorch port against
 the JAX package: ``run_series`` directory names against JAX's signature of
-the same entries (the fields that differ are named in ``series.py``) and
-its skip of finished entries; ``processing`` on JAX's
+the same entries, which they equal, and its skip of finished entries; ``processing`` on JAX's
 ``tests/test_processing.py`` tree (a gzip run included) and on run
 directories that the port's ``run()`` wrote, row by row against JAX's
 DataFrames; ``summarize_runs``; and the walkthrough's LiH built from atoms
@@ -105,16 +104,6 @@ def test_run_series_names_against_jax(series_root):
         jax_sig = json.loads(json.dumps(_jax_signature(
             JaxMolConfig(name="LiH"), jcfg, jacfg), sort_keys=True,
             default=str))
-        # Only the named VMCConfig keys differ; the rest is JAX's, so the
-        # names agree once those keys are left out of both.
-        assert sorted(set(port_sig[0]) - set(jax_sig[0])) == sorted(
-            series.SIGNATURE_ONLY_PORT)
-        assert sorted(set(jax_sig[0]) - set(port_sig[0])) == sorted(
-            series.SIGNATURE_ONLY_JAX)
-        for key in series.SIGNATURE_ONLY_PORT:
-            del port_sig[0][key]
-        for key in series.SIGNATURE_ONLY_JAX:
-            del jax_sig[0][key]
         assert port_sig == jax_sig
         assert best["skipped"] is False
     assert seen == [d for d, _ in results]
@@ -262,18 +251,14 @@ def test_plots(tree, tmp_path):
 
 def test_li2o_toy_model_config_is_jax_examples():
     """``li2o_toy_model``'s VMCConfig is the JAX example's literal one
-    (``examples/li2o_toy_model.py``) but for the keys that only one
-    package has, and its 'auto' membership is prefilter at 30 qubits."""
+    (``examples/li2o_toy_model.py``), key for key, and its 'auto'
+    membership is prefilter at 30 qubits."""
     jax_cfg = JaxVMCConfig(
         sample_num=8192, sampling_mode="gumbel", qubit_per_qudit=6,
         lr=3e-3, lr_schedule=((0, 3e-3), (1200, 1e-3), (2400, 3e-4)),
         grad_clip_norm=1.0, sr=JaxSRConfig(max_indices_num=50), seed=0,
     ).to_dict()
     cfg = li2o_toy_model.li2o_toy_config().to_dict()
-    for key in series.SIGNATURE_ONLY_PORT:
-        assert cfg.pop(key) == "auto"
-    for key in series.SIGNATURE_ONLY_JAX:
-        jax_cfg.pop(key)
     assert json.loads(json.dumps(cfg)) == json.loads(json.dumps(jax_cfg))
     vmc = VMC(load_li2o(), li2o_toy_model.li2o_toy_config(64),
               AnqsConfig(hidden_widths=(512,)), device="cpu")

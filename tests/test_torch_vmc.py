@@ -103,7 +103,7 @@ def test_dynamic_step_grads_and_metrics(membership):
         name="H2O", opt_type="sgd", lr=1.0, sector_membership="off",
         engine_overrides={"membership": membership,
                           "table_pairs_per_row": 1},
-        port_cfg={"membership": membership},
+        port_cfg={"engine_overrides": {"membership": membership}},
     )
     assert v.sector_words is None and v.engine.membership == membership
     # The HF row's E_loc is one float32 sum at |E| ~ 75 Ha: 2 ulps.
@@ -116,7 +116,7 @@ def _hash_pair(**kw):
     fields of both."""
     jv, v, _, _ = build(
         name="H2O", **kw, engine_overrides={"membership": "hash"},
-        port_cfg={"membership": "hash", **kw},
+        port_cfg={"engine_overrides": {"membership": "hash"}, **kw},
     )
     return jv, v
 
@@ -292,13 +292,15 @@ def test_unported_paths_raise():
     ``ValueError``."""
     _, mol = molecules("LiH")
     anqs = AnqsConfig(hidden_widths=(8,))
-    v = VMC(mol, VMCConfig(**CFG, membership="hash_dist"), anqs,
-            device="cpu")
+    v = VMC(mol, VMCConfig(**CFG, engine_overrides={
+        "membership": "hash_dist"}), anqs, device="cpu")
     assert v.engine.membership == "hash_dist" and v.engine.mesh is None
-    VMC(mol, VMCConfig(**CFG, membership="search"), anqs, device="cpu")
+    VMC(mol, VMCConfig(**CFG, engine_overrides={"membership": "search"}),
+        anqs, device="cpu")
     VMC(mol, VMCConfig(**CFG), AnqsConfig(net_type="nade"), device="cpu")
     with pytest.raises(ValueError, match="net_type"):
         VMC(mol, VMCConfig(**CFG), AnqsConfig(net_type="bf_state"),
             device="cpu")
     with pytest.raises(ValueError):  # no membership of either package
-        VMC(mol, VMCConfig(**CFG, membership="sector"), anqs, device="cpu")
+        VMC(mol, VMCConfig(**CFG, engine_overrides={
+            "membership": "sector"}), anqs, device="cpu")
